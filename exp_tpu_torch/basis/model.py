@@ -1,5 +1,6 @@
 """Spherical mass models (host-side NumPy/SciPy; a copy of
-`SphericalModelTable` and `hernquist_model` from exp_tpu/basis/model.py).
+`SphericalModelTable` (with `from_density`) and `hernquist_model` from
+exp_tpu/basis/model.py).
 
 `SphericalModelTable` is the background profile a basis or an IC generator
 needs: rho(r), M(r), Phi(r), in the reference's 4-column file format
@@ -123,6 +124,34 @@ class SphericalModelTable:
     @property
     def total_mass(self):
         return float(self.mass[-1])
+
+    @classmethod
+    def from_density(cls, rho_fn, rmin: float, rmax: float, numr: int = 2000,
+                     comment: str = "") -> "SphericalModelTable":
+        """Build a table from a density callable by integrating M and Phi.
+
+        Uses fine log-spaced quadrature of
+          M(r)   = 4 pi \\int_0^r rho s^2 ds
+          Phi(r) = -M(r)/r - 4 pi \\int_r^inf rho s ds
+        """
+        # fine integration grid, extended inward of rmin for the cusp/core
+        r_lo = rmin * 1e-3
+        rf = np.geomspace(r_lo, rmax, 20001)
+        rhof = np.asarray(rho_fn(rf), dtype=np.float64)
+        integrand_m = 4.0 * np.pi * rhof * rf**2
+        # cumulative trapezoid for M(r)
+        dm = 0.5 * (integrand_m[1:] + integrand_m[:-1]) * np.diff(rf)
+        Mf = np.concatenate([[0.0], np.cumsum(dm)])
+        integrand_p = 4.0 * np.pi * rhof * rf
+        dp = 0.5 * (integrand_p[1:] + integrand_p[:-1]) * np.diff(rf)
+        Pout = np.concatenate([[0.0], np.cumsum(dp)])   # \int_{r_lo}^r rho s ds
+        Phif = -Mf / rf - (Pout[-1] - Pout)
+
+        r = np.geomspace(rmin, rmax, numr)
+        rho = np.interp(r, rf, rhof)
+        M = np.interp(r, rf, Mf)
+        Phi = np.interp(r, rf, Phif)
+        return cls(r, rho, M, Phi, comment=comment)
 
 
 def hernquist_model(a: float = 1.0, M: float = 1.0, rmin: float = 1e-4,

@@ -111,44 +111,43 @@ def kdk_run(force, x, v, mass, steps=50, dt=1e-3, device=None):
     """init_force_state + `steps` KDK steps of (x, v, mass) under `force`.
 
     Returns the first and last energies, the relative drift of
-    Etot = KE + PE, the virial ratio 2T/VC at both ends, and whether every
-    value of the final state is finite."""
+    Etot = KE + PE, the virial ratio 2T/VC at both ends, the z angular
+    momentum at both ends and its relative change, and whether every value
+    of the final state is finite."""
     from exp_tpu_torch.nbody.particles import ParticleSystem
     from exp_tpu_torch.nbody.step import energies, init_force_state, make_kdk_step
 
     ps = ParticleSystem.from_arrays(x, v, mass, device=resolve_device(device))
     ps, _, diag = init_force_state(force, ps)
-    e0 = energies(diag)
+    e0, lz0 = energies(diag), float(diag["L"][2])
     step = make_kdk_step(force, dt)
     for _ in range(steps):
         ps, coef, diag = step(ps)
-    e1 = energies(diag)
+    e1, lz1 = energies(diag), float(diag["L"][2])
     finite = all(bool(torch.isfinite(a).all())
                  for a in (ps.x, ps.v, ps.acc, ps.pot, coef))
     return {"steps": steps, "dt": dt, "n": int(ps.n),
             "Etot0": e0["Etot"], "Etot1": e1["Etot"],
             "dE_rel": abs(e1["Etot"] - e0["Etot"]) / abs(e0["Etot"]),
-            "virial0": e0["2T/VC"], "virial1": e1["2T/VC"], "finite": finite}
+            "virial0": e0["2T/VC"], "virial1": e1["2T/VC"],
+            "Lz0": lz0, "Lz1": lz1,
+            "dLz_rel": abs(lz1 - lz0) / abs(lz0) if lz0 else float("nan"),
+            "finite": finite}
 
 
-def profile_step(n=1_048_576, steps=10, tables=None, device=None):
+def profile_force(force, x, v, mass, dt, steps=10, device=None):
     """Device time per step by kernel (ms) from torch.profiler over `steps`
-    steady KDK steps of the benches' sample on a CUDA device, and the
-    device-busy share: that device time over the step time measured
+    steady KDK steps of (x, v, mass) under `force` on a CUDA device, and
+    the device-busy share: that device time over the step time measured
     without the profiler (the profiler slows the host)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from exp_tpu_torch.forces.spherical import SphereSL
     from exp_tpu_torch.nbody.particles import ParticleSystem
     from exp_tpu_torch.nbody.step import init_force_state, make_kdk_step
 
-    device = resolve_device(device)
-    t = tables if tables is not None else sphere_tables()
-    force = SphereSL.from_tables(t, backend="pallas", device=device)
-    x, v, mass = hernquist_sample_np(n)
-    ps = ParticleSystem.from_arrays(x, v, mass, device=device)
+    ps = ParticleSystem.from_arrays(x, v, mass, device=resolve_device(device))
     ps, _, _ = init_force_state(force, ps)
-    step = make_kdk_step(force, 1e-3)
+    step = make_kdk_step(force, dt)
     for _ in range(10):
         step(ps)
     sec, _ = timeit(lambda: step(ps), torch.cuda.synchronize, 30)
@@ -169,6 +168,18 @@ def profile_step(n=1_048_576, steps=10, tables=None, device=None):
             "device_busy": dev_ms / (sec * 1e3),
             "device_launches_per_step": launches / steps,
             "top": [{"name": k[:90], "ms": ms} for k, ms in top[:15]]}
+
+
+def profile_step(n=1_048_576, steps=10, tables=None, device=None):
+    """profile_force on the sphere bench: the benches' sample under the
+    pallas SphereSL at dt=1e-3."""
+    from exp_tpu_torch.forces.spherical import SphereSL
+
+    device = resolve_device(device)
+    t = tables if tables is not None else sphere_tables()
+    force = SphereSL.from_tables(t, backend="pallas", device=device)
+    x, v, mass = hernquist_sample_np(n)
+    return profile_force(force, x, v, mass, 1e-3, steps, device)
 
 
 def _main():

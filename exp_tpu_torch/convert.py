@@ -11,6 +11,7 @@ import dataclasses
 
 import numpy as np
 
+from exp_tpu_torch.basis.empcyl import EmpCylTables
 from exp_tpu_torch.basis.slgrid import SphSLTables
 
 _INT = ("lmax", "nmax", "numr", "cmap")
@@ -33,3 +34,27 @@ def sph_tables_from_numpy(d: dict) -> SphSLTables:
     kw.update({k: np.array(d[k], dtype=np.float64) for k in _ARRAY})
     kw["model_key"] = str(d.get("model_key", ""))
     return SphSLTables(**kw)
+
+
+_CYL_INT = ("mmax", "nmax", "numx", "numy")
+_CYL_FLOAT = ("acyl", "hcyl", "rcylmin", "rcylmax", "xmin", "xmax", "dx",
+              "ymin", "ymax", "dy")
+_CYL_ARRAY = ("pot", "rforce", "zforce", "dens")
+
+
+def cyl_tables_from_numpy(d: dict) -> EmpCylTables:
+    """The port's EmpCylTables from the fields of the JAX package's
+    EmpCylTables (EOF or flatdisk), given as a dict of arrays and scalars
+    (`dataclasses.asdict`).  The tables are copied as f64."""
+    names = {f.name for f in dataclasses.fields(EmpCylTables)}
+    unknown = set(d) - names
+    missing = set(_CYL_INT + _CYL_FLOAT + _CYL_ARRAY + ("even_count",)) - set(d)
+    if unknown or missing:
+        raise ValueError(f"EmpCylTables fields: unknown {sorted(unknown)}, "
+                         f"missing {sorted(missing)}")
+    kw = {k: int(d[k]) for k in _CYL_INT}
+    kw.update({k: float(d[k]) for k in _CYL_FLOAT})
+    kw.update({k: np.array(d[k], dtype=np.float64) for k in _CYL_ARRAY})
+    kw["even_count"] = np.array(d["even_count"], dtype=np.int64)
+    kw["key"] = str(d.get("key", ""))
+    return EmpCylTables(**kw)

@@ -18,9 +18,11 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("sphere_coef", "sphere_accel")
+SOURCES = ("sphere_coef", "sphere_accel", "cyl_coef", "cyl_accel")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -95,3 +97,37 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def bind(name: str, argtypes):
+    """(`<name>_launch`, `<name>_error_string`) of csrc/<name>.cu, typed:
+    the launcher returns a cudaError_t as an int."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def raise_on(code: int, err, name: str) -> None:
+    """Raise when a launcher returned a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name} kernel failed: CUDA error {code} "
+                           f"({err(code).decode()})")
+
+
+def check_tensor(t, name, shape, device) -> None:
+    """A kernel argument must be a contiguous f32 tensor of `shape` on
+    `device`."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

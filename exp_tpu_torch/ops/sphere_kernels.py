@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from exp_tpu_torch.ops import _build
 from exp_tpu_torch.ops.spline import b2
 
 #: launches of each kernel since the last reset (only kernel launches count)
@@ -290,31 +291,6 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 
 
-def _lib(name, argtypes):
-    from exp_tpu_torch.ops import _build
-
-    lib = _build.load(name)
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return fn, err
-
-
-def _check(t, name, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_prm(prm):
     if prm.lmax not in KERNEL_LMAX:
         raise ValueError(f"lmax={prm.lmax}: the sphere kernels are built "
@@ -322,12 +298,6 @@ def _check_prm(prm):
     if prm.cmap not in (0, 1):
         raise ValueError(f"cmap={prm.cmap}: the sphere kernels take the "
                          "identity (0) and algebraic (1) maps")
-
-
-def _raise_on(code, err, name):
-    if code != 0:
-        raise RuntimeError(f"{name} kernel failed: CUDA error {code} "
-                           f"({err(code).decode()})")
 
 
 def sphere_coef(x, mass, tab, M, prm: SphereKernelParams):
@@ -345,13 +315,14 @@ def sphere_coef(x, mass, tab, M, prm: SphereKernelParams):
     lmax, nmax = prm.lmax, prm.nmax
     P = (lmax + 1) ** 2
     dev = x.device
-    _check(x, "x", (n, 3), dev)
-    _check(mass, "mass", (n,), dev)
-    _check(tab, "tab", (prm.rows, (lmax + 1) * nmax), dev)
-    _check(M, "M", (P, (lmax + 1) * (lmax + 2) * (lmax + 3) // 6), dev)
-    fn, err = _lib("sphere_coef", [_P, _P, _LL, _P, _P, _P, _I, _P,
-                                   _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
-                                   _P])
+    _build.check_tensor(x, "x", (n, 3), dev)
+    _build.check_tensor(mass, "mass", (n,), dev)
+    _build.check_tensor(tab, "tab", (prm.rows, (lmax + 1) * nmax), dev)
+    _build.check_tensor(M, "M",
+                        (P, (lmax + 1) * (lmax + 2) * (lmax + 3) // 6), dev)
+    fn, err = _build.bind("sphere_coef", [_P, _P, _LL, _P, _P, _P, _I, _P,
+                                          _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                                          _F, _P])
     nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
     partial = torch.empty((nblocks, P, prm.rows), dtype=torch.float32,
                           device=dev)
@@ -363,7 +334,7 @@ def sphere_coef(x, mass, tab, M, prm: SphereKernelParams):
                   tab.data_ptr(), partial.data_ptr(), nblocks,
                   coef.data_ptr(), lmax, nmax, prm.nc, prm.cmap, prm.xmin,
                   prm.dxc, prm.rmin, prm.rmax, prm.rmap, prm.scale, stream)
-    _raise_on(code, err, "sphere_coef")
+    _build.raise_on(code, err, "sphere_coef")
     launch_counts["sphere_coef"] += 1
     return coef
 
@@ -382,11 +353,12 @@ def sphere_accel(x, twT, fac, prm: SphereKernelParams):
     n = x.shape[0]
     lmax = prm.lmax
     dev = x.device
-    _check(x, "x", (n, 3), dev)
-    _check(twT, "twT", (2 * (lmax + 1) ** 2, prm.rows), dev)
-    _check(fac, "fac", (lmax + 1, lmax + 1), dev)
-    fn, err = _lib("sphere_accel", [_P, _LL, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _F, _F, _F, _F, _F, _F, _F, _P])
+    _build.check_tensor(x, "x", (n, 3), dev)
+    _build.check_tensor(twT, "twT", (2 * (lmax + 1) ** 2, prm.rows), dev)
+    _build.check_tensor(fac, "fac", (lmax + 1, lmax + 1), dev)
+    fn, err = _build.bind("sphere_accel", [_P, _LL, _P, _P, _P, _P, _I, _I,
+                                           _I, _I, _F, _F, _F, _F, _F, _F, _F,
+                                           _P])
     acc = torch.empty((n, 3), dtype=torch.float32, device=dev)
     pot = torch.empty((n,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -395,6 +367,6 @@ def sphere_accel(x, twT, fac, prm: SphereKernelParams):
                   acc.data_ptr(), pot.data_ptr(), lmax, prm.nmax, prm.nc,
                   prm.cmap, prm.xmin, prm.dxc, prm.rmin, prm.rmax,
                   prm.rmap, prm.scale, prm.rmax * prm.scale, stream)
-    _raise_on(code, err, "sphere_accel")
+    _build.raise_on(code, err, "sphere_accel")
     launch_counts["sphere_accel"] += 1
     return acc, pot

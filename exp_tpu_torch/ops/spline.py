@@ -1,6 +1,6 @@
-"""Quadratic B-spline helpers for the sphere's 'spline' radial interpolation
-(the two host pieces of exp_tpu/ops/pallas_cylinder.py the sphere uses:
-`_b2` :66-72 and `prefilter_x` :292-315).
+"""Quadratic B-spline helpers for the 'spline' interpolation of the sphere's
+radial tables and the cylinder's coarse x tables (copies of `_b2` :66-72
+and `prefilter_x` :292-315 of exp_tpu/ops/pallas_cylinder.py).
 
 A table tabulated on nc uniform nodes is prefiltered once on the host into
 nc + 2 ghost-extended spline coefficients; a point at grid position t in

@@ -102,3 +102,119 @@ def test_step_on_card_matches_cpu(cuda):
                                atol=1e-6)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the EOF cylinder kernels K4 (cyl_coef) and K5 (cyl_accel)
+# ---------------------------------------------------------------------------
+
+# rmax_grid = 0.2 and the inner x edge R = 1e-5 for acyl = 0.01
+CYL_EDGE_X = [[0.0, 0.0, 0.0], [0.0, 0.0, 0.05], [0.3, 0.0, 0.0],
+              [0.15, 0.1, 0.12], [0.0, 0.0, 0.25], [0.001, 0.0, 0.1999],
+              [0.002, 0.001, -0.1995], [1e-5, 0.0, 0.0], [0.0, -3e-6, 1e-6],
+              [0.1999, 0.0, 0.0], [0.01, 0.01, 0.0]]
+
+
+@pytest.fixture(scope="module")
+def cyl_tables():
+    from exp_tpu_torch.basis.empcyl import build_empcyl_tables
+
+    if not torch.cuda.is_available():       # before the build, not after
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return build_empcyl_tables(mmax=6, nmax=8, lmaxfid=16, nmaxfid=12,
+                               acyl=0.01, hcyl=0.002, numx=256, numy=128,
+                               rnum=100, tnum=40)
+
+
+def _cyl_inputs(device):
+    from exp_tpu_torch.bench_disk import disk_sample
+
+    x, _, m = disk_sample(N, seed=1)
+    x = np.concatenate([x, CYL_EDGE_X])
+    m = np.concatenate([m, [1e-4] * (len(CYL_EDGE_X) - 1) + [0.0]])
+    return (torch.tensor(x, dtype=torch.float32, device=device),
+            torch.tensor(m, dtype=torch.float32, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["spline", "linear"])
+@pytest.mark.parametrize("ncx", [32, 64])
+def test_cyl_kernels_match_plain_versions(cuda, cyl_tables, interp, ncx):
+    """K4: max|dG|/max|G| and max|dc|/max|c| < 1e-5 (shared-memory
+    atomics sum in a varying order); zero mass gives exactly 0.  K5: acc
+    rtol 1e-4 / atol 1e-6 of max|a|, pot rtol 1e-5 / atol 1e-7 of max|pot|
+    (FMA contraction); each wrapper call on the card counts one launch."""
+    from exp_tpu_torch.forces.cylinder import CylinderForce
+    from exp_tpu_torch.ops import cyl_kernels as ck
+
+    f = CylinderForce.from_tables(cyl_tables, backend="pallas", ncx=ncx,
+                                  pallas_interp=interp, device=cuda)
+    prm = f._kernel_params()
+    x, m = _cyl_inputs(cuda)
+    before = dict(ck.launch_counts)
+    G = ck.cyl_coef(x, m, prm)
+    G0 = ck.cyl_coef_plain(x, m, prm)
+    torch.cuda.synchronize()
+    assert float((G - G0).abs().max() / G0.abs().max()) < 1e-5
+    c = ck.contract_coef_output(G, f.tab3)
+    c0 = ck.contract_coef_output(G0, f.tab3)
+    assert float((c - c0).abs().max() / c0.abs().max()) < 1e-5
+    assert float(ck.cyl_coef(x, torch.zeros_like(m), prm).abs().max()) == 0.0
+    Ct = ck.contract_coef_tables(c0, f.tab3, prm.xrows, prm.ncy)
+    a, p = ck.cyl_accel(x, Ct, prm)
+    a0, p0 = ck.cyl_accel_plain(x, Ct, prm)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
+    torch.testing.assert_close(a, a0, rtol=1e-4,
+                               atol=1e-6 * float(a0.abs().max()))
+    torch.testing.assert_close(p, p0, rtol=1e-5,
+                               atol=1e-7 * float(p0.abs().max()))
+    assert ck.launch_counts["cyl_coef"] == before["cyl_coef"] + 2
+    assert ck.launch_counts["cyl_accel"] == before["cyl_accel"] + 1
+
+
+@pytest.mark.gpu
+def test_cyl_wrappers_reject_bad_inputs(cuda, cyl_tables):
+    from exp_tpu_torch.forces.cylinder import CylinderForce
+    from exp_tpu_torch.ops import cyl_kernels as ck
+
+    f = CylinderForce.from_tables(cyl_tables, backend="pallas", device=cuda)
+    prm = f._kernel_params()
+    x, m = _cyl_inputs(cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ck.cyl_coef(x.double(), m, prm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.cyl_coef(x.t().contiguous().t(), m, prm)
+    with pytest.raises(ValueError, match="shape"):
+        ck.cyl_coef(x, m[:-1], prm)
+    Ct = ck.contract_coef_tables(f.coefficients(x, m), f.tab3, prm.xrows,
+                                 prm.ncy)
+    with pytest.raises(ValueError, match="is on"):
+        ck.cyl_accel(x, Ct.cpu(), prm)
+    with pytest.raises(ValueError, match="shape"):
+        ck.cyl_accel(x, Ct[:, :-1].contiguous(), prm)
+
+
+@pytest.mark.gpu
+def test_cyl_step_on_card_matches_cpu(cuda, cyl_tables):
+    """One KDK step of the disk through K4/K5 against the same step through
+    the plain versions on the CPU: positions and velocities to f32
+    roundoff."""
+    from exp_tpu_torch.bench_disk import DT, disk_sample
+    from exp_tpu_torch.forces.cylinder import CylinderForce
+    from exp_tpu_torch.nbody.particles import ParticleSystem
+    from exp_tpu_torch.nbody.step import init_force_state, make_kdk_step
+
+    x, v, m = disk_sample(N, seed=2)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        f = CylinderForce.from_tables(cyl_tables, backend="pallas",
+                                      device=dev)
+        ps = ParticleSystem.from_arrays(x, v, m, device=dev)
+        ps, _, _ = init_force_state(f, ps)
+        ps, _, _ = make_kdk_step(f, DT)(ps)
+        out[dev.type] = (ps.x.cpu(), ps.v.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-7)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                               atol=1e-5)

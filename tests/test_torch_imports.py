@@ -19,7 +19,10 @@ def test_import_loads_no_jax_or_exp_tpu():
     code = (
         "import sys, exp_tpu_torch, exp_tpu_torch.forces.spherical, "
         "exp_tpu_torch.nbody.step, exp_tpu_torch.convert, "
-        "exp_tpu_torch.bench_sphere, exp_tpu_torch.ic.eddington\n"
+        "exp_tpu_torch.bench_sphere, exp_tpu_torch.ic.eddington, "
+        "exp_tpu_torch.forces.cylinder, exp_tpu_torch.ops.cyl_kernels, "
+        "exp_tpu_torch.basis.empcyl, exp_tpu_torch.basis.flatdisk, "
+        "exp_tpu_torch.ic.disk, exp_tpu_torch.bench_disk\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exp_tpu' or m.startswith('exp_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -72,3 +75,15 @@ def test_sphere_entry_point_without_device_raises_when_no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SphereSL.from_tables(t, backend="pallas")
+
+
+def test_cylinder_entry_point_without_device_raises_when_no_cuda(
+        monkeypatch):
+    from exp_tpu_torch.basis.flatdisk import build_flatdisk_tables
+    from exp_tpu_torch.forces.cylinder import CylinderForce
+
+    t = build_flatdisk_tables(mmax=1, nmax=2, model="kuzmin", numx=16,
+                              numy=8, knots=40, numk=16)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CylinderForce.from_tables(t, backend="pallas")
