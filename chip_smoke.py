@@ -3,17 +3,22 @@
 
     python3 chip_smoke.py
 
-Two paths of exp_tpu_torch, each at 1,048,576 particles with
-backend='pallas', run the port's four hand-written kernels:
+Three paths of exp_tpu_torch, each with backend='pallas', run the port's
+six hand-written kernels:
 
-  the sphere path: the sphereSL KDK step of a Hernquist halo under the
-    spherical Sturm-Liouville basis (lmax=4, nmax=10, 2000 radial nodes),
-    through K1 (sphere coefficients, csrc/sphere_coef.cu) and K2 (sphere
-    force, csrc/sphere_accel.cu);
-  the disk path: the EOF cylinder KDK step of the disk bench (mmax=6,
-    nmax=18, 256 x 128 EOF tables, ncx=64 'spline'), through K4 (cylinder
-    coefficients, csrc/cyl_coef.cu) and K5 (cylinder force,
-    csrc/cyl_accel.cu).
+  the sphere path (1,048,576 particles): the sphereSL KDK step of a
+    Hernquist halo under the spherical Sturm-Liouville basis (lmax=4,
+    nmax=10, 2000 radial nodes), through K1 (sphere coefficients,
+    csrc/sphere_coef.cu) and K2 (sphere force, csrc/sphere_accel.cu);
+  the disk path (1,048,576 particles): the EOF cylinder KDK step of the
+    disk bench (mmax=6, nmax=18, 256 x 128 EOF tables, ncx=64 'spline'),
+    through K4 (cylinder coefficients, csrc/cyl_coef.cu) and K5 (cylinder
+    force, csrc/cyl_accel.cu);
+  the cube path (4,194,304 particles): the periodic plane-wave cube of the
+    cube bench (nmax=6 on each axis, dt=1e-3), through K7 (cube
+    coefficients, csrc/cube_coef.cu; K11a, pallas_version 1, is the same
+    kernel) and K8 (cube force, csrc/cube_accel.cu; K11b reaches it
+    through its v1 packing).
 
 Phases:
 
@@ -35,7 +40,17 @@ Phases:
      and velocities, with each kernel's launch count, finiteness, the
      energy drift and the change of Lz gated (2T/VC is reported: the
      sample is not an equilibrium of its own field);
-  D4. disk timing, as in phase 6.
+  D4. disk timing, as in phase 6;
+  C1. the cube bench's uniform sample and a perturbed sample (a 50%
+     density wave along x), and the force on the card;
+  C2. K7 and K8 against their plain versions on both samples plus edge
+     rows, with the stated tolerances; the Poisson solution of the
+     perturbed sample; the pallas_version 1 entry against version 2;
+  C3. the cube path: init + 50 KDK steps (dt=1e-3) of the perturbed sample,
+     with each kernel's launch count, finiteness, the energy drift and the
+     total momentum gated; then the pallas_version 1 path, which must give
+     the same state bit for bit;
+  C4. cube timing, as in phase 6.
 
 Prints one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 ...}.  Any failure raises and exits non-zero before the last line.  Needs
@@ -97,6 +112,47 @@ CYL_COEF_RTOL = 1e-5
 # 1e-7 (pot) of the field's largest value.
 CYL_ACC_RTOL, CYL_ACC_ATOL_REL = 1e-4, 1e-6
 CYL_POT_RTOL, CYL_POT_ATOL_REL = 1e-5, 1e-7
+
+# The cube path (bench_suite.bench_cube's configuration).
+CUBE_N = 4_194_304
+CUBE_STEPS = 50
+CUBE_V1_STEPS = 10
+# |dEtot/Etot| bound over the 50 cube steps of the perturbed sample.  The
+# same run through the plain versions on a CPU (python -m
+# exp_tpu_torch.bench_cube kdk --device cpu, 4,194,304 particles) gave
+# 1.33e-6.  Etot (-0.0049) is KE (0.015) + PE (-0.020): the f32 sums of
+# 2^22 terms in another order may move each end by up to eps log2 N
+# (|KE| + |PE|) / |Etot| ~ 1e-5 of Etot.  The force does work of 0.12
+# |Etot| over the run, so a force off by 0.1% of its scale moves Etot by
+# ~1e-4, the bound.
+CUBE_DRIFT_BOUND = 1e-4
+# |sum m v| bound at both ends.  The initial velocities have zero mean in
+# f64 and the periodic force has no net self-force, so the CPU run gave
+# 1.7e-11 -> 4.7e-11; an f32 sum of 2^22 terms errs by at most ~60 eps sum
+# m|v_c| ~ 3e-7 (sum m|v| = 0.16), and a net force of 1e-4 of the field's
+# scale would add ~1e-6 over the run.
+CUBE_MOM_BOUND = 1e-6
+# K7 on the coefficients c = -norm S (k = 0 folds to 0, so the total mass,
+# ~sqrt(N) times any other entry of S, cannot hide errors), max|dc| /
+# max|c|: f32 sums of 2^22 terms in another order err by ~1e-7 of the
+# total mass; the uniform sample's largest |c| is shot noise, ~1/sqrt(N)
+# times norm, so its relative error is ~100x the perturbed sample's, whose
+# largest |c| is the density wave's A/2 norm.
+CUBE_COEF_RTOL = {"uniform": 1e-4, "perturbed": 5e-6}
+# K8: acc and pot within this share of their largest values.  The kernel's
+# phases (sincospif and angle addition) and the plain version's (cos/sin
+# of the rounded angle 2 pi k u, up to 38 rad) each err by ~1e-6 of a
+# term, and the sums over 1183 lattice points add ~1e-6 more.
+CUBE_FORCE_RTOL = 2e-5
+# Poisson check of the perturbed sample (density 1 + A cos(2 pi x)):
+# tests/test_cube_force.py holds Phi - mean to -A cos(2 pi x)/pi at atol
+# 6e-3 and the plain torch port's test holds a_x to -2 A sin(2 pi x) at
+# atol 0.1, both at 200,000 particles; both are shot noise, which falls as
+# 1/sqrt(N), so at 2^22 particles the bounds are scaled by
+# sqrt(200,000 / 2^22) = 0.218.
+CUBE_PERT_AMP = 0.5
+CUBE_POISSON_POT_ATOL = 6e-3 * (200_000 / CUBE_N) ** 0.5
+CUBE_POISSON_ACC_ATOL = 0.1 * (200_000 / CUBE_N) ** 0.5
 
 
 def nvidia_smi_line():
@@ -223,6 +279,60 @@ def k5_work(n, mmax, xrows, ncy, kx):
     return n * (12 + 16) + xrows * ncy * SP * 4, n * per
 
 
+def cube_edge_rows(n_bulk):
+    """The wrap's edges (x = 1.0, -1e-7, -2.75, 3.25, 1000.3 on each axis)
+    and a zero-mass row, last."""
+    import numpy as np
+
+    x = np.array([[1.0, -1e-7, -2.75], [3.25, 1000.3, 0.5],
+                  [-1e-7, 1.0, 1000.3], [-2.75, 3.25, 1.0],
+                  [1000.3, -2.75, -1e-7], [0.3, 0.2, 0.1]])
+    m = np.full(len(x), 1.0 / n_bulk)
+    m[-1] = 0.0
+    return x, m
+
+
+def _cube_phase_ops(nmaxx, nmaxy, nmaxz):
+    """FP32 operations of one particle's phase rows, shared by K7 and K8:
+    the wraps (3), three sincos (2 each) and the powers of each row by
+    angle addition (a complex product, 6, per k > 0)."""
+    return 3 + 6 + 6 * (nmaxx + nmaxy + nmaxz)
+
+
+def k7_work(n, nmaxx, nmaxy, nmaxz):
+    """Bytes and FP32 operations the function of K7 needs at least (an FMA
+    counts 2), not the kernel's own arithmetic.  A real mass gives S(-k) =
+    conj S(k), so only (K + 1) / 2 of the K lattice points need a sum: per
+    particle the phase rows (_cube_phase_ops), m e_z (2 per kz), e_x e_y for
+    the half of the (kx, ky) pairs (a complex product, 6, each) and one
+    complex multiply-add (4 FMAs) into each of the (K + 1) / 2 sums.
+    Bytes: x and mass in, the complex f32 lattice out."""
+    kx, ky, kz = 2 * nmaxx + 1, 2 * nmaxy + 1, 2 * nmaxz + 1
+    K = kx * ky * kz
+    per = (_cube_phase_ops(nmaxx, nmaxy, nmaxz) + 2 * kz
+           + 6 * (kx * ky + 1) // 2 + 8 * (K + 1) // 2)
+    return n * 16 + K * 8, n * per
+
+
+def k8_work(n, nmaxx, nmaxy, nmaxz):
+    """Bytes and FP32 operations the function of K8 needs at least (an FMA
+    counts 2), not the kernel's own arithmetic.  The outputs are real, so
+    the terms k and -k fold into one (Re and Im of conj z are Re z and
+    -Im z): (K + 1) / 2 lattice points and (kx ky + 1) / 2 (kx, ky) rows.
+    Per particle: the phase rows (_cube_phase_ops) and 2 pi kz e_z (2 per
+    kz); factored as the einsum path, two complex multiply-adds (8 FMAs)
+    at each point for t = sum b e_z and t_z = sum 2 pi kz b e_z; per row
+    e = e_x e_y and t e (6 each), pot, a_x and a_y from Re and Im t e (3
+    FMAs) and a_z from Im t_z e (2 FMAs).  Bytes: x and b in, acc and pot
+    out."""
+    kx, ky, kz = 2 * nmaxx + 1, 2 * nmaxy + 1, 2 * nmaxz + 1
+    K = kx * ky * kz
+    rows = (kx * ky + 1) // 2
+    per = (_cube_phase_ops(nmaxx, nmaxy, nmaxz) + 2 * kz
+           + 16 * (K + 1) // 2 + rows * (6 + 6 + 6 + 4))
+    return n * (12 + 16) + K * 8, n * per
+
+
 def bound_ms(byts, ops):
     t_b = byts / HBM_BYTES_PER_S
     t_o = ops / FP32_FLOP_PER_S
@@ -346,6 +456,218 @@ def disk_path(dev):
             "ms": cuda_ms(fn, 50), "plain_ms": cuda_ms(plain, 5),
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "library_note": "no single PyTorch call computes this function",
+            "bytes": byts, "operations": ops})
+    return rows
+
+
+def _cube_state(force, x, v, m, steps, dev):
+    """init + `steps` KDK steps at the cube's dt; the final state and
+    coefficients."""
+    from exp_tpu_torch.bench_cube import DT
+    from exp_tpu_torch.nbody.particles import ParticleSystem
+    from exp_tpu_torch.nbody.step import init_force_state, make_kdk_step
+
+    ps = ParticleSystem.from_arrays(x, v, m, device=dev)
+    ps, coef, _ = init_force_state(force, ps)
+    step = make_kdk_step(force, DT)
+    for _ in range(steps):
+        ps, coef, _ = step(ps)
+    return ps, coef
+
+
+def cube_path(dev):
+    """Phases C1-C4 on the card; returns the kernels-line rows of K7, K8,
+    K11a and K11b."""
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch.bench_cube import (DT, NMAX, bench_cube, cube_force,
+                                          cube_sample)
+    from exp_tpu_torch.bench_sphere import kdk_run
+    from exp_tpu_torch.ops import cube_kernels as ck
+    from exp_tpu_torch.ops import cyl_kernels as yk
+    from exp_tpu_torch.ops import sphere_kernels as sk
+
+    # C1. the bench's sample, the perturbed sample, the force on the card
+    t0 = time.perf_counter()
+    samples = {"uniform": cube_sample(CUBE_N),
+               "perturbed": cube_sample(CUBE_N, perturbed=True)}
+    print(f"C1 cube samples of {CUBE_N}: {time.perf_counter() - t0:.1f} s "
+          "on the host", flush=True)
+    force = cube_force(dev)
+    force_v1 = cube_force(dev, pallas_version=1)
+    prm = force._kernel_params()
+    ex, em = cube_edge_rows(CUBE_N)
+
+    # C2. K7 and K8 against their plain versions, on both samples + edges
+    inputs, errs = {}, {"cube_coef": 0.0, "cube_accel": 0.0}
+    for name, (xs, _, ms) in samples.items():
+        x = torch.tensor(np.concatenate([xs, ex]), dtype=torch.float32,
+                         device=dev)
+        m = torch.tensor(np.concatenate([ms, em]), dtype=torch.float32,
+                         device=dev)
+        inputs[name] = (x, m)
+        S = ck.cube_coef(x, m, prm)
+        S0 = ck.cube_coef_plain(x, m, prm)
+        c, c0 = -S * force.norm, -S0 * force.norm
+        torch.cuda.synchronize()
+        dS = float((S - S0).abs().max())
+        errs["cube_coef"] = max(errs["cube_coef"], dS)
+        c_rel = float((c - c0).abs().max()) / float(c0.abs().max())
+        herm = bool(torch.equal(S, S.flip(0, 1, 2).conj()))
+        again = bool(torch.equal(S, ck.cube_coef(x, m, prm)))
+        zero = float(ck.cube_coef(x[-1:], m[-1:], prm).abs().max())
+        print(f"C2 {name} K7 vs plain: max|dS| = {dS:.3e}, S(0) = "
+              f"{float(S[NMAX, NMAX, NMAX].real):.7f}, max|dc|/max|c| = "
+              f"{c_rel:.3e} (tolerance {CUBE_COEF_RTOL[name]:.0e}); "
+              f"Hermitian {herm}, repeatable {again}; zero-mass row gives "
+              f"{zero}", flush=True)
+        if not (c_rel <= CUBE_COEF_RTOL[name] and herm and again
+                and zero == 0.0):
+            raise AssertionError(f"K7 disagrees with its plain version on "
+                                 f"the {name} sample")
+
+        b = c0 * force.norm
+        tab = ck.cube_force_table(b, prm)
+        a, p = ck.cube_accel(x, tab, prm)
+        a0, p0 = ck.cube_accel_plain(x, tab, prm)
+        torch.cuda.synchronize()
+        da, dp = (a - a0).abs(), (p - p0).abs()
+        errs["cube_accel"] = max(errs["cube_accel"], float(da.max()),
+                                 float(dp.max()))
+        amax, pmax = float(a0.abs().max()), float(p0.abs().max())
+        edge = slice(CUBE_N, None)
+        print(f"C2 {name} K8 vs plain: max|da| = {float(da.max()):.3e} (|a| "
+              f"up to {amax:.3e}), max|dpot| = {float(dp.max()):.3e} (|pot| "
+              f"up to {pmax:.3e}); edge rows max|da| = "
+              f"{float(da[edge].max()):.3e}, max|dpot| = "
+              f"{float(dp[edge].max()):.3e}; tolerance {CUBE_FORCE_RTOL:.0e} "
+              "of each largest value", flush=True)
+        finite = bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
+        if not (finite and float(da.max()) <= CUBE_FORCE_RTOL * amax
+                and float(dp.max()) <= CUBE_FORCE_RTOL * pmax):
+            raise AssertionError(f"K8 disagrees with its plain version on "
+                                 f"the {name} sample (finite={finite})")
+
+        # the v1 entries: the same kernels given the same b
+        c1 = force_v1.coefficients(x, m)
+        a1, p1 = force_v1.acceleration(c1, x)
+        c2 = force.coefficients(x, m)
+        a2, p2 = force.acceleration(c2, x)
+        Rr, Ri = ck.pack_force_matrix(b, NMAX, NMAX, NMAX)
+        av, pv = ck.cube_accel_v1(x, Rr, Ri, prm)
+        same = (torch.equal(c1, c2) and torch.equal(a1, a2)
+                and torch.equal(p1, p2) and torch.equal(av, a)
+                and torch.equal(pv, p))
+        print(f"C2 {name} pallas_version 1 equals version 2: {same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"the v1 force differs from the v2 force "
+                                 f"on the {name} sample")
+
+    x, m = inputs["perturbed"]
+    xt = np.linspace(0.05, 0.95, 10)
+    pts = torch.tensor(np.stack([xt, np.full_like(xt, 0.5),
+                                 np.full_like(xt, 0.5)], -1),
+                       dtype=torch.float32, device=dev)
+    acc, pot = force.acceleration(force.coefficients(x, m), pts)
+    pot = pot.double().cpu().numpy()
+    want = -CUBE_PERT_AMP * np.cos(2 * np.pi * xt) / np.pi
+    dpot = float(np.abs(pot - pot.mean() - (want - want.mean())).max())
+    dax = float(np.abs(acc[:, 0].double().cpu().numpy()
+                       + 2 * CUBE_PERT_AMP * np.sin(2 * np.pi * xt)).max())
+    print(f"C2 Poisson (perturbed sample): max|dPhi| = {dpot:.3e} (bound "
+          f"{CUBE_POISSON_POT_ATOL:.3e}), max|da_x| = {dax:.3e} (bound "
+          f"{CUBE_POISSON_ACC_ATOL:.3e})", flush=True)
+    if not (dpot <= CUBE_POISSON_POT_ATOL and dax <= CUBE_POISSON_ACC_ATOL):
+        raise AssertionError("the cube force misses the Poisson solution of "
+                             "the perturbed sample")
+
+    # C3. the cube path: init + CUBE_STEPS KDK steps of the perturbed sample
+    xp, vp, mp = samples["perturbed"]
+    for mod in (sk, yk, ck):
+        mod.reset_launch_counts()
+    run = kdk_run(force, xp, vp, mp, steps=CUBE_STEPS, dt=DT, device=dev)
+    torch.cuda.synchronize()
+    launches = {**sk.launch_counts, **yk.launch_counts, **ck.launch_counts}
+    print("C3 cube path: " + json.dumps({**run, "launches": launches}),
+          flush=True)
+    if not run["finite"]:
+        raise AssertionError("non-finite state after the cube KDK run")
+    for name in ck.launch_counts:
+        if launches[name] != CUBE_STEPS + 1:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"on the cube path, expected "
+                                 f"{CUBE_STEPS + 1}")
+    if not run["dE_rel"] < CUBE_DRIFT_BOUND:
+        raise AssertionError(f"cube |dEtot/Etot| = {run['dE_rel']} over "
+                             f"{CUBE_STEPS} steps exceeds {CUBE_DRIFT_BOUND}")
+    if not (run["P0"] < CUBE_MOM_BOUND and run["P1"] < CUBE_MOM_BOUND):
+        raise AssertionError(f"cube |sum m v| = {run['P0']} -> {run['P1']} "
+                             f"exceeds {CUBE_MOM_BOUND}")
+
+    # the pallas_version 1 path (K11a, K11b): the same state bit for bit
+    s2, c2 = _cube_state(force, xp, vp, mp, CUBE_V1_STEPS, dev)
+    ck.reset_launch_counts()
+    s1, c1 = _cube_state(force_v1, xp, vp, mp, CUBE_V1_STEPS, dev)
+    torch.cuda.synchronize()
+    launches_v1 = dict(ck.launch_counts)
+    same = all(torch.equal(a, b) for a, b in ((s1.x, s2.x), (s1.v, s2.v),
+                                              (s1.acc, s2.acc),
+                                              (s1.pot, s2.pot), (c1, c2)))
+    print(f"C3 cube path, pallas_version 1: init + {CUBE_V1_STEPS} steps, "
+          f"launches {launches_v1}, state equal to version 2's: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("the v1 cube path differs from the v2 path")
+    for name, cnt in launches_v1.items():
+        if cnt != CUBE_V1_STEPS + 1:
+            raise AssertionError(f"{name} launched {cnt} times on the v1 "
+                                 f"path, expected {CUBE_V1_STEPS + 1}")
+    del s1, s2, c1, c2, run
+
+    # C4. timing on the bench's sample
+    bench = bench_cube(n=CUBE_N, reps=20, device=dev)
+    print("C4 cube step: " + json.dumps(bench), flush=True)
+    x, m = inputs["uniform"]
+    S0 = ck.cube_coef_plain(x, m, prm)
+    b = -S0 * force.norm * force.norm
+    tab = ck.cube_force_table(b, prm)
+    Rr, Ri = ck.pack_force_matrix(b, NMAX, NMAX, NMAX)
+    av, pv = ck.cube_accel_v1(x, Rr, Ri, prm)
+    a0, p0 = ck.cube_accel_plain(x, tab, prm)
+    err_v1 = max(float((av - a0).abs().max()), float((pv - p0).abs().max()))
+    n = x.shape[0]
+    w7 = k7_work(n, NMAX, NMAX, NMAX)
+    w8 = k8_work(n, NMAX, NMAX, NMAX)
+    rows = []
+    for name, line, src, fn, plain, err, (byts, ops), cnt in (
+            ("cube_coef", "exp_tpu/ops/pallas_cube.py:332", "cube_coef",
+             lambda: ck.cube_coef(x, m, prm),
+             lambda: ck.cube_coef_plain(x, m, prm), errs["cube_coef"], w7,
+             launches["cube_coef"]),
+            ("cube_accel", "exp_tpu/ops/pallas_cube.py:392", "cube_accel",
+             lambda: ck.cube_accel(x, tab, prm),
+             lambda: ck.cube_accel_plain(x, tab, prm), errs["cube_accel"],
+             w8, launches["cube_accel"]),
+            ("cube_coef_v1", "exp_tpu/ops/pallas_cube.py:141",
+             "cube_coef", lambda: ck.cube_coef(x, m, prm),
+             lambda: ck.cube_coef_plain(x, m, prm), errs["cube_coef"], w7,
+             launches_v1["cube_coef"]),
+            ("cube_accel_v1", "exp_tpu/ops/pallas_cube.py:220",
+             "cube_accel", lambda: ck.cube_accel_v1(x, Rr, Ri, prm),
+             lambda: ck.cube_accel_plain(
+                 x, ck.cube_force_table(ck.v1_matrix_to_b(Rr, Ri, prm), prm),
+                 prm), err_v1, w8, launches_v1["cube_accel"])):
+        bms, by = bound_ms(byts, ops)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"exp_tpu_torch/csrc/{src}.cu", "replaces": line,
+            "launches": cnt, "max_abs_err": err,
+            "ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(plain, 3),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "library_note": "no single PyTorch call computes this "
+                            "non-uniform Fourier sum from x and mass",
             "bytes": byts, "operations": ops})
     return rows
 
@@ -481,6 +803,7 @@ def main():
             "library_note": "no single PyTorch call computes this function",
             "bytes": byts, "operations": ops})
     rows += disk_path(dev)
+    rows += cube_path(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -112,27 +112,32 @@ def kdk_run(force, x, v, mass, steps=50, dt=1e-3, device=None):
 
     Returns the first and last energies, the relative drift of
     Etot = KE + PE, the virial ratio 2T/VC at both ends, the z angular
-    momentum at both ends and its relative change, and whether every value
-    of the final state is finite."""
+    momentum at both ends and its relative change, the norm of the total
+    momentum at both ends and of its change, and whether every value of
+    the final state is finite."""
     from exp_tpu_torch.nbody.particles import ParticleSystem
     from exp_tpu_torch.nbody.step import energies, init_force_state, make_kdk_step
 
     ps = ParticleSystem.from_arrays(x, v, mass, device=resolve_device(device))
     ps, _, diag = init_force_state(force, ps)
     e0, lz0 = energies(diag), float(diag["L"][2])
+    p0 = diag["mom"].double().cpu()
     step = make_kdk_step(force, dt)
     for _ in range(steps):
         ps, coef, diag = step(ps)
     e1, lz1 = energies(diag), float(diag["L"][2])
+    p1 = diag["mom"].double().cpu()
     finite = all(bool(torch.isfinite(a).all())
                  for a in (ps.x, ps.v, ps.acc, ps.pot, coef))
     return {"steps": steps, "dt": dt, "n": int(ps.n),
-            "Etot0": e0["Etot"], "Etot1": e1["Etot"],
+            "KE0": e0["KE"], "PE0": e0["PE"], "KE1": e1["KE"],
+            "PE1": e1["PE"], "Etot0": e0["Etot"], "Etot1": e1["Etot"],
             "dE_rel": abs(e1["Etot"] - e0["Etot"]) / abs(e0["Etot"]),
             "virial0": e0["2T/VC"], "virial1": e1["2T/VC"],
             "Lz0": lz0, "Lz1": lz1,
             "dLz_rel": abs(lz1 - lz0) / abs(lz0) if lz0 else float("nan"),
-            "finite": finite}
+            "P0": float(p0.norm()), "P1": float(p1.norm()),
+            "dP": float((p1 - p0).norm()), "finite": finite}
 
 
 def profile_force(force, x, v, mass, dt, steps=10, device=None):

@@ -10,7 +10,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
+from exp_tpu_torch import resolve_device
 from exp_tpu_torch.basis.empcyl import EmpCylTables
 from exp_tpu_torch.basis.slgrid import SphSLTables
 
@@ -58,3 +60,37 @@ def cyl_tables_from_numpy(d: dict) -> EmpCylTables:
     kw["even_count"] = np.array(d["even_count"], dtype=np.int64)
     kw["key"] = str(d.get("key", ""))
     return EmpCylTables(**kw)
+
+
+def cube_from_numpy(norm, lap, nmaxx, nmaxy, nmaxz, nminx=0, nminy=0,
+                    nminz=0, dtype=torch.float32, backend="einsum",
+                    pallas_precision="mixed", pallas_version=2, device=None):
+    """The port's Cube from the JAX Cube's arrays (`norm`, `lap`, as NumPy)
+    and its static fields, on `device` (None: CUDA, raising when there is
+    none)."""
+    from exp_tpu_torch.forces.cube import Cube
+
+    device = resolve_device(device)
+    shape = (2 * nmaxx + 1, 2 * nmaxy + 1, 2 * nmaxz + 1)
+    arrays = {"norm": np.array(norm), "lap": np.array(lap)}
+    for name, a in arrays.items():
+        if a.shape != shape:
+            raise ValueError(f"{name} has shape {a.shape}, expected {shape}")
+    return Cube(norm=torch.as_tensor(arrays["norm"], dtype=dtype,
+                                     device=device),
+                lap=torch.as_tensor(arrays["lap"], dtype=dtype, device=device),
+                nmaxx=nmaxx, nmaxy=nmaxy, nmaxz=nmaxz, nminx=nminx,
+                nminy=nminy, nminz=nminz, backend=backend,
+                pallas_precision=pallas_precision,
+                pallas_version=pallas_version)
+
+
+def complex_from_numpy(a, dtype=None, device=None) -> torch.Tensor:
+    """A complex NumPy array (for example a JAX Cube's coefficients, via
+    np.asarray) as a complex tensor on `device` (None: CUDA, raising when
+    there is none); `dtype` defaults to the array's own (complex64 or
+    complex128)."""
+    a = np.array(a)
+    if not np.iscomplexobj(a):
+        raise TypeError(f"expected a complex array, got {a.dtype}")
+    return torch.as_tensor(a, dtype=dtype, device=resolve_device(device))

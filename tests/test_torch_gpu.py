@@ -218,3 +218,112 @@ def test_cyl_step_on_card_matches_cpu(cuda, cyl_tables):
                                atol=1e-7)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the periodic-cube kernels K7 (cube_coef; K11a) and K8 (cube_accel; K11b)
+# ---------------------------------------------------------------------------
+
+# the wrap's edges (x = 1.0, -1e-7, -2.75, 3.25, 1000.3) and a zero-mass row
+CUBE_EDGE_X = [[1.0, -1e-7, -2.75], [3.25, 1000.3, 0.5],
+               [-1e-7, 1.0, 1000.3], [-2.75, 3.25, 1.0], [0.3, 0.2, 0.1]]
+CUBE_NMAX = [(3, 3, 3), (6, 6, 6), (4, 3, 2), (0, 8, 1)]
+
+
+def _cube_inputs(device, perturbed):
+    from exp_tpu_torch.bench_cube import cube_sample
+
+    x, _, m = cube_sample(N, perturbed=perturbed, seed=1)
+    x = np.concatenate([x, CUBE_EDGE_X])
+    m = np.concatenate([m, [1.0 / N] * (len(CUBE_EDGE_X) - 1) + [0.0]])
+    return (torch.tensor(x, dtype=torch.float32, device=device),
+            torch.tensor(m, dtype=torch.float32, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("perturbed", [False, True])
+@pytest.mark.parametrize("nmax", CUBE_NMAX, ids=lambda p: "nmax%d%d%d" % p)
+def test_cube_kernels_match_plain_versions(cuda, nmax, perturbed):
+    """K7: the coefficients c = -norm S (k = 0 folds to 0, so the total
+    mass cannot hide errors), max|dc|/max|c| < 1e-4 on the uniform sample
+    (its entries are shot noise, ~1/sqrt(N)) and < 5e-6 on the perturbed
+    one; S(-k) = conj S(k) exactly (the kernel mirrors kx < 0); two
+    launches agree bit for bit; a zero mass gives exactly 0.  K8 on b =
+    c norm: acc and pot within 2e-5 of their largest values; the v1 entry
+    (pack_force_matrix) gives the same bits.  Each wrapper call on the card
+    counts one launch."""
+    from exp_tpu_torch.forces.cube import Cube
+    from exp_tpu_torch.ops import cube_kernels as ck
+
+    f = Cube.create(*nmax, backend="pallas", device=cuda)
+    prm = f._kernel_params()
+    x, m = _cube_inputs(cuda, perturbed)
+    before = dict(ck.launch_counts)
+    S = ck.cube_coef(x, m, prm)
+    S0 = ck.cube_coef_plain(x, m, prm)
+    torch.cuda.synchronize()
+    c, c0 = -S * f.norm, -S0 * f.norm
+    tol = 5e-6 if perturbed else 1e-4
+    assert float((c - c0).abs().max() / c0.abs().max()) < tol
+    assert torch.equal(S, S.flip(0, 1, 2).conj())
+    assert torch.equal(S, ck.cube_coef(x, m, prm))
+    assert float(ck.cube_coef(x[-1:], m[-1:], prm).abs().max()) == 0.0
+    b = c0 * f.norm
+    tab = ck.cube_force_table(b, prm)
+    a, p = ck.cube_accel(x, tab, prm)
+    a0, p0 = ck.cube_accel_plain(x, tab, prm)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
+    assert float((a - a0).abs().max()) <= 2e-5 * float(a0.abs().max())
+    assert float((p - p0).abs().max()) <= 2e-5 * float(p0.abs().max())
+    a1, p1 = ck.cube_accel_v1(x, *ck.pack_force_matrix(b, *nmax), prm)
+    assert torch.equal(a1, a) and torch.equal(p1, p)
+    assert ck.launch_counts["cube_coef"] == before["cube_coef"] + 3
+    assert ck.launch_counts["cube_accel"] == before["cube_accel"] + 2
+
+
+@pytest.mark.gpu
+def test_cube_wrappers_reject_bad_inputs(cuda):
+    from exp_tpu_torch.ops import cube_kernels as ck
+
+    prm = ck.CubeKernelParams(3, 3, 3)
+    x, m = _cube_inputs(cuda, False)
+    with pytest.raises(TypeError, match="float32"):
+        ck.cube_coef(x.double(), m, prm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.cube_coef(x.t().contiguous().t(), m, prm)
+    with pytest.raises(ValueError, match="shape"):
+        ck.cube_coef(x, m[:-1], prm)
+    tab = ck.cube_force_table(ck.cube_coef(x, m, prm), prm)
+    with pytest.raises(ValueError, match="is on"):
+        ck.cube_accel(x, tab.cpu(), prm)
+    with pytest.raises(ValueError, match="shape"):
+        ck.cube_accel(x, tab[:, :-1].contiguous(), prm)
+    with pytest.raises(NotImplementedError, match="nmax"):
+        ck.cube_coef(x, m, ck.CubeKernelParams(9, 3, 3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("version", [2, 1])
+def test_cube_step_on_card_matches_cpu(cuda, version):
+    """One KDK step of the perturbed cube through K7/K8 against the same
+    step through the plain versions on the CPU: positions and velocities
+    to f32 roundoff."""
+    from exp_tpu_torch.bench_cube import DT, cube_sample
+    from exp_tpu_torch.forces.cube import Cube
+    from exp_tpu_torch.nbody.particles import ParticleSystem
+    from exp_tpu_torch.nbody.step import init_force_state, make_kdk_step
+
+    x, v, m = cube_sample(N, perturbed=True, seed=2)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        f = Cube.create(6, 6, 6, backend="pallas", pallas_version=version,
+                        device=dev)
+        ps = ParticleSystem.from_arrays(x, v, m, device=dev)
+        ps, _, _ = init_force_state(f, ps)
+        ps, _, _ = make_kdk_step(f, DT)(ps)
+        out[dev.type] = (ps.x.cpu(), ps.v.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-7)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                               atol=1e-6)

@@ -8,6 +8,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,7 +23,9 @@ def test_import_loads_no_jax_or_exp_tpu():
         "exp_tpu_torch.bench_sphere, exp_tpu_torch.ic.eddington, "
         "exp_tpu_torch.forces.cylinder, exp_tpu_torch.ops.cyl_kernels, "
         "exp_tpu_torch.basis.empcyl, exp_tpu_torch.basis.flatdisk, "
-        "exp_tpu_torch.ic.disk, exp_tpu_torch.bench_disk\n"
+        "exp_tpu_torch.ic.disk, exp_tpu_torch.bench_disk, "
+        "exp_tpu_torch.forces.cube, exp_tpu_torch.ops.cube_kernels, "
+        "exp_tpu_torch.ic.cubeics, exp_tpu_torch.bench_cube\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exp_tpu' or m.startswith('exp_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -87,3 +90,16 @@ def test_cylinder_entry_point_without_device_raises_when_no_cuda(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CylinderForce.from_tables(t, backend="pallas")
+
+
+def test_cube_entry_point_without_device_raises_when_no_cuda(monkeypatch):
+    from exp_tpu_torch.convert import complex_from_numpy, cube_from_numpy
+    from exp_tpu_torch.forces.cube import Cube
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Cube.create(2, 2, 2, backend="pallas")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cube_from_numpy(np.zeros((5, 5, 5)), np.zeros((5, 5, 5)), 2, 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        complex_from_numpy(np.zeros(3, np.complex64))
