@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Three paths of exp_tpu_torch, each with backend='pallas', run the port's
-six hand-written kernels:
+Four paths of exp_tpu_torch, each with backend='pallas', run the port's
+eight hand-written kernels:
 
   the sphere path (1,048,576 particles): the sphereSL KDK step of a
     Hernquist halo under the spherical Sturm-Liouville basis (lmax=4,
@@ -18,7 +18,11 @@ six hand-written kernels:
     cube bench (nmax=6 on each axis, dt=1e-3), through K7 (cube
     coefficients, csrc/cube_coef.cu; K11a, pallas_version 1, is the same
     kernel) and K8 (cube force, csrc/cube_accel.cu; K11b reaches it
-    through its v1 packing).
+    through its v1 packing);
+  the slab path (1,048,576 particles): the periodic slab of the slab bench
+    (nmax 4 x 4 x 6, numz=401, nzc=126 'spline', an isothermal sheet,
+    dt=1e-3), through K9 (slab coefficients, csrc/slab_coef.cu) and K10
+    (slab force, csrc/slab_accel.cu).
 
 Phases:
 
@@ -50,7 +54,17 @@ Phases:
      with each kernel's launch count, finiteness, the energy drift and the
      total momentum gated; then the pallas_version 1 path, which must give
      the same state bit for bit;
-  C4. cube timing, as in phase 6.
+  C4. cube timing, as in phase 6;
+  SL1. the slab bench's tables on the host and the force on the card; the
+     bench's sheet, a sample half outside |z| <= zmax, and edge rows;
+  SL2. K9 and K10 ('spline' and 'linear') against their plain versions on
+     both samples plus edge rows, with the stated tolerances; the sheet's
+     mean field and the vacuum continuation beyond zmax;
+  SL3. the slab path: init + 50 KDK steps (dt=1e-3) of the bench's sheet,
+     with each kernel's launch count, finiteness, the energy drift, the
+     change of the horizontal momentum and of the sheet's thickness gated;
+  SL4. slab timing, as in phase 6, and K10 with its table in shared memory
+     against through L1/L2.
 
 Prints one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 ...}.  Any failure raises and exits non-zero before the last line.  Needs
@@ -153,6 +167,40 @@ CUBE_FORCE_RTOL = 2e-5
 CUBE_PERT_AMP = 0.5
 CUBE_POISSON_POT_ATOL = 6e-3 * (200_000 / CUBE_N) ** 0.5
 CUBE_POISSON_ACC_ATOL = 0.1 * (200_000 / CUBE_N) ** 0.5
+
+# The slab path (exp_tpu_torch/bench_slab.py: nmax 4 x 4 x 6, numz 401,
+# nzc 126 'spline', the isothermal sheet of 2^20 particles, dt=1e-3).
+SLAB_STEPS = 50
+SLAB_OUTSIDE_N = 65_536
+# Gates of the 50 slab steps.  The same run through the plain versions on a
+# CPU (python -m exp_tpu_torch.bench_slab kdk --device cpu) gave |dEtot/Etot|
+# 9.5e-8, a change of (sum m v_x, sum m v_y) of 2.4e-10 (its value, 6e-5,
+# is the draw's shot noise) and |d z_rms / z_rms| 7.0e-4 (the sheet is an
+# equilibrium).  Energy: f32 sums of 2^20 terms in another order move each
+# end by up to ~eps log2 N ~ 1.2e-6 of Etot; 1e-5 leaves room for that.
+# Momentum: the same sum order at both ends, so rounding largely cancels in
+# the change; 1e-8 fails a net horizontal force of 2e-7 over the run's 0.05
+# time units.  Thickness: the vertical period is ~0.25, so a vertical force
+# off by 0.6% moves z_rms by ~2e-3 in 0.05 time units.
+SLAB_DRIFT_BOUND = 1e-5
+SLAB_MOM_BOUND = 1e-8
+SLAB_THICKNESS_BOUND = 2e-3
+# K9: G over k != 0 (shot noise of the uniform (x, y), ~1/sqrt(N) of the
+# k = 0 row) and the k = 0 row (the sheet's mass profile), each max|dG| over
+# its own largest |G|, and the same for the coefficients: f32 sums of 2^20
+# terms in another order, with the kernel's phases by sincospif and angle
+# addition against the plain version's cos/sin of the rounded angle
+# (~1e-6 a term).
+SLAB_COEF_RTOL = 1e-4
+SLAB_COEF0_RTOL = 1e-5
+# K10: acc and pot within this share of their largest values (the phases as
+# for K9; sums over 41 wavevectors).
+SLAB_FORCE_RTOL = 2e-5
+# The sheet's mean field (tests/test_slab.py:38-50): g_z against
+# -2 pi tanh(z/h) within rtol 0.06, the horizontal force under 5% of
+# max|g_z|.
+SLAB_FIELD_RTOL = 0.06
+SLAB_FIELD_XY = 0.05
 
 
 def nvidia_smi_line():
@@ -672,6 +720,319 @@ def cube_path(dev):
     return rows
 
 
+def slab_edge_rows(n_bulk):
+    """The wrap's edges (x, y = 1.0, -1e-7, -2.75, 1000.3) paired with z at
+    and near the slab's faces (+-zmax, +-zmax (1 +- 1e-3)), beyond them
+    (+-0.3, +-1.0), and a zero-mass row, last."""
+    import numpy as np
+
+    from exp_tpu_torch.bench_slab import ZMAX
+
+    xy = [1.0, -1e-7, -2.75, 1000.3]
+    zs = [ZMAX, -ZMAX, ZMAX * 0.999, ZMAX * 1.001, -ZMAX * 0.999,
+          -ZMAX * 1.001, 0.3, -0.3, 1.0, -1.0]
+    x = np.array([[xy[i % 4], xy[(i + 1) % 4], z] for i, z in enumerate(zs)]
+                 + [[0.3, 0.2, 0.01]])
+    m = np.full(len(x), 1.0 / n_bulk)
+    m[-1] = 0.0
+    return x, m
+
+
+def slab_outside_sample(n, seed=11):
+    """Half of the particles inside the slab, half at zmax < |z| <= 3 zmax
+    of both signs (tests/test_slab_pallas.py:86-111): the bench's sheet
+    has none outside."""
+    import numpy as np
+
+    from exp_tpu_torch.bench_slab import ZMAX
+
+    rng = np.random.default_rng(seed)
+    h = n // 2
+    z_out = rng.uniform(ZMAX, 3 * ZMAX, n - h) * rng.choice([-1, 1], n - h)
+    z = np.concatenate([rng.normal(0, 0.02, h), z_out])
+    x = np.stack([rng.uniform(0, 1, n), rng.uniform(0, 1, n), z], -1)
+    return x, rng.uniform(0.5, 1.5, n) / n
+
+
+def _slab_phase_ops(nmaxx, nmaxy):
+    """FP32 operations of one particle's phase rows, shared by K9 and K10:
+    the two wraps (2), two sincos (2 each) and the powers by angle
+    addition (a complex product, 6, per k > 0)."""
+    return 2 + 4 + 6 * (nmaxx + nmaxy)
+
+
+def k9_work(n, n_in, nmaxx, nmaxy, zrows, kz):
+    """Bytes and FP32 operations the function of K9 needs at least on these
+    inputs (an FMA counts 2), not the kernel's own arithmetic.  Real
+    weights give G(-k, j) = conj G(k, j), so only the H = (C + 1) / 2
+    half-lattice wavevectors need sums.  The mass mask for every particle
+    (1); for the n_in particles with mass inside |z| <= zmax, the phase
+    rows (_slab_phase_ops), the grid position (3) and the kz z weights (11
+    each, as _cyl_point_ops counts them) times w (1 each), then for each
+    of the H wavevectors e_h = e_x e_y (a complex product, 6) and one
+    complex-by-real multiply-add (2 FMAs) into each of its kz sums.  Bytes:
+    x and mass in, the complex f32 (C, zrows) G out."""
+    C = (2 * nmaxx + 1) * (2 * nmaxy + 1)
+    H = (C + 1) // 2
+    per_in = (_slab_phase_ops(nmaxx, nmaxy) + 3 + 12 * kz
+              + H * (6 + 4 * kz))
+    return n * 16 + C * zrows * 8, n + n_in * per_in
+
+
+def k10_work(n, n_out, nmaxx, nmaxy, zrows, kz):
+    """Bytes and FP32 operations the function of K10 needs at least on
+    these inputs (an FMA counts 2), not the kernel's own arithmetic.  The
+    outputs are real, so the terms k and -k fold into one (the folded
+    table of ops/slab_kernels.fold_half): H = (C + 1) / 2 wavevectors.  Per
+    particle the phase rows (_slab_phase_ops), |z| - zmax and the side (3)
+    and, per wavevector, e_h = e_x e_y (6).  Inside (n - n_out particles):
+    the grid position (3) and kz weights (11 each), then per wavevector the
+    4 profiles at kz nodes (one FMA each, 8 kz) and the assembly: Re and Im
+    of T e (4), pot (1), a_x and a_y (2 FMAs), a_z from Re T' e (3).
+    Outside: per wavevector Tb e (6), 2 pi |k| dz and its exp (2), the
+    attenuation (2), pot (1), a_x, a_y and a_z (3 FMAs), and the k = 0
+    linear terms (5).  Bytes: x in, acc and pot out, the table and the
+    boundary rows once."""
+    C = (2 * nmaxx + 1) * (2 * nmaxy + 1)
+    H = (C + 1) // 2
+    per = _slab_phase_ops(nmaxx, nmaxy) + 3 + 6 * H
+    per_in = 3 + 11 * kz + H * (8 * kz + 4 + 1 + 4 + 3)
+    per_out = H * (6 + 2 + 2 + 1 + 6) + 5
+    ops = n * per + (n - n_out) * per_in + n_out * per_out
+    return n * (12 + 16) + zrows * H * 16 + H * 32, ops
+
+
+def _slab_k9_check(name, x, m, prm, force, sk):
+    """K9 against its plain version on (x, m): G over k != 0 and k = 0 and
+    the coefficients, each relative to its own largest value; G Hermitian
+    and repeatable bit for bit; the zero-mass row and the rows beyond
+    |z| = zmax add exactly 0.  Returns max|dG|."""
+    import torch
+
+    G = sk.slab_coef(x, m, prm)
+    G0 = sk.slab_coef_plain(x, m, prm)
+    c = sk.contract_coef_output(G, force.phi_s, force.sgn)
+    c0 = sk.contract_coef_output(G0, force.phi_s, force.sgn)
+    torch.cuda.synchronize()
+    ctr = (prm.C - 1) // 2
+    dG = (G - G0).abs()
+    kn = torch.ones(prm.C, dtype=torch.bool, device=x.device)
+    kn[ctr] = False
+    g_rel = float(dG[kn].max()) / float(G0[kn].abs().max())
+    g0_rel = float(dG[ctr].max()) / float(G0[ctr].abs().max())
+    cf, cf0 = c.reshape(prm.C, -1), c0.reshape(prm.C, -1)
+    dc = (cf - cf0).abs()
+    c_rel = float(dc[kn].max()) / float(cf0[kn].abs().max())
+    c0_rel = float(dc[ctr].max()) / float(cf0[ctr].abs().max())
+    herm = bool(torch.equal(G, G.flip(0).conj()))
+    again = bool(torch.equal(G, sk.slab_coef(x, m, prm)))
+    dead = (m == 0) | (x[:, 2].abs() > prm.zmax)
+    zero = float(sk.slab_coef(x[dead].contiguous(), m[dead].contiguous(),
+                              prm).abs().max())
+    print(f"SL2 {name} K9 vs plain: max|dG|/max|G| = {g_rel:.3e} (k != 0) "
+          f"and {g0_rel:.3e} (k = 0), coefficients {c_rel:.3e} (k != 0) and "
+          f"{c0_rel:.3e} (k = 0) (tolerance {SLAB_COEF_RTOL:.0e} and "
+          f"{SLAB_COEF0_RTOL:.0e}); Hermitian {herm}, repeatable {again}; "
+          f"{int(dead.sum())} zero-mass or |z| > zmax rows give {zero}",
+          flush=True)
+    if not (g_rel <= SLAB_COEF_RTOL and c_rel <= SLAB_COEF_RTOL
+            and g0_rel <= SLAB_COEF0_RTOL and c0_rel <= SLAB_COEF0_RTOL
+            and herm and again and zero == 0.0):
+        raise AssertionError(f"K9 disagrees with its plain version on the "
+                             f"{name} sample")
+    return float(dG.max())
+
+
+def _slab_k10_check(name, x, coef, force, sk):
+    """K10 against its plain version on x for the force's interp: acc and
+    pot within SLAB_FORCE_RTOL of their largest values, the edge rows
+    (last) included, every value finite.  Returns the largest error."""
+    import torch
+
+    prm = force._kernel_params()
+    tab = sk.slab_force_table(coef, force.zq_s, prm)
+    aux = sk.slab_force_aux(coef, force.bnd_s, prm)
+    a, p = sk.slab_accel(x, tab, aux, prm)
+    a0, p0 = sk.slab_accel_plain(x, tab, aux, prm)
+    torch.cuda.synchronize()
+    da, dp = (a - a0).abs(), (p - p0).abs()
+    amax, pmax = float(a0.abs().max()), float(p0.abs().max())
+    ne = len(slab_edge_rows(1)[1])
+    edge = slice(x.shape[0] - ne, None)
+    out = x[:, 2].abs() > prm.zmax
+    print(f"SL2 {name} K10 ({prm.interp}) vs plain: max|da| = "
+          f"{float(da.max()):.3e} (|a| up to {amax:.3e}), max|dpot| = "
+          f"{float(dp.max()):.3e} (|pot| up to {pmax:.3e}); |z| > zmax rows "
+          f"({int(out.sum())}) max|da| = "
+          f"{float(da[out].max()) if bool(out.any()) else 0.0:.3e}; edge "
+          f"rows max|da| = {float(da[edge].max()):.3e}, max|dpot| = "
+          f"{float(dp[edge].max()):.3e}; tolerance {SLAB_FORCE_RTOL:.0e} of "
+          "each largest value", flush=True)
+    finite = bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
+    if not (finite and float(da.max()) <= SLAB_FORCE_RTOL * amax
+            and float(dp.max()) <= SLAB_FORCE_RTOL * pmax):
+        raise AssertionError(f"K10 ({prm.interp}) disagrees with its plain "
+                             f"version on the {name} sample (finite="
+                             f"{finite})")
+    return max(float(da.max()), float(dp.max()))
+
+
+def _slab_physics(force, dev):
+    """The sech^2 sheet's mean field and the vacuum continuation
+    (tests/test_slab.py:38-50, :157-191) through the pallas force, from
+    the coefficients of a sheet of N particles truncated at zmax."""
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch.bench_slab import H as HS
+    from exp_tpu_torch.bench_slab import ZMAX, truncated_sheet
+
+    x, m = truncated_sheet(N, seed=1)
+    coef = force.coefficients(torch.tensor(x, dtype=torch.float32, device=dev),
+                              torch.tensor(m, dtype=torch.float32, device=dev))
+
+    def at(pts):
+        a, p = force.acceleration(
+            coef, torch.tensor(pts, dtype=torch.float32, device=dev))
+        return a.double().cpu().numpy(), p.double().cpu().numpy()
+
+    zt = np.array([0.003, 0.01, 0.03, 0.06])
+    acc, _ = at(np.stack([np.full(4, 0.3), np.full(4, 0.7), zt], -1))
+    gz = -2 * np.pi * np.tanh(zt / HS)
+    rz = float(np.abs(acc[:, 2] / gz - 1).max())
+    rxy = float(np.abs(acc[:, :2]).max() / np.abs(gz).max())
+    print(f"SL2 sech^2 field: max|g_z/(-2 pi tanh(z/h)) - 1| = {rz:.3e} "
+          f"(bound {SLAB_FIELD_RTOL}), max|g_xy|/max|g_z| = {rxy:.3e} "
+          f"(bound {SLAB_FIELD_XY})", flush=True)
+
+    zs = ZMAX * np.array([0.999, 1.001, 3.0, 6.0, -6.0])
+    a, p = at(np.stack([np.full(5, 0.31), np.full(5, 0.72), zs], -1))
+    gs = -2.0 * np.pi * np.tanh(ZMAX / HS)
+    # continuity (rtol 5e-3 / atol 1e-4 on acc, rtol 5e-3 on pot)
+    r_cont = float(np.max(np.abs(a[1] - a[0]) / (1e-4 + 5e-3 * np.abs(a[0]))))
+    r_pcont = abs(p[1] - p[0]) / (5e-3 * abs(p[0]))
+    r_far = float(np.abs(a[2:4, 2] / gs - 1).max()) / 0.08
+    r_slope = abs((p[3] - p[2]) / (3 * ZMAX) / -gs - 1) / 0.1
+    r_mir = abs(a[4, 2] / -a[3, 2] - 1) / 1e-3
+    r_pmir = abs(p[4] / p[3] - 1) / 0.05
+    decays = abs(a[3, 0]) <= abs(a[2, 0]) + 1e-8
+    cont = {"continuity_acc": r_cont, "continuity_pot": r_pcont,
+            "sheet_gz": r_far, "pot_slope": r_slope, "mirror_gz": r_mir,
+            "mirror_pot": r_pmir}
+    print("SL2 vacuum continuation, each deviation as a share of its bound "
+          "(tests/test_slab.py:157-191): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in cont.items())
+          + f"; |a_x| decays from 3 to 6 zmax: {decays}", flush=True)
+    if not (rz <= SLAB_FIELD_RTOL and rxy <= SLAB_FIELD_XY and decays
+            and all(v <= 1.0 for v in cont.values())):
+        raise AssertionError("the slab force misses the sech^2 sheet's field "
+                             "or its vacuum continuation")
+
+
+def slab_path(dev):
+    """Phases SL1-SL4 on the card; returns the kernels-line rows of K9,
+    K10."""
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch.bench_slab import (DT, bench_slab, slab_force,
+                                          slab_run, slab_sample, slab_tables)
+    from exp_tpu_torch.forces.slab import SlabForce
+    from exp_tpu_torch.ops import cube_kernels as qk
+    from exp_tpu_torch.ops import cyl_kernels as yk
+    from exp_tpu_torch.ops import slab_kernels as sk
+    from exp_tpu_torch.ops import sphere_kernels as hk
+
+    # SL1. the tables on the host, the force on the card, the samples
+    t0 = time.perf_counter()
+    tables = slab_tables()
+    force = slab_force(tables, dev)
+    force_lin = SlabForce.from_tables(tables, backend="pallas",
+                                      pallas_interp="linear", device=dev)
+    prm = force._kernel_params()
+    xb, vb, mb = slab_sample(N)
+    xo, mo = slab_outside_sample(SLAB_OUTSIDE_N)
+    ex, em = slab_edge_rows(N)
+    print(f"SL1 slab tables (nmax {tables.nmaxx} x {tables.nmaxy} x "
+          f"{tables.nmax}, numz {tables.numz}), force (nzc {prm.nzc}, "
+          f"{prm.zrows} rows) and samples: {time.perf_counter() - t0:.1f} s; "
+          f"sheet max|z| = {float(np.abs(xb[:, 2]).max()):.4f}", flush=True)
+
+    # SL2. K9 and K10 against their plain versions, then the physics
+    inputs, errs = {}, {"slab_coef": 0.0, "slab_accel": 0.0}
+    for name, (xs, ms) in (("sheet", (xb, mb)), ("outside", (xo, mo))):
+        x = torch.tensor(np.concatenate([xs, ex]), dtype=torch.float32,
+                         device=dev)
+        m = torch.tensor(np.concatenate([ms, em]), dtype=torch.float32,
+                         device=dev)
+        inputs[name] = (x, m)
+        errs["slab_coef"] = max(errs["slab_coef"],
+                                _slab_k9_check(name, x, m, prm, force, sk))
+        c0 = sk.contract_coef_output(sk.slab_coef_plain(x, m, prm),
+                                     force.phi_s, force.sgn)
+        for f in (force, force_lin):
+            errs["slab_accel"] = max(errs["slab_accel"],
+                                     _slab_k10_check(name, x, c0, f, sk))
+    _slab_physics(force, dev)
+
+    # SL3. the slab path: init + SLAB_STEPS KDK steps of the bench's sheet
+    for mod in (hk, yk, qk, sk):
+        mod.reset_launch_counts()
+    run = slab_run(force, xb, vb, mb, steps=SLAB_STEPS, dt=DT, device=dev)
+    torch.cuda.synchronize()
+    launches = {**hk.launch_counts, **yk.launch_counts, **qk.launch_counts,
+                **sk.launch_counts}
+    print("SL3 slab path: " + json.dumps({**run, "launches": launches}),
+          flush=True)
+    if not run["finite"]:
+        raise AssertionError("non-finite state after the slab KDK run")
+    for name in sk.launch_counts:
+        if launches[name] != SLAB_STEPS + 1:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"on the slab path, expected "
+                                 f"{SLAB_STEPS + 1}")
+    for key, bound in (("dE_rel", SLAB_DRIFT_BOUND),
+                       ("dPxy", SLAB_MOM_BOUND),
+                       ("dzrms_rel", SLAB_THICKNESS_BOUND)):
+        if not run[key] < bound:
+            raise AssertionError(f"slab {key} = {run[key]} over "
+                                 f"{SLAB_STEPS} steps exceeds {bound}")
+
+    # SL4. timing on the bench's sheet (edge rows included)
+    bench = bench_slab(n=N, reps=30, tables=tables, device=dev)
+    print("SL4 slab step: " + json.dumps(bench), flush=True)
+    x, m = inputs["sheet"]
+    c0 = sk.contract_coef_output(sk.slab_coef_plain(x, m, prm), force.phi_s,
+                                 force.sgn)
+    tab = sk.slab_force_table(c0, force.zq_s, prm)
+    aux = sk.slab_force_aux(c0, force.bnd_s, prm)
+    n = x.shape[0]
+    kz = 3 if prm.interp == "spline" else 2
+    n_in = int(((m > 0) & (x[:, 2].abs() <= prm.zmax)).sum())
+    n_out = int((x[:, 2].abs() > prm.zmax).sum())
+    rows = []
+    for name, line, fn, plain, (byts, ops) in (
+            ("slab_coef", "exp_tpu/ops/pallas_slab.py:134",
+             lambda: sk.slab_coef(x, m, prm),
+             lambda: sk.slab_coef_plain(x, m, prm),
+             k9_work(n, n_in, prm.nmaxx, prm.nmaxy, prm.zrows, kz)),
+            ("slab_accel", "exp_tpu/ops/pallas_slab.py:286",
+             lambda: sk.slab_accel(x, tab, aux, prm),
+             lambda: sk.slab_accel_plain(x, tab, aux, prm),
+             k10_work(n, n_out, prm.nmaxx, prm.nmaxy, prm.zrows, kz))):
+        bms, by = bound_ms(byts, ops)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"exp_tpu_torch/csrc/{name}.cu", "replaces": line,
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": cuda_ms(fn, 50), "plain_ms": cuda_ms(plain, 5),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "library_note": "no single PyTorch call computes these "
+                            "non-uniform Fourier sums with z weights",
+            "bytes": byts, "operations": ops})
+    return rows
+
+
 def main():
     import torch
 
@@ -804,6 +1165,7 @@ def main():
             "bytes": byts, "operations": ops})
     rows += disk_path(dev)
     rows += cube_path(dev)
+    rows += slab_path(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

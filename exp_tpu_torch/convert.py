@@ -14,6 +14,7 @@ import torch
 
 from exp_tpu_torch import resolve_device
 from exp_tpu_torch.basis.empcyl import EmpCylTables
+from exp_tpu_torch.basis.slab import SlabTables
 from exp_tpu_torch.basis.slgrid import SphSLTables
 
 _INT = ("lmax", "nmax", "numr", "cmap")
@@ -60,6 +61,28 @@ def cyl_tables_from_numpy(d: dict) -> EmpCylTables:
     kw["even_count"] = np.array(d["even_count"], dtype=np.int64)
     kw["key"] = str(d.get("key", ""))
     return EmpCylTables(**kw)
+
+
+_SLAB_INT = ("nmaxx", "nmaxy", "nmax", "numz")
+_SLAB_FLOAT = ("zmax", "h")
+_SLAB_ARRAY = ("phi", "dphi", "dens", "zgrid", "sgn")
+
+
+def slab_tables_from_numpy(d: dict) -> SlabTables:
+    """The port's SlabTables from the fields of the JAX package's
+    SlabTables, given as a dict of arrays and scalars
+    (`dataclasses.asdict`).  The tables are copied as f64."""
+    names = {f.name for f in dataclasses.fields(SlabTables)}
+    unknown = set(d) - names
+    missing = set(_SLAB_INT + _SLAB_FLOAT + _SLAB_ARRAY) - set(d)
+    if unknown or missing:
+        raise ValueError(f"SlabTables fields: unknown {sorted(unknown)}, "
+                         f"missing {sorted(missing)}")
+    kw = {k: int(d[k]) for k in _SLAB_INT}
+    kw.update({k: float(d[k]) for k in _SLAB_FLOAT})
+    kw.update({k: np.array(d[k], dtype=np.float64) for k in _SLAB_ARRAY})
+    kw["key"] = str(d.get("key", ""))
+    return SlabTables(**kw)
 
 
 def cube_from_numpy(norm, lap, nmaxx, nmaxy, nmaxz, nminx=0, nminy=0,

@@ -1,0 +1,465 @@
+"""Periodic-slab coefficient (K9) and force (K10) passes: CUDA kernels for
+Hopper, their plain PyTorch versions, and the host glue around them.
+
+Port of exp_tpu/ops/pallas_slab.py, for interp 'spline' (the default of
+SlabForce) and 'linear':
+
+  K9  `slab_coef`   replaces make_slab_coef_kernel   (csrc/slab_coef.cu)
+  K10 `slab_accel`  replaces make_slab_accel_kernel  (csrc/slab_accel.cu)
+
+The kernels read x (N, 3) and mass (N,) as they are and mask their own
+ragged tail: the TPU's transposed (8, N) layout, its 1024-particle padding,
+its selection matrices, its padded 16 x 16 (kx, ky) lattice and its bf16
+splits are not carried over.  A particle touches 3 z-nodes ('spline'; 2 for
+'linear'), and the kernels and the plain versions touch only those, where
+the TPU multiplied dense (rows, B) weight matrices.
+
+Layouts.  Wavevectors k = (kx, ky), kx = -nmaxx..nmaxx, ky = -nmaxy..nmaxy,
+are flattened ab = (kx + nmaxx)(2 nmaxy + 1) + (ky + nmaxy), C of them; the
+mirror -k of ab is C - 1 - ab.  The half lattice (kx > 0, or kx = 0 and
+ky >= 0) is h = kx (2 nmaxy + 1) + ky = ab - (C - 1)/2, h = 0..H-1 with
+H = (C + 1)/2.  K9 returns G (C, zrows) complex64, the JAX kernel's
+contract; the caller contracts it with the z-tables (contract_coef_output).
+K10 takes the port's own tables: the z-profiles folded onto the half lattice
+(slab_force_table, (zrows, H, 4)) and the vacuum continuation's boundary
+rows (slab_force_aux, (H, 8)); the TPU's Ct (4 Cp, nzp) and Aux (Cp, 128)
+packings are kept as functions for the tests.
+
+Each wrapper takes its plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.  `launch_counts` counts kernel
+launches, one per wrapper call that reaches the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from exp_tpu_torch.ops import _build
+from exp_tpu_torch.ops.cube_kernels import axis_phases, wrap
+from exp_tpu_torch.ops.spline import b2
+
+#: launches of each kernel since the last reset (only kernel launches count)
+launch_counts = {"slab_coef": 0, "slab_accel": 0}
+
+#: the nmax values per axis the kernels are built for, and the most table
+#: rows in z (nzc + 2 for 'spline', nzc for 'linear')
+KERNEL_NMAX = range(0, 9)
+KERNEL_ZROWS_MAX = 128
+
+#: K9's particles a group per staged tile and its most groups a block
+#: (kTile and kMaxGroups of csrc/slab_coef.cu)
+K9_TILE = 64
+K9_MAX_GROUPS = 8
+
+INTERPS = ("spline", "linear")
+
+_TWO_PI = 2.0 * math.pi
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+@dataclass(frozen=True)
+class SlabKernelParams:
+    """Static geometry of the slab kernels (exp_tpu's kernel-maker
+    arguments): nmax per horizontal axis, nzc coarse z nodes over
+    [-zmax, zmax] and the z interpolation ('spline' or 'linear')."""
+
+    nmaxx: int
+    nmaxy: int
+    nzc: int
+    zmax: float
+    interp: str = "spline"
+
+    @property
+    def C(self):
+        return (2 * self.nmaxx + 1) * (2 * self.nmaxy + 1)
+
+    @property
+    def H(self):
+        """Wavevectors of the half lattice."""
+        return (self.C + 1) // 2
+
+    @property
+    def zrows(self):
+        return self.nzc + 2 if self.interp == "spline" else self.nzc
+
+    @property
+    def dz(self):
+        return 2.0 * self.zmax / (self.nzc - 1)
+
+
+def check_params(prm: SlabKernelParams) -> None:
+    """Raise NotImplementedError for a geometry the kernels are not built
+    for: nmax 0..8 on each axis, 2..KERNEL_ZROWS_MAX table rows in z."""
+    if prm.interp not in INTERPS:
+        raise NotImplementedError(f"interp={prm.interp!r}: the slab kernels "
+                                  f"are built for {INTERPS}")
+    bad = [n for n in (prm.nmaxx, prm.nmaxy) if n not in KERNEL_NMAX]
+    if bad:
+        raise NotImplementedError(
+            f"nmax {(prm.nmaxx, prm.nmaxy)}: the slab kernels are built for "
+            f"nmax {KERNEL_NMAX.start}..{KERNEL_NMAX.stop - 1} on each axis")
+    if prm.nzc < 2 or prm.zrows > KERNEL_ZROWS_MAX:
+        raise NotImplementedError(
+            f"nzc={prm.nzc} ({prm.zrows} table rows, interp "
+            f"{prm.interp!r}): the slab kernels take 2..{KERNEL_ZROWS_MAX} "
+            "rows in z")
+
+
+def half_lattice(prm: SlabKernelParams, device=None):
+    """(kx, ky) of the half-lattice wavevectors h = 0..H-1, int64."""
+    B2 = 2 * prm.nmaxy + 1
+    h = torch.arange(prm.H, device=device)
+    kx = torch.div(h + prm.nmaxy, B2, rounding_mode="floor")
+    return kx, h - kx * B2
+
+
+# ---------------------------------------------------------------------------
+# host packing (copies of pallas_slab.py :313-413, and the port's layouts)
+# ---------------------------------------------------------------------------
+
+def resample_z(table, numz, nzc):
+    """Linear resample a (numz, ...) uniform-z table onto nzc nodes
+    (host-side, once)."""
+    t = np.linspace(0.0, numz - 1.0, nzc)
+    i0 = np.minimum(t.astype(np.int64), numz - 2)
+    f = (t - i0).reshape((-1,) + (1,) * (np.ndim(table) - 1))
+    a = np.asarray(table, np.float32)
+    return a[i0] * (1.0 - f) + a[i0 + 1] * f
+
+
+def signed_k(v):
+    """(..., nkx, nky, n) |k| rows -> (..., 2nkx-1, 2nky-1, n): the mirror
+    of the |k| tables to signed k (pallas_slab.py expand_signed and the
+    `sgn` mirror of forces/slab.py), the one copy in the port."""
+    a = torch.cat([v[..., 1:, :, :].flip(-3), v], dim=-3)
+    return torch.cat([a[..., 1:, :].flip(-2), a], dim=-2)
+
+
+def contract_coef_output(G, phi_s, sgn):
+    """G (C, zrows) complex x phi_s (zrows, A, B2, n) signed z-table ->
+    coefficients (A, B2, n) complex with the -4 pi and pairing signs: one
+    batched FP32 product over the z nodes, per wavevector (TF32 off on a
+    CUDA device, set by SlabForce)."""
+    A, B2, nn = phi_s.shape[1:]
+    P = phi_s.reshape(-1, A * B2, nn).transpose(0, 1)     # (C, zrows, n)
+    Gr = torch.view_as_real(G).transpose(1, 2)            # (C, 2, zrows)
+    c = torch.bmm(Gr, P.to(Gr.dtype))                     # (C, 2, n)
+    c = torch.view_as_complex(c.transpose(1, 2).contiguous())
+    return c.reshape(A, B2, nn) * (-4.0 * math.pi * sgn.to(Gr.dtype))
+
+
+def fold_half(T, prm: SlabKernelParams, dim=-1):
+    """T (..., C, ...) complex over the full lattice (wavevectors along
+    `dim`) -> (..., H, ...): T_h + conj T_{-h} for h > 0, T_0 as it is.
+    Re and Im of the conjugate term at k equal those of T_{-k}'s term at
+    -k (with the sign of k for Im), so every real output of the force pass
+    is unchanged."""
+    T = T.movedim(dim, -1)
+    ctr = (prm.C - 1) // 2
+    h = T[..., ctr:].clone()
+    h[..., 1:] += torch.conj(T[..., :ctr].flip(-1))
+    return h.movedim(-1, dim)
+
+
+def z_profile_tables(phi_s, dphi_s):
+    """The signed coarse z-tables (zrows, A, B2, n) of phi and dphi stacked
+    once into (2, zrows, C, n), the operand of slab_force_table."""
+    zr, A, B2, nn = phi_s.shape
+    return torch.stack([phi_s, dphi_s]).reshape(2, zr, A * B2, nn)
+
+
+def boundary_rows(phi_t, dphi_t):
+    """The full-resolution tables' rows at z = +zmax and -zmax (phi_t[-1],
+    phi_t[0], dphi_t[-1], dphi_t[0]) in the signed-k layout, stacked once
+    into (4, C, n), the operand of slab_force_aux."""
+    rows = signed_k(torch.stack([phi_t[-1], phi_t[0], dphi_t[-1],
+                                 dphi_t[0]]))
+    return rows.reshape(4, -1, rows.shape[-1])
+
+
+def slab_force_table(coef, zq, prm: SlabKernelParams):
+    """coef (A, B2, n) complex x the stacked z-tables (z_profile_tables) ->
+    K10's table (zrows, H, 4) f32: at each z node and half-lattice
+    wavevector the folded (fold_half) complex profiles T = sum_n coef phi
+    and T' = sum_n coef dphi as (Re T, Im T, Re T', Im T')."""
+    cr = torch.view_as_real(coef).reshape(prm.C, -1, 2)    # (C, n, 2)
+    R = torch.einsum("qjcn,cnr->jcqr", zq.to(cr.dtype), cr).contiguous()
+    T = fold_half(torch.view_as_complex(R), prm, dim=1)    # (zrows, H, 2)
+    return torch.view_as_real(T).reshape(-1, prm.H, 4).to(
+        torch.float32).contiguous()
+
+
+def slab_force_aux(coef, bnd, prm: SlabKernelParams):
+    """K10's vacuum-continuation rows (H, 8) f32 from coef (A, B2, n)
+    complex and the stacked boundary rows (boundary_rows): per
+    half-lattice wavevector the folded sum_n coef * row as (Re, Im) of the
+    top and bottom potential, then of the top and bottom dPhi/dz."""
+    cr = torch.view_as_real(coef).reshape(prm.C, -1, 2)
+    R = torch.einsum("qcn,cnr->cqr", bnd.to(cr.dtype), cr).contiguous()
+    T = fold_half(torch.view_as_complex(R), prm, dim=0)    # (H, 4)
+    return torch.view_as_real(T).reshape(prm.H, 8).to(
+        torch.float32).contiguous()
+
+
+def _round_up(x, m):
+    return ((x + m - 1) // m) * m
+
+
+def contract_slab_tables(coef, phi_s, dphi_s, nmaxx, nmaxy):
+    """The TPU packing (pallas_slab.py:340-363): coef (A, B2, n) complex x
+    signed z-tables -> Ct (4 Cp, nzp) f32, rows [pot re | pot im | d/dz re |
+    d/dz im] of Cp wavevector rows each.  Kept for the tests, which feed
+    the JAX kernel and the port the same coefficients."""
+    nzc, A, B2, nn = phi_s.shape
+    C = A * B2
+    Cp, nzp = _round_up(C, 8), _round_up(nzc, 128)
+    rows = []
+    for tab in (phi_s, dphi_s):
+        Tq = torch.einsum("abn,jabn->jab", coef, tab.to(coef.dtype))
+        M = Tq.reshape(nzc, C).T
+        for part in (M.real, M.imag):
+            rows.append(torch.nn.functional.pad(
+                part.to(torch.float32), (0, nzp - nzc, 0, Cp - C)))
+    return torch.cat(rows, dim=0)
+
+
+def slab_accel_aux(coef, phi_top, phi_bot, dphi_top, dphi_bot, nmaxx, nmaxy):
+    """The TPU's Aux operand (pallas_slab.py:366-413), (Cp, 128) f32:
+    columns 2 pi kx, 2 pi ky, 2 pi |k|, the k = 0 mask, then the top and
+    bottom boundary potential and dPhi/dz (re, im).  Kept for the tests."""
+    kxv = np.arange(-nmaxx, nmaxx + 1, dtype=np.float32)
+    kyv = np.arange(-nmaxy, nmaxy + 1, dtype=np.float32)
+    A, B2 = 2 * nmaxx + 1, 2 * nmaxy + 1
+    C = A * B2
+    Cp = _round_up(C, 8)
+    kmag = np.sqrt(kxv[:, None] ** 2 + kyv[None, :] ** 2)
+    cols = [np.broadcast_to((_TWO_PI * kxv)[:, None], (A, B2)).reshape(C),
+            np.broadcast_to((_TWO_PI * kyv)[None, :], (A, B2)).reshape(C),
+            (_TWO_PI * kmag).reshape(C),
+            (kmag == 0).astype(np.float32).reshape(C)]
+    cols = [torch.as_tensor(np.ascontiguousarray(c), dtype=torch.float32,
+                            device=coef.device) for c in cols]
+    for tab in (phi_top, phi_bot, dphi_top, dphi_bot):
+        Tb = torch.einsum("abn,abn->ab", coef,
+                          signed_k(tab).to(coef.dtype)).reshape(C)
+        cols += [Tb.real.to(torch.float32), Tb.imag.to(torch.float32)]
+    aux = torch.stack(cols, dim=1)                        # (C, 12)
+    return torch.nn.functional.pad(aux, (0, 128 - aux.shape[1], 0, Cp - C))
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def z_grid(z, prm: SlabKernelParams):
+    """Grid position t = clip((z + zmax) / dz, 0, nzc - 1), as the JAX
+    kernels round it (f32, zmax and dz rounded to f32)."""
+    return torch.clamp((z + prm.zmax) / prm.dz, 0.0, prm.nzc - 1.0)
+
+
+def z_nodes(t, prm: SlabKernelParams):
+    """The first of a particle's contiguous z nodes and their weights
+    (csrc/slab_common.cuh z_nodes).  'spline': the prefiltered quadratic
+    B-spline weights b2(j - 1 - t) on rows j0..j0+2, j0 = floor(t + 1.5) - 1
+    held in 0..nzc-1 (rows 0 and nzc + 1 are ghost spline coefficients).
+    'linear': the hats max(0, 1 - |j - t|) on rows j0, j0 + 1, j0 =
+    floor(t) held in 0..nzc-2, so that the window stays inside the table
+    (at t = nzc - 1 the first weight is 0)."""
+    if prm.interp == "spline":
+        j0 = torch.clamp(torch.floor(t + 1.5), 1.0, float(prm.nzc)) - 1.0
+        ws = [b2(j0 + k - 1.0 - t) for k in range(3)]
+    else:
+        j0 = torch.clamp(torch.floor(t), max=prm.nzc - 2.0)
+        ws = [torch.clamp(1.0 - torch.abs(j0 + k - t), min=0.0)
+              for k in range(2)]
+    return j0.long(), ws
+
+
+def slab_coef_plain(x, mass, prm: SlabKernelParams, chunk: int = 65536):
+    """Plain version of K9: G (C, zrows) complex64 raw sums
+    G[ab, j] = sum_i w_i e^{-2 pi i k.u_i} Wz[j, i] of particles x (N, 3),
+    mass (N,), with u = x - floor(x) and w the mass masked to |z| <= zmax,
+    as the JAX kernel contracts them: [xyr; xyi] (2C, B) against the
+    (B, zrows) z weights, one f32 matmul a chunk of particles."""
+    C, zr = prm.C, prm.zrows
+    acc = torch.zeros((2 * C, zr), dtype=torch.float32, device=x.device)
+    for s in range(0, x.shape[0], chunk):
+        xs = x[s:s + chunk].to(torch.float32)
+        m = mass[s:s + chunk].to(torch.float32)
+        u, z = wrap(xs[:, :2]), xs[:, 2]
+        w = torch.where(torch.abs(z) <= prm.zmax, m, torch.zeros_like(m))
+        ex = axis_phases(u[:, 0], prm.nmaxx, -1.0) * w[:, None]
+        ey = axis_phases(u[:, 1], prm.nmaxy, -1.0)
+        exy = (ex[:, :, None] * ey[:, None, :]).reshape(-1, C)
+        XY = torch.cat([exy.real, exy.imag], dim=1)
+        j0, ws = z_nodes(z_grid(z, prm), prm)
+        Wz = torch.zeros((xs.shape[0], zr), dtype=torch.float32,
+                         device=x.device)
+        for k, wk in enumerate(ws):
+            Wz.scatter_add_(1, (j0 + k)[:, None], wk[:, None])
+        acc += XY.T @ Wz
+    return torch.complex(acc[:C], acc[C:])
+
+
+def slab_accel_plain(x, tab, aux, prm: SlabKernelParams, chunk: int = 65536):
+    """Plain version of K10: (acc (N, 3), pot (N,)) f32 at x (N, 3) from
+    the folded table (slab_force_table) and boundary rows (slab_force_aux).
+    With e_h = e^{+2 pi i k.u} and T, T' interpolated at the clamped z:
+    pot = Re sum T e, a_x, a_y = Im sum 2 pi k T e, a_z = -Re sum T' e.
+    For |z| > zmax the vacuum continuation: each mode decays as
+    e^{-2 pi |k| (|z| - zmax)} off its boundary value, and the k = 0 mode
+    continues linearly (pallas_slab.py:248-279)."""
+    kx, ky = half_lattice(prm, x.device)
+    kxw = _TWO_PI * kx.to(torch.float32)
+    kyw = _TWO_PI * ky.to(torch.float32)
+    kmw = _TWO_PI * torch.sqrt((kx * kx + ky * ky).to(torch.float32))
+    auxc = torch.view_as_complex(aux.reshape(prm.H, 4, 2))     # (H, 4)
+    accs, pots = [], []
+    for s in range(0, x.shape[0], chunk):
+        xs = x[s:s + chunk].to(torch.float32)
+        u, z = wrap(xs[:, :2]), xs[:, 2]
+        ex = axis_phases(u[:, 0], prm.nmaxx, 1.0)[:, prm.nmaxx:]
+        ey = axis_phases(u[:, 1], prm.nmaxy, 1.0)
+        e = ex[:, kx] * ey[:, ky + prm.nmaxy]                  # (B, H)
+        zc = torch.clamp(z, -prm.zmax, prm.zmax)
+        j0, ws = z_nodes(z_grid(zc, prm), prm)
+        T = sum(wk[:, None, None] * tab[j0 + k] for k, wk in enumerate(ws))
+        tp = torch.complex(T[..., 0], T[..., 1]) * e
+        pot = tp.real.sum(dim=1)
+        ax = (tp.imag * kxw).sum(dim=1)
+        ay = (tp.imag * kyw).sum(dim=1)
+        az = -(torch.complex(T[..., 2], T[..., 3]) * e).real.sum(dim=1)
+
+        dzp = torch.clamp(torch.abs(z) - prm.zmax, min=0.0)
+        out = dzp > 0.0
+        if bool(out.any()):
+            top = (z >= 0)[:, None]
+            szn = torch.where(z >= 0, 1.0, -1.0)
+            Tb = torch.where(top, auxc[:, 0], auxc[:, 1])      # (B, H)
+            Td0 = torch.where(top[:, 0], auxc[0, 2], auxc[0, 3]).real
+            OE = Tb * e * torch.exp(-kmw * dzp[:, None])
+            pot_o = OE.real.sum(dim=1) + Td0 * dzp * szn
+            ax_o = (OE.imag * kxw).sum(dim=1)
+            ay_o = (OE.imag * kyw).sum(dim=1)
+            az_o = -Td0 + szn * (kmw * OE.real).sum(dim=1)
+            ax, ay = torch.where(out, ax_o, ax), torch.where(out, ay_o, ay)
+            az, pot = torch.where(out, az_o, az), torch.where(out, pot_o, pot)
+        accs.append(torch.stack([ax, ay, az], dim=1))
+        pots.append(pot)
+    if not accs:
+        return (torch.empty((0, 3), dtype=torch.float32, device=x.device),
+                torch.empty((0,), dtype=torch.float32, device=x.device))
+    return torch.cat(accs), torch.cat(pots)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_LL = ctypes.c_longlong
+
+
+def _on_card(x, name):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _geometry_args(prm):
+    return (prm.nmaxx, prm.nmaxy, prm.nzc, 1 if prm.interp == "spline" else 0,
+            prm.zmax, prm.dz)
+
+
+def coef_plan(prm: SlabKernelParams, props, n):
+    """K9's launch plan on a device with properties `props`: (groups a
+    block, blocks).  Two blocks an SM where their shared memory fits (one
+    block's staging then overlaps the other's sums), else one; as many
+    groups of H threads (rounded up to 32) a block as its share holds; no
+    more blocks than tiles of particles.  A group's shared memory is its
+    staged tile (w Wz and j0, the x powers and the y row of each particle)
+    and its (zrows, H) complex accumulator, as csrc/slab_coef.cu lays it
+    out."""
+    gt = -(-prm.H // 32) * 32
+    row = prm.nmaxx + 1 + 2 * prm.nmaxy + 1
+    group_bytes = 16 * K9_TILE + 8 * K9_TILE * row + 8 * prm.H * prm.zrows
+    for per_sm in (2, 1):
+        budget = min(props.shared_memory_per_block_optin,
+                     props.shared_memory_per_multiprocessor // per_sm - 1024)
+        ng = min(budget // group_bytes, K9_MAX_GROUPS, 1024 // gt)
+        if ng >= 1:
+            break
+    else:
+        raise ValueError(f"slab_coef: one group ({group_bytes} B) exceeds a "
+                         "block's shared memory")
+    tiles = -(-n // (ng * K9_TILE))
+    return ng, max(1, min(per_sm * props.multi_processor_count, tiles))
+
+
+def slab_coef(x, mass, prm: SlabKernelParams):
+    """K9: G (C, zrows) complex64 raw sums.
+
+    x (N, 3), mass (N,), f32.  CPU tensors take slab_coef_plain; CUDA
+    tensors launch csrc/slab_coef.cu."""
+    check_params(prm)
+    if x.device.type == "cpu":
+        return slab_coef_plain(x, mass, prm)
+    _on_card(x, "slab_coef")
+    n = x.shape[0]
+    dev = x.device
+    _build.check_tensor(x, "x", (n, 3), dev)
+    _build.check_tensor(mass, "mass", (n,), dev)
+    fn, err = _build.bind("slab_coef", [_P, _P, _LL, _P, _P, _I, _I, _I, _I,
+                                        _I, _I, _F, _F, _P])
+    ng, nblocks = coef_plan(prm, torch.cuda.get_device_properties(dev), n)
+    partial = torch.empty((nblocks, prm.zrows, prm.H, 2),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty((prm.C, prm.zrows, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(x.data_ptr(), mass.data_ptr(), n, partial.data_ptr(),
+                  out.data_ptr(), ng, nblocks, *_geometry_args(prm), stream)
+    _build.raise_on(code, err, "slab_coef")
+    launch_counts["slab_coef"] += 1
+    return torch.view_as_complex(out)
+
+
+def slab_accel(x, tab, aux, prm: SlabKernelParams):
+    """K10: slab force (acc (N, 3), pot (N,)) f32.
+
+    x (N, 3), tab (zrows, H, 4) from slab_force_table, aux (H, 8) from
+    slab_force_aux; f32.  CPU tensors take slab_accel_plain; CUDA tensors
+    launch csrc/slab_accel.cu."""
+    check_params(prm)
+    if x.device.type == "cpu":
+        return slab_accel_plain(x, tab, aux, prm)
+    _on_card(x, "slab_accel")
+    n = x.shape[0]
+    dev = x.device
+    _build.check_tensor(x, "x", (n, 3), dev)
+    _build.check_tensor(tab, "tab", (prm.zrows, prm.H, 4), dev)
+    _build.check_tensor(aux, "aux", (prm.H, 8), dev)
+    if tab.data_ptr() % 16 or aux.data_ptr() % 16:
+        raise ValueError("tab and aux must be 16-byte aligned")
+    fn, err = _build.bind("slab_accel", [_P, _LL, _P, _P, _P, _P, _I, _I, _I,
+                                         _I, _F, _F, _P])
+    acc = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    pot = torch.empty((n,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(x.data_ptr(), n, tab.data_ptr(), aux.data_ptr(),
+                  acc.data_ptr(), pot.data_ptr(), *_geometry_args(prm),
+                  stream)
+    _build.raise_on(code, err, "slab_accel")
+    launch_counts["slab_accel"] += 1
+    return acc, pot

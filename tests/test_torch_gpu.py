@@ -327,3 +327,127 @@ def test_cube_step_on_card_matches_cpu(cuda, version):
                                atol=1e-7)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the periodic-slab kernels K9 (slab_coef) and K10 (slab_accel)
+# ---------------------------------------------------------------------------
+
+# the wrap's edges (x, y = 1.0, -1e-7, -2.75, 1000.3) with z at and near the
+# faces (zmax = 0.1) and beyond them, and a zero-mass row
+SLAB_EDGE_X = [[1.0, -1e-7, 0.1], [-1e-7, -2.75, -0.1],
+               [-2.75, 1000.3, 0.0999], [1000.3, 1.0, 0.1001],
+               [1.0, -1e-7, -0.0999], [-1e-7, -2.75, -0.1001],
+               [-2.75, 1000.3, 0.3], [1000.3, 1.0, -0.3],
+               [1.0, -1e-7, 1.0], [-1e-7, -2.75, -1.0], [0.3, 0.2, 0.01]]
+SLAB_NMAX = [(2, 2), (4, 4), (3, 1)]
+
+
+def _slab_inputs(device):
+    """The bench's sheet, particles at zmax < |z| <= 3 zmax of both signs,
+    and the edge rows."""
+    from exp_tpu_torch.bench_slab import slab_sample
+
+    x, _, m = slab_sample(N, seed=1)
+    rng = np.random.default_rng(3)
+    xo = np.stack([rng.uniform(0, 1, 2000), rng.uniform(0, 1, 2000),
+                   rng.uniform(0.1, 0.3, 2000) * rng.choice([-1, 1], 2000)],
+                  -1)
+    x = np.concatenate([x, xo, SLAB_EDGE_X])
+    m = np.concatenate([m, np.full(2000, 1.0 / N),
+                        [1.0 / N] * (len(SLAB_EDGE_X) - 1) + [0.0]])
+    return (torch.tensor(x, dtype=torch.float32, device=device),
+            torch.tensor(m, dtype=torch.float32, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["spline", "linear"])
+@pytest.mark.parametrize("nmax", SLAB_NMAX, ids=lambda p: "nmax%d%d" % p)
+def test_slab_kernels_match_plain_versions(cuda, nmax, interp):
+    """K9: G over k != 0 within 1e-4 of its largest |G| (shot noise of the
+    uniform (x, y)) and the k = 0 row within 1e-5 of its own; G(-k) =
+    conj G(k) exactly (the kernel mirrors the half lattice); two launches
+    agree bit for bit; zero-mass and |z| > zmax rows give exactly 0.  K10:
+    acc and pot within 2e-5 of their largest values.  Each wrapper call on
+    the card counts one launch."""
+    from exp_tpu_torch.basis.slab import build_slab_tables
+    from exp_tpu_torch.forces.slab import SlabForce
+    from exp_tpu_torch.ops import slab_kernels as sk
+
+    t = build_slab_tables(nmaxx=nmax[0], nmaxy=nmax[1], nmax=4, zmax=0.1,
+                          h=0.01, numz=201)
+    f = SlabForce.from_tables(t, backend="pallas", pallas_interp=interp,
+                              device=cuda)
+    prm = f._kernel_params()
+    x, m = _slab_inputs(cuda)
+    before = dict(sk.launch_counts)
+    G = sk.slab_coef(x, m, prm)
+    G0 = sk.slab_coef_plain(x, m, prm)
+    torch.cuda.synchronize()
+    ctr = (prm.C - 1) // 2
+    kn = torch.arange(prm.C, device=cuda) != ctr
+    dG = (G - G0).abs()
+    assert float(dG[kn].max() / G0[kn].abs().max()) < 1e-4
+    assert float(dG[ctr].max() / G0[ctr].abs().max()) < 1e-5
+    assert torch.equal(G, G.flip(0).conj())
+    assert torch.equal(G, sk.slab_coef(x, m, prm))
+    dead = (m == 0) | (x[:, 2].abs() > prm.zmax)
+    assert float(sk.slab_coef(x[dead].contiguous(), m[dead].contiguous(),
+                              prm).abs().max()) == 0.0
+    c0 = sk.contract_coef_output(G0, f.phi_s, f.sgn)
+    tab = sk.slab_force_table(c0, f.zq_s, prm)
+    aux = sk.slab_force_aux(c0, f.bnd_s, prm)
+    a0, p0 = sk.slab_accel_plain(x, tab, aux, prm)
+    a, p = sk.slab_accel(x, tab, aux, prm)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
+    assert float((a - a0).abs().max()) <= 2e-5 * float(a0.abs().max())
+    assert float((p - p0).abs().max()) <= 2e-5 * float(p0.abs().max())
+    assert sk.launch_counts["slab_coef"] == before["slab_coef"] + 3
+    assert sk.launch_counts["slab_accel"] == before["slab_accel"] + 1
+
+
+@pytest.mark.gpu
+def test_slab_wrappers_reject_bad_inputs(cuda):
+    from exp_tpu_torch.ops import slab_kernels as sk
+
+    prm = sk.SlabKernelParams(2, 2, 126, 0.1)
+    x, m = _slab_inputs(cuda)
+    with pytest.raises(TypeError, match="float32"):
+        sk.slab_coef(x.double(), m, prm)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.slab_coef(x.t().contiguous().t(), m, prm)
+    with pytest.raises(ValueError, match="shape"):
+        sk.slab_coef(x, m[:-1], prm)
+    tab = torch.zeros((prm.zrows, prm.H, 4), device=cuda)
+    aux = torch.zeros((prm.H, 8), device=cuda)
+    with pytest.raises(ValueError, match="is on"):
+        sk.slab_accel(x, tab.cpu(), aux, prm)
+    with pytest.raises(ValueError, match="shape"):
+        sk.slab_accel(x, tab[:-1].contiguous(), aux, prm)
+    with pytest.raises(NotImplementedError, match="rows in z"):
+        sk.slab_coef(x, m, sk.SlabKernelParams(2, 2, 127, 0.1))
+
+
+@pytest.mark.gpu
+def test_slab_step_on_card_matches_cpu(cuda):
+    """One KDK step of the bench's sheet through K9/K10 against the same
+    step through the plain versions on the CPU: positions and velocities
+    to f32 roundoff."""
+    from exp_tpu_torch.bench_slab import DT, slab_force, slab_sample, slab_tables
+    from exp_tpu_torch.nbody.particles import ParticleSystem
+    from exp_tpu_torch.nbody.step import init_force_state, make_kdk_step
+
+    t = slab_tables()
+    x, v, m = slab_sample(N, seed=2)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        f = slab_force(t, dev)
+        ps = ParticleSystem.from_arrays(x, v, m, device=dev)
+        ps, _, _ = init_force_state(f, ps)
+        ps, _, _ = make_kdk_step(f, DT)(ps)
+        out[dev.type] = (ps.x.cpu(), ps.v.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-7)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                               atol=1e-6)

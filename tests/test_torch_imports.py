@@ -25,7 +25,10 @@ def test_import_loads_no_jax_or_exp_tpu():
         "exp_tpu_torch.basis.empcyl, exp_tpu_torch.basis.flatdisk, "
         "exp_tpu_torch.ic.disk, exp_tpu_torch.bench_disk, "
         "exp_tpu_torch.forces.cube, exp_tpu_torch.ops.cube_kernels, "
-        "exp_tpu_torch.ic.cubeics, exp_tpu_torch.bench_cube\n"
+        "exp_tpu_torch.ic.cubeics, exp_tpu_torch.bench_cube, "
+        "exp_tpu_torch.basis.slab, exp_tpu_torch.forces.slab, "
+        "exp_tpu_torch.ops.slab_kernels, exp_tpu_torch.ic.slab, "
+        "exp_tpu_torch.bench_slab\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exp_tpu' or m.startswith('exp_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -103,3 +106,20 @@ def test_cube_entry_point_without_device_raises_when_no_cuda(monkeypatch):
         cube_from_numpy(np.zeros((5, 5, 5)), np.zeros((5, 5, 5)), 2, 2, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         complex_from_numpy(np.zeros(3, np.complex64))
+
+
+def test_slab_entry_point_without_device_raises_when_no_cuda(monkeypatch):
+    from exp_tpu_torch.basis.slab import build_slab_tables
+    from exp_tpu_torch.bench_slab import bench_slab, slab_force
+    from exp_tpu_torch.forces.slab import SlabForce
+
+    t = build_slab_tables(nmaxx=1, nmaxy=1, nmax=2, numz=51)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SlabForce.from_tables(t, backend="pallas")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        slab_force(t)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_slab(n=10, tables=t)
+    with pytest.raises(RuntimeError, match="times the card"):
+        bench_slab(n=10, tables=t, device="cpu")
