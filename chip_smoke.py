@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Four paths of exp_tpu_torch, each with backend='pallas', run the port's
-eight hand-written kernels:
+Five paths of exp_tpu_torch, each with backend='pallas', run the port's
+ten hand-written kernels:
 
   the sphere path (1,048,576 particles): the sphereSL KDK step of a
     Hernquist halo under the spherical Sturm-Liouville basis (lmax=4,
@@ -22,7 +22,12 @@ eight hand-written kernels:
   the slab path (1,048,576 particles): the periodic slab of the slab bench
     (nmax 4 x 4 x 6, numz=401, nzc=126 'spline', an isothermal sheet,
     dt=1e-3), through K9 (slab coefficients, csrc/slab_coef.cu) and K10
-    (slab force, csrc/slab_accel.cu).
+    (slab force, csrc/slab_accel.cu);
+  the sphere-settings path (1,048,576 particles): the sphere path's halo
+    under SphereSL's other pallas settings, through K3 (recurrence
+    coefficients, csrc/sphere_coef_rec.cu), K6 (poly force,
+    csrc/sphere_accel_poly.cu), the 'hat' branches of K1 and K2 and K2 at
+    lmax 10.
 
 Phases:
 
@@ -63,8 +68,20 @@ Phases:
   SL3. the slab path: init + 50 KDK steps (dt=1e-3) of the bench's sheet,
      with each kernel's launch count, finiteness, the energy drift, the
      change of the horizontal momentum and of the sheet's thickness gated;
-  SL4. slab timing, as in phase 6, and K10 with its table in shared memory
-     against through L1/L2.
+  SL4. slab timing, as in phase 6;
+  V1. lmax=10, nmax=10, numr=2000 tables of the same halo beside phase 3's
+     lmax=4 ones, and a force on the card for each setting: recurrence (K3 +
+     K2), poly (K1 + K6), hat (K1-hat + K2-hat), hat + recurrence (K3-hat +
+     K2-hat), hat + poly (K1-hat + K6-hat) and lmax 10 under 'auto' (K3 +
+     K2 above lmax 6);
+  V2. each new kernel and branch against its plain version on the benches'
+     sample plus edge rows and rows exactly on hat nodes, with the stated
+     tolerances; zero-mass and masked rows give exactly 0;
+  V3. init + 50 KDK steps (dt=1e-3) of phase 5's equilibrium sample under
+     each setting, with each kernel's launch count, finiteness, the virial
+     ratio and the energy drift gated;
+  V4. the steady step of each setting, and each new kernel and branch with
+     its plain version by CUDA events, and each bound.
 
 Prints one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 ...}.  Any failure raises and exits non-zero before the last line.  Needs
@@ -202,6 +219,31 @@ SLAB_FORCE_RTOL = 2e-5
 SLAB_FIELD_RTOL = 0.06
 SLAB_FIELD_XY = 0.05
 
+# The sphere-settings path: the sphere path's halo under SphereSL's other
+# pallas settings, name: (lmax, pallas_harmonics, pallas_interp, the two
+# kernel wrappers the setting launches).
+VARIANTS = {
+    "recurrence": (4, "recurrence", "spline",
+                   ("sphere_coef_rec", "sphere_accel")),
+    "poly": (4, "poly", "spline", ("sphere_coef", "sphere_accel_poly")),
+    "hat": (4, "auto", "hat", ("sphere_coef", "sphere_accel")),
+    "hat+recurrence": (4, "recurrence", "hat",
+                       ("sphere_coef_rec", "sphere_accel")),
+    "hat+poly": (4, "poly", "hat", ("sphere_coef", "sphere_accel_poly")),
+    "lmax10": (10, "auto", "spline", ("sphere_coef_rec", "sphere_accel")),
+}
+# |dEtot/Etot| bound over the 50 steps of each setting.  The same runs
+# through the plain versions on a CPU (python -m exp_tpu_torch.bench_sphere
+# kdk --device cpu with --harmonics / --interp / --lmax as the setting, the
+# full 2^20 particles) gave 5.4e-7 (recurrence), 7.2e-7 (poly), 1.8e-7
+# (hat, hat + recurrence, hat + poly) and 7.2e-7 (lmax 10); like the main
+# path's 8.1e-7 these are at the rounding level of the f32 energy sums
+# over 2^20 particles (eps log2 N ~ 2.4e-6), so the main path's bound,
+# 1e-5, holds each of them with room for sums in another order.
+VARIANT_DRIFT_BOUND = 1e-5
+# hat nodes (of numr_c = 512) the agreement inputs put rows exactly on
+HAT_NODES = [20, 90, 140, 200, 300, 510]
+
 
 def nvidia_smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -239,40 +281,93 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def k1_work(n, n_in, lmax, nmax, rows):
+# FP32 operations of one particle's radial weights: the grid position and
+# the 3 quadratic-B-spline weights ('spline'), or the cell and the 2 hat
+# weights ('hat'); and the nonzero weights it has
+WEIGHT_OPS = {"spline": 24, "hat": 12}
+NODES = {"spline": 3, "hat": 2}
+
+
+def k1_work(n, n_in, lmax, nmax, rows, interp="spline"):
     """Bytes and FP32 operations K1 needs on these inputs (an FMA counts
     2).  Per particle: radius, xi map and mask (13), 1/r and u (4), the
     monomials (n_mono - 4 products), the nonzero entries of M . mono (an
-    FMA each) and the mass weight (P), the 3 spline weights (24).  For the
-    n_in particles inside the mass mask, 3 FMAs into each of P rows.  Then
-    the reduction over particles is folded into that count, and the
-    contraction with the table is P * rows * nmax FMAs."""
+    FMA each) and the mass weight (P), the radial weights (WEIGHT_OPS).
+    For the n_in particles inside the mass mask, an FMA into each of P rows
+    at each of the NODES nonzero weights.  Then the reduction over
+    particles is folded into that count, and the contraction with the
+    table is P * rows * nmax FMAs."""
     from exp_tpu_torch.ops.solidharm import harmonic_matrix
     from exp_tpu_torch.ops.sphere_kernels import packed_rows
 
     P = (lmax + 1) ** 2
     n_mono = (lmax + 1) * (lmax + 2) * (lmax + 3) // 6
     nnz = int((harmonic_matrix(lmax, tuple(packed_rows(lmax))) != 0).sum())
-    per = 13 + 4 + (n_mono - 4) + 2 * nnz + P + 24
-    ops = n * per + n_in * 3 * P * 2 + P * rows * nmax * 2
+    per = 13 + 4 + (n_mono - 4) + 2 * nnz + P + WEIGHT_OPS[interp]
+    ops = n * per + n_in * NODES[interp] * P * 2 + P * rows * nmax * 2
     byts = (n * 16 + P * n_mono * 4 + rows * (lmax + 1) * nmax * 4
             + 2 * (lmax + 1) ** 2 * nmax * 4)
     return byts, ops
 
 
-def k2_work(n, lmax, rows):
+def k2_work(n, lmax, rows, interp="spline"):
     """Bytes and FP32 operations K2 needs on these inputs (an FMA counts
     2).  Per particle: geometry (15), the pole clamp and P_lm recurrences
-    (about 5 per entry), dP_lm (5 per entry), trig rows (6 per m), the 3
-    spline weights (24), 2P rows x 3 FMAs of interpolation, the
-    continuation (2 + L), 14 operations per packed row of the assembly
-    (plus 6 for m > 0) and the Cartesian step (30)."""
+    (about 5 per entry), dP_lm (5 per entry), trig rows (6 per m), the
+    radial weights (WEIGHT_OPS), the interpolation ('spline': 2P rows x 3
+    FMAs; 'hat': P rows x 2 products and a sum, and the cell difference,
+    2 products and a sum), the continuation (2 + L), 14 operations per
+    packed row of the assembly (plus 6 for m > 0) and the Cartesian step
+    (30)."""
     P = (lmax + 1) ** 2
     nlm = (lmax + 1) * (lmax + 2) // 2
     n_m = lmax * (lmax + 1) // 2 * 2             # packed rows with m > 0
-    per = (15 + 5 * nlm + 5 * nlm + 6 * lmax + 24 + 2 * P * 3 * 2
-           + 2 + lmax + 14 * P + 6 * n_m + 30)
-    byts = n * (12 + 16) + 2 * P * rows * 4 + (lmax + 1) ** 2 * 4
+    interp_ops = 2 * P * 3 * 2 if interp == "spline" else P * 6
+    per = (15 + 5 * nlm + 5 * nlm + 6 * lmax + WEIGHT_OPS[interp]
+           + interp_ops + 2 + lmax + 14 * P + 6 * n_m + 30)
+    tw = 2 * P if interp == "spline" else P
+    byts = n * (12 + 16) + tw * rows * 4 + (lmax + 1) ** 2 * 4
+    return byts, n * per
+
+
+def k3_work(n, n_in, lmax, nmax, rows, interp="spline"):
+    """Bytes and FP32 operations K3 needs on these inputs (an FMA counts
+    2).  Per particle: r and R (11), cos theta, cos phi, sin phi (3), rs,
+    the xi map and the mask (8).  For the n_in particles inside the mass
+    mask: the Legendre recurrences (about 5 per entry), the trig rows (6
+    per m), w fac P_lm (2 per entry) times trig (1 per packed row), the
+    radial weights (WEIGHT_OPS) and an FMA into each of P rows at each of
+    the NODES nonzero weights.  Then the contraction with the table, P *
+    rows * nmax FMAs.  Bytes: x and mass in, fac and the table once, the
+    coefficients out."""
+    P = (lmax + 1) ** 2
+    nlm = (lmax + 1) * (lmax + 2) // 2
+    per_in = (5 * nlm + 6 * lmax + 2 * nlm + P + WEIGHT_OPS[interp]
+              + NODES[interp] * P * 2)
+    ops = n * 22 + n_in * per_in + P * rows * nmax * 2
+    byts = (n * 16 + (lmax + 1) ** 2 * 4 + rows * (lmax + 1) * nmax * 4
+            + 2 * (lmax + 1) ** 2 * nmax * 4)
+    return byts, ops
+
+
+def k6_work(n, lmax, rows, Ms, interp="spline"):
+    """Bytes and FP32 operations K6 needs on these inputs (an FMA counts
+    2).  Per particle: r, rs, the boundary test, the xi map and d xi/dr
+    (18), the radial weights (WEIGHT_OPS), the continuation powers (L),
+    1/r and u (4), the monomials (n_mono - 4 products); per packed row the
+    interpolation of pc and dpc ('spline': 2 x 3 FMAs; 'hat': 6), dpc
+    d xi/dr and g, dg (4) and an FMA into each of the 5 sums (10); an FMA
+    for each nonzero entry of the [M; Mx; My; Mz] stack Ms (the nonzeros of
+    these matrices, fewer than K6 multiplies); the projection and the
+    Cartesian step (25).  Bytes: x in, acc and pot out, twT and Ms once."""
+    P = (lmax + 1) ** 2
+    n_mono = (lmax + 1) * (lmax + 2) * (lmax + 3) // 6
+    nnz = int((Ms != 0).sum())
+    interp_ops = 12 if interp == "spline" else 6
+    per = (18 + WEIGHT_OPS[interp] + lmax + 4 + (n_mono - 4)
+           + P * (interp_ops + 4 + 10) + 2 * nnz + 25)
+    tw = 2 * P if interp == "spline" else P
+    byts = n * (12 + 16) + tw * rows * 4 + 4 * P * n_mono * 4
     return byts, n * per
 
 
@@ -1032,6 +1127,205 @@ def slab_path(dev):
             "bytes": byts, "operations": ops})
     return rows
 
+def _variant_rows(forces):
+    """The V2 checks: (kernels-line name, wrapper, source, TPU site, force,
+    kind) of each new kernel and branch."""
+    return [
+        ("sphere_coef[hat]", "sphere_coef", "sphere_coef.cu",
+         "exp_tpu/ops/pallas_sphere.py:521", forces["hat"], "coef"),
+        ("sphere_accel[hat]", "sphere_accel", "sphere_accel.cu",
+         "exp_tpu/ops/pallas_sphere.py:398", forces["hat"], "accel"),
+        ("sphere_accel[lmax10]", "sphere_accel", "sphere_accel.cu",
+         "exp_tpu/ops/pallas_sphere.py:398", forces["lmax10"], "accel"),
+        ("sphere_coef_rec", "sphere_coef_rec", "sphere_coef_rec.cu",
+         "exp_tpu/ops/pallas_sphere.py:249", forces["recurrence"], "coef"),
+        ("sphere_coef_rec[hat]", "sphere_coef_rec", "sphere_coef_rec.cu",
+         "exp_tpu/ops/pallas_sphere.py:249", forces["hat+recurrence"],
+         "coef"),
+        ("sphere_coef_rec[lmax10]", "sphere_coef_rec", "sphere_coef_rec.cu",
+         "exp_tpu/ops/pallas_sphere.py:249", forces["lmax10"], "coef"),
+        ("sphere_accel_poly", "sphere_accel_poly", "sphere_accel_poly.cu",
+         "exp_tpu/ops/pallas_sphere.py:649", forces["poly"], "accel"),
+        ("sphere_accel_poly[hat]", "sphere_accel_poly", "sphere_accel_poly.cu",
+         "exp_tpu/ops/pallas_sphere.py:649", forces["hat+poly"], "accel"),
+    ]
+
+
+def _variant_fns(sk, wrapper, f, x, m, c0):
+    """(kernel call, plain call) of one V2 row; force rows take the
+    contracted table of the plain coefficients c0."""
+    prm = f._kernel_params()
+    tab = f._radial_table()
+    if wrapper == "sphere_coef":
+        return (lambda: sk.sphere_coef(x, m, tab, f.Mp, prm),
+                lambda: sk.sphere_coef_plain(x, m, tab, f.Mp, prm))
+    if wrapper == "sphere_coef_rec":
+        return (lambda: sk.sphere_coef_rec(x, m, tab, f.fac32, prm),
+                lambda: sk.sphere_coef_rec_plain(x, m, tab, f.fac32, prm))
+    if prm.interp == "spline":
+        twT = sk.contract_coef_table2(c0, f.tabc_s, f.tabd_s, f.prows)
+    else:
+        twT = sk.contract_coef_table(c0, f.tabc32, f.prows)
+    if wrapper == "sphere_accel":
+        return (lambda: sk.sphere_accel(x, twT, f.fac32, prm),
+                lambda: sk.sphere_accel_plain(x, twT, f.fac32, prm))
+    return (lambda: sk.sphere_accel_poly(x, twT, f.Ms, prm),
+            lambda: sk.sphere_accel_poly_plain(x, twT, f.Ms, prm))
+
+
+def sphere_settings_path(dev, tables, xe, ve, me):
+    """Phases V1-V4 on the card: `tables` are phase 3's lmax=4 tables,
+    (xe, ve, me) phase 5's equilibrium sample.  Returns the kernels-line
+    rows of the new kernels and branches."""
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch.bench_sphere import (bench_sphere, hernquist_sample_np,
+                                            kdk_run, sphere_force,
+                                            sphere_tables)
+    from exp_tpu_torch.ops import cube_kernels as qk
+    from exp_tpu_torch.ops import cyl_kernels as yk
+    from exp_tpu_torch.ops import slab_kernels as lk
+    from exp_tpu_torch.ops import sphere_kernels as sk
+
+    # V1. the lmax=10 tables and a force for each setting
+    t0 = time.perf_counter()
+    tabs = {4: tables, 10: sphere_tables(lmax=10, nmax=10)}
+    forces = {name: sphere_force(tabs[lmax], dev, harm, interp)
+              for name, (lmax, harm, interp, _) in VARIANTS.items()}
+    print(f"V1 lmax=10 tables and {len(forces)} forces: "
+          f"{time.perf_counter() - t0:.1f} s; kernels "
+          + ", ".join(f"{k} {f._harmonics_eff('coef')}/"
+                      f"{f._harmonics_eff('accel')}/{f._interp_eff}"
+                      for k, f in forces.items()), flush=True)
+
+    # V2. each new kernel and branch against its plain version
+    xb, _, mb = hernquist_sample_np(N, seed=0)
+    ex, em = edge_rows(N)
+    nx = sk.hat_node_points(forces["hat"]._kernel_params(), HAT_NODES)
+    x = torch.tensor(np.concatenate([xb, ex, nx]), dtype=torch.float32,
+                     device=dev)
+    m = torch.tensor(np.concatenate([mb, em, np.full(len(nx), 1.0 / N)]),
+                     dtype=torch.float32, device=dev)
+    # beyond rmax (2), inside rmin, zero mass
+    dead = torch.tensor([N + 3, N + 4, N + 5, N + 6], device=dev)
+    coef0, errs, fns, bad = {}, {}, {}, []
+    for name, wrapper, _, _, f, kind in _variant_rows(forces):
+        key = id(f)
+        if key not in coef0:
+            prm = f._kernel_params()
+            coef0[key] = (sk.sphere_coef_plain(x, m, f._radial_table(), f.Mp,
+                                               prm)
+                          if f._harmonics_eff("coef") == "poly" else
+                          sk.sphere_coef_rec_plain(x, m, f._radial_table(),
+                                                   f.fac32, prm))
+        fn, plain = _variant_fns(sk, wrapper, f, x, m, coef0[key])
+        fns[name] = (fn, plain)
+        if kind == "coef":
+            c, c0 = fn(), coef0[key]
+            torch.cuda.synchronize()
+            errs[name] = float((c - c0).abs().max())
+            rel = errs[name] / float(c0.abs().max())
+            cf, _ = _variant_fns(sk, wrapper, f, x[dead], m[dead], None)
+            zero = float(cf().abs().max())
+            print(f"V2 {name} vs plain: max|dc| = {errs[name]:.3e}, "
+                  f"max|dc|/max|c| = {rel:.3e} (tolerance {COEF_RTOL:.0e}); "
+                  f"zero-mass and masked rows give {zero}", flush=True)
+            if not (rel <= COEF_RTOL and zero == 0.0):
+                bad.append(name)
+            continue
+        (a, p), (a0, p0) = fn(), plain()
+        torch.cuda.synchronize()
+        da, dp = (a - a0).abs(), (p - p0).abs()
+        errs[name] = max(float(da.max()), float(dp.max()))
+        ok_a = da <= ACC_ATOL + ACC_RTOL * a0.abs()
+        ok_p = dp <= POT_ATOL + POT_RTOL * p0.abs()
+        worst = int(torch.argmax((da - ACC_RTOL * a0.abs()).max(dim=1).values))
+        nodes = slice(N + len(em), None)
+        print(f"V2 {name} vs plain: max|da| = {float(da.max()):.3e} (|a| up "
+              f"to {float(a0.abs().max()):.3e}), max|dpot| = "
+              f"{float(dp.max()):.3e}; edge and node rows max|da| = "
+              f"{float(da[N:].max()):.3e} (nodes {float(da[nodes].max()):.3e})"
+              f"; worst acc row {worst} r = {float(x[worst].norm()):.4g} "
+              f"rho = {float(x[worst, :2].norm()):.3e}; {int((~ok_a).sum())} "
+              f"acc and {int((~ok_p).sum())} pot values outside acc rtol "
+              f"{ACC_RTOL:.0e} atol {ACC_ATOL:.0e}, pot rtol {POT_RTOL:.0e} "
+              f"atol {POT_ATOL:.0e}", flush=True)
+        finite = bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
+        if not (finite and bool(ok_a.all()) and bool(ok_p.all())):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"V2: kernels disagree with their plain "
+                             f"versions: {bad}")
+
+    # V3. init + STEPS KDK steps of the equilibrium sample under each setting
+    launches = {}
+    for name, (lmax, harm, interp, kernels) in VARIANTS.items():
+        for mod in (sk, yk, qk, lk):
+            mod.reset_launch_counts()
+        run = kdk_run(forces[name], xe, ve, me, steps=STEPS, dt=DT,
+                      device=dev)
+        torch.cuda.synchronize()
+        counts = {**sk.launch_counts, **yk.launch_counts, **qk.launch_counts,
+                  **lk.launch_counts}
+        launches[name] = counts
+        print(f"V3 {name}: " + json.dumps({**run, "launches": counts}),
+              flush=True)
+        want = {k: (STEPS + 1 if k in kernels else 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"V3 {name}: launches {counts}, expected "
+                                 f"{want}")
+        if not run["finite"]:
+            raise AssertionError(f"V3 {name}: non-finite state")
+        for key in ("virial0", "virial1"):
+            if not abs(run[key] - 1.0) <= VIRIAL_TOL:
+                raise AssertionError(f"V3 {name}: 2T/VC {key} = {run[key]}")
+        if not run["dE_rel"] < VARIANT_DRIFT_BOUND:
+            raise AssertionError(f"V3 {name}: |dEtot/Etot| = {run['dE_rel']} "
+                                 f"exceeds {VARIANT_DRIFT_BOUND}")
+
+    # V4. timing: each setting's step, each new kernel and branch
+    for name, (lmax, harm, interp, _) in VARIANTS.items():
+        bench = bench_sphere(n=N, reps=30, tables=tabs[lmax], device=dev,
+                             harmonics=harm, interp=interp)
+        print(f"V4 {name} step: " + json.dumps(bench), flush=True)
+    r = x.norm(dim=1) + 1e-10
+    run_of = {"sphere_coef[hat]": "hat", "sphere_accel[hat]": "hat",
+              "sphere_accel[lmax10]": "lmax10",
+              "sphere_coef_rec": "recurrence",
+              "sphere_coef_rec[hat]": "hat+recurrence",
+              "sphere_coef_rec[lmax10]": "lmax10",
+              "sphere_accel_poly": "poly",
+              "sphere_accel_poly[hat]": "hat+poly"}
+    rows = []
+    for name, wrapper, src, line, f, kind in _variant_rows(forces):
+        prm = f._kernel_params()
+        n_in = int(((r >= prm.rmin) & (r <= prm.rmax) & (m > 0)).sum())
+        work = {"sphere_coef": lambda: k1_work(x.shape[0], n_in, prm.lmax,
+                                               prm.nmax, prm.rows, prm.interp),
+                "sphere_coef_rec": lambda: k3_work(x.shape[0], n_in, prm.lmax,
+                                                   prm.nmax, prm.rows,
+                                                   prm.interp),
+                "sphere_accel": lambda: k2_work(x.shape[0], prm.lmax,
+                                                prm.rows, prm.interp),
+                "sphere_accel_poly": lambda: k6_work(
+                    x.shape[0], prm.lmax, prm.rows, f.Ms.cpu().numpy(),
+                    prm.interp)}[wrapper]
+        byts, ops = work()
+        bms, by = bound_ms(byts, ops)
+        fn, plain = fns[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"exp_tpu_torch/csrc/{src}", "replaces": line,
+            "launches": launches[run_of[name]][wrapper],
+            "max_abs_err": errs[name], "ms": cuda_ms(fn, 20),
+            "plain_ms": cuda_ms(plain, 3), "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes this function",
+            "bytes": byts, "operations": ops})
+    return rows
+
+
 
 def main():
     import torch
@@ -1125,9 +1419,10 @@ def main():
     if not run["finite"]:
         raise AssertionError("non-finite state after the KDK run")
     for name, cnt in launches.items():
-        if cnt != STEPS + 1:
+        want = STEPS + 1 if name in ("sphere_coef", "sphere_accel") else 0
+        if cnt != want:
             raise AssertionError(f"{name} launched {cnt} times, expected "
-                                 f"{STEPS + 1}")
+                                 f"{want}")
     for key in ("virial0", "virial1"):
         if not abs(run[key] - 1.0) <= VIRIAL_TOL:
             raise AssertionError(f"2T/VC {key} = {run[key]}")
@@ -1166,6 +1461,7 @@ def main():
     rows += disk_path(dev)
     rows += cube_path(dev)
     rows += slab_path(dev)
+    rows += sphere_settings_path(dev, tables, xe, ve, me)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

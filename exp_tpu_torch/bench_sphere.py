@@ -6,6 +6,10 @@ loop, and an equilibrium KDK run with its energy and virial gates.
     python -m exp_tpu_torch.bench_sphere kdk [--n N] [--steps S] [--device D]
     python -m exp_tpu_torch.bench_sphere profile [--n N] [--steps S]
 
+Each mode also takes the force's settings: --lmax L (default 4; nmax 10
+and 2000 radial nodes throughout), --harmonics {auto,poly,recurrence} and
+--interp {spline,hat}, which select the kernels (SphereSL's docstring).
+
 `bench` prints one JSON line with the steady-state step time on a CUDA
 device (a CPU run is refused: its time is no device metric).  `kdk` runs
 init + S KDK steps of an equilibrium Hernquist sample on the named device
@@ -73,10 +77,19 @@ def timeit(step, sync, reps, groups=5):
     return med, (max(times) - min(times)) / med
 
 
-def bench_sphere(n=1_048_576, reps=20, lmax=4, nmax=10, dt=1e-3,
-                 tables=None, device=None):
-    """SphereSL (pallas backend) KDK step throughput on a CUDA device."""
+def sphere_force(tables, device, harmonics="auto", interp="spline"):
+    """The benches' pallas SphereSL of `tables` with the given
+    pallas_harmonics and pallas_interp."""
     from exp_tpu_torch.forces.spherical import SphereSL
+
+    return SphereSL.from_tables(tables, dtype=torch.float32, backend="pallas",
+                                pallas_harmonics=harmonics,
+                                pallas_interp=interp, device=device)
+
+
+def bench_sphere(n=1_048_576, reps=20, lmax=4, nmax=10, dt=1e-3,
+                 tables=None, device=None, harmonics="auto", interp="spline"):
+    """SphereSL (pallas backend) KDK step throughput on a CUDA device."""
     from exp_tpu_torch.nbody.particles import ParticleSystem
     from exp_tpu_torch.nbody.step import init_force_state, make_kdk_step
 
@@ -85,8 +98,7 @@ def bench_sphere(n=1_048_576, reps=20, lmax=4, nmax=10, dt=1e-3,
         raise RuntimeError("bench_sphere times the card: give it a CUDA "
                            "device")
     t = tables if tables is not None else sphere_tables(lmax, nmax)
-    force = SphereSL.from_tables(t, dtype=torch.float32, backend="pallas",
-                                 device=device)
+    force = sphere_force(t, device, harmonics, interp)
     x, v, mass = hernquist_sample_np(n)
     ps = ParticleSystem.from_arrays(x, v, mass, device=device)
     ps, _, _ = init_force_state(force, ps)
@@ -94,7 +106,8 @@ def bench_sphere(n=1_048_576, reps=20, lmax=4, nmax=10, dt=1e-3,
     sec, spread = timeit(lambda: step(ps), torch.cuda.synchronize, reps)
     return {"metric": "sphere_particle_steps_per_sec", "value": n / sec,
             "unit": "1/s", "step_ms": sec * 1e3, "n_particles": n,
-            "lmax": lmax, "nmax": nmax, "spread_pct": spread * 100,
+            "lmax": t.lmax, "nmax": t.nmax, "harmonics": harmonics,
+            "interp": interp, "spread_pct": spread * 100,
             "device": torch.cuda.get_device_name(device)}
 
 
@@ -175,41 +188,43 @@ def profile_force(force, x, v, mass, dt, steps=10, device=None):
             "top": [{"name": k[:90], "ms": ms} for k, ms in top[:15]]}
 
 
-def profile_step(n=1_048_576, steps=10, tables=None, device=None):
+def profile_step(n=1_048_576, steps=10, tables=None, device=None, lmax=4,
+                 harmonics="auto", interp="spline"):
     """profile_force on the sphere bench: the benches' sample under the
     pallas SphereSL at dt=1e-3."""
-    from exp_tpu_torch.forces.spherical import SphereSL
-
     device = resolve_device(device)
-    t = tables if tables is not None else sphere_tables()
-    force = SphereSL.from_tables(t, backend="pallas", device=device)
+    t = tables if tables is not None else sphere_tables(lmax)
+    force = sphere_force(t, device, harmonics, interp)
     x, v, mass = hernquist_sample_np(n)
     return profile_force(force, x, v, mass, 1e-3, steps, device)
 
 
 def _main():
-    from exp_tpu_torch.forces.spherical import SphereSL
-
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("bench", "kdk", "profile"))
     ap.add_argument("--n", type=int, default=1_048_576)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--lmax", type=int, default=4)
+    ap.add_argument("--harmonics", default="auto",
+                    choices=("auto", "poly", "recurrence"))
+    ap.add_argument("--interp", default="spline", choices=("spline", "hat"))
     a = ap.parse_args()
+    kw = dict(harmonics=a.harmonics, interp=a.interp)
     if a.mode == "bench":
-        print(json.dumps(bench_sphere(a.n, a.reps, device=a.device)))
+        print(json.dumps(bench_sphere(a.n, a.reps, lmax=a.lmax,
+                                      device=a.device, **kw)))
         return
     if a.mode == "profile":
-        print(json.dumps(profile_step(a.n, min(a.steps, 20),
-                                      device=a.device)))
+        print(json.dumps(profile_step(a.n, min(a.steps, 20), device=a.device,
+                                      lmax=a.lmax, **kw)))
         return
     device = resolve_device(a.device)
-    force = SphereSL.from_tables(sphere_tables(), backend="pallas",
-                                 device=device)
+    force = sphere_force(sphere_tables(a.lmax), device, **kw)
     x, v, mass = equilibrium_sample(a.n)
     out = kdk_run(force, x, v, mass, steps=a.steps, device=device)
-    out["device"] = str(device)
+    out.update(device=str(device), lmax=a.lmax, **kw)
     print(json.dumps(out))
 
 

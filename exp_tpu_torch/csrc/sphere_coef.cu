@@ -2,13 +2,16 @@
 //
 // Replaces: exp_tpu/ops/pallas_sphere.py make_coef_kernel_poly (the TPU
 // kernel at its pallas_call, :521), as selected by SphereSL's default
-// pallas_harmonics='auto' at lmax <= 6 with pallas_interp='spline'.
+// pallas_harmonics='auto' at lmax <= 6 and by 'poly', for both
+// pallas_interp='spline' and 'hat'.
 //
 // Computes, for particles x (N, 3), mass (N,):
 //   w_i   = mass_i if rmin <= r_i/scale <= rmax else 0
 //   Y_pi  = sum_k M[p, k] mono_k(x_i / r_i)          (packed real-Ylm rows)
-//   S[p, j] = sum_i w_i Y_pi b2(j - 1 - t_i)          (3 nonzero j per i)
+//   S[p, j] = sum_i w_i Y_pi W_j(t_i)                 (3 or 2 nonzero j per i)
 //   coef[cs, l, m, n] = -4 pi sum_j S[p(cs,l,m), j] tab[j, l*nmax + n]
+// with W the quadratic B-spline b2(j - 1 - t) against the nc + 2 ghosted
+// spline rows, or the hat max(0, 1 - |j - t|) against nc node rows.
 //
 // What bounds it on an H100: not memory (16 bytes a particle, 17 MB at
 // N = 2^20, about 5 us at 3.35 TB/s) but the per-particle arithmetic on the
@@ -19,9 +22,11 @@
 // Design: one thread per particle for the geometry and the angular rows.
 // The structural zeros of M (degree above l, or of the other parity) are
 // skipped at compile time (template on LMAX).  Only the 3 nonzero spline
-// weights are used, where the TPU built a dense (rows, B) weight matrix.
-// Each warp owns a private (P, rows) f32 accumulator in shared memory
-// (25 x 259 floats at lmax=4, rows padded to an odd stride so the 25 lanes
+// weights (2 for 'hat') are used, where the TPU built a dense (rows, B)
+// weight matrix.  Each warp owns a private (P, rows) f32 accumulator in
+// shared memory (25 x 259 floats at lmax=4 'spline', 25 x 513 at numr_c =
+// 512 'hat'; the wrapper runs as many warps as fit, and refuses a table
+// too long for one), rows padded to an odd stride so the 25 lanes
 // of one update hit 25 banks); a warp stages its 32 particles' rows in
 // shared memory and then adds them particle by particle, lane p updating
 // row p, so no atomics are needed and the sum order is fixed.  The block
@@ -35,46 +40,8 @@
 namespace {
 
 using sphere::Params;
-
-__host__ __device__ constexpr int nmono(int L) {
-  return (L + 1) * (L + 2) * (L + 3) / 6;
-}
-
-// Monomial k in the order degree, then i descending, then j descending
-// (exp_tpu solidharm.monomial_exponents): its degree and exponents.
-__host__ __device__ constexpr int mono_deg(int k) {
-  int d = 0;
-  while (nmono(d) <= k) ++d;
-  return d;
-}
-__host__ __device__ constexpr int mono_i(int k) {
-  int d = mono_deg(k), r = k - (d == 0 ? 0 : nmono(d - 1));
-  int i = d;
-  while (r > d - i) { r -= d - i + 1; --i; }
-  return i;
-}
-__host__ __device__ constexpr int mono_j(int k) {
-  int d = mono_deg(k), r = k - (d == 0 ? 0 : nmono(d - 1));
-  int i = d;
-  while (r > d - i) { r -= d - i + 1; --i; }
-  return d - i - r;
-}
-// index of the monomial of degree d with exponents (i, j, d - i - j)
-__host__ __device__ constexpr int mono_index(int d, int i, int j) {
-  int k = d == 0 ? 0 : nmono(d - 1);
-  for (int a = d; a > i; --a) k += d - a + 1;
-  return k + (d - i) - j;
-}
-
-// Monomial K is a lower-degree monomial times one component of u: split off
-// the first axis with a nonzero exponent (solidharm.monomial_build_plan).
-// Everything here is evaluated by the compiler's front end.
-template <int K>
-struct MonoStep {
-  static constexpr int i = mono_i(K), j = mono_j(K), d = mono_deg(K);
-  static constexpr int axis = i > 0 ? 0 : (j > 0 ? 1 : 2);
-  static constexpr int src = mono_index(d - 1, i - (axis == 0), j - (axis == 1));
-};
+using sphere::mono_deg;
+using sphere::nmono;
 
 constexpr int kWarp = 32;
 
@@ -84,16 +51,6 @@ struct Layout {
   static constexpr int NM = nmono(L);
   static constexpr int PS = P | 1;        // staged-row stride (odd)
 };
-
-template <int... K>
-__device__ __forceinline__ void monomials(float* mono, float ux, float uy,
-                                          float uz, std::integer_sequence<int, K...>) {
-  mono[0] = 1.0f;
-  ((mono[K + 1] = mono[MonoStep<K + 1>::src] *
-                  (MonoStep<K + 1>::axis == 0 ? ux
-                                              : (MonoStep<K + 1>::axis == 1 ? uy : uz))),
-   ...);
-}
 
 // s += M[p, k] mono_k, only where M can be nonzero: monomial degree <= l and
 // of the parity of l (the harmonic fit's support in solidharm)
@@ -125,7 +82,7 @@ coef_accumulate(const float* __restrict__ x, const float* __restrict__ mass,
                 long long n, const float* __restrict__ Mg, Params q,
                 float* __restrict__ partial) {
   constexpr int P = Layout<L>::P, NM = Layout<L>::NM, PS = Layout<L>::PS;
-  const int rows = q.nc + 2;
+  const int rows = sphere::table_rows(q);
   const int RS = rows | 1;
   const int nw = blockDim.x / kWarp;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
@@ -152,17 +109,16 @@ coef_accumulate(const float* __restrict__ x, const float* __restrict__ mass,
     float wm = 0.0f;
     if (i < n) {
       const float px = x[3 * i], py = x[3 * i + 1], pz = x[3 * i + 2];
-      const float r = sqrtf(px * px + py * py + pz * pz) + 1e-10f;
+      const float r = sphere::radius(px, py, pz);
       const float rs = r / q.scale;
       const float xi = sphere::ximap(rs, q);
       const float m = mass[i];
       wm = (rs >= q.rmin && rs <= q.rmax) ? m : 0.0f;
       const float rinv = 1.0f / r;
       float mono[NM];
-      monomials(mono, px * rinv, py * rinv, pz * rinv,
-                std::make_integer_sequence<int, NM - 1>{});
+      sphere::monomials<L>(mono, px * rinv, py * rinv, pz * rinv);
       yrows<L>(Y, Ms, mono, wm, std::make_integer_sequence<int, P>{});
-      c = sphere::spline_weights(xi, q, wt);
+      c = sphere::radial_weights(xi, q, wt) + 1;    // first node + 1 > 0
     } else {
 #pragma unroll
       for (int p = 0; p < P; ++p) Y[p] = 0.0f;
@@ -184,7 +140,7 @@ coef_accumulate(const float* __restrict__ x, const float* __restrict__ mass,
         float* row = acc + p * RS + cc - 1;
         row[0] += y * a0;
         row[1] += y * a1;
-        row[2] += y * a2;
+        if (!q.hat) row[2] += y * a2;
       }
     }
     __syncwarp();
@@ -200,46 +156,6 @@ coef_accumulate(const float* __restrict__ x, const float* __restrict__ mass,
   }
 }
 
-// One block per (cs, l, m) slot of the output: reduce the block partials of
-// its packed row in block order, then contract with the radial table.
-__global__ void coef_reduce(const float* __restrict__ partial, int nblocks,
-                            const float* __restrict__ tab, Params q,
-                            float* __restrict__ coef) {
-  const int L = q.lmax, nmax = q.nmax, rows = q.nc + 2;
-  const int P = sphere::npacked(L), F = (L + 1) * nmax;
-  const int slot = blockIdx.x;
-  const int m = slot % (L + 1), l = (slot / (L + 1)) % (L + 1);
-  const int cs = slot / ((L + 1) * (L + 1));
-  float* out = coef + (long long)slot * nmax;
-  const bool valid = m <= l && (cs == 0 || m >= 1);
-  if (!valid) {
-    for (int k = threadIdx.x; k < nmax; k += blockDim.x) out[k] = 0.0f;
-    return;
-  }
-  const int p = cs == 0 ? l * (l + 1) / 2 + m
-                        : sphere::ncos(L) + l * (l - 1) / 2 + (m - 1);
-
-  extern __shared__ float S[];                      // rows
-  for (int j = threadIdx.x; j < rows; j += blockDim.x) {
-    float s = 0.0f;
-    for (int b = 0; b < nblocks; ++b)
-      s += partial[(long long)b * P * rows + p * rows + j];
-    S[j] = s;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nw = blockDim.x / kWarp;
-  const float m4pi = (float)(-4.0 * 3.14159265358979323846);
-  for (int k = warp; k < nmax; k += nw) {
-    float s = 0.0f;
-    for (int j = lane; j < rows; j += kWarp) s += S[j] * tab[j * F + l * nmax + k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) out[k] = m4pi * s;
-  }
-}
-
 template <int L>
 size_t accumulate_smem(int nw, int rows) {
   constexpr int P = Layout<L>::P, NM = Layout<L>::NM, PS = Layout<L>::PS;
@@ -250,27 +166,19 @@ size_t accumulate_smem(int nw, int rows) {
 template <int L>
 cudaError_t launch(const float* x, const float* mass, long long n,
                    const float* M, const float* tab, float* partial,
-                   int nblocks, float* coef, const Params& q,
+                   int nblocks, int nw, float* coef, const Params& q,
                    cudaStream_t stream) {
-  const int rows = q.nc + 2;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  // as many warps (each with its own accumulator) as shared memory holds
-  int nw = 8;
-  while (nw > 0 && accumulate_smem<L>(nw, rows) > (size_t)optin) --nw;
-  if (nw == 0) return cudaErrorInvalidValue;
+  const int rows = sphere::table_rows(q);
+  if (nw < 1 || nw > 8) return cudaErrorInvalidValue;
   const size_t smem = accumulate_smem<L>(nw, rows);
-  err = cudaFuncSetAttribute(coef_accumulate<L>,
+  cudaError_t err = cudaFuncSetAttribute(coef_accumulate<L>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   coef_accumulate<L><<<nblocks, nw * kWarp, smem, stream>>>(x, mass, n, M, q, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int slots = 2 * (L + 1) * (L + 1);
-  coef_reduce<<<slots, 256, rows * sizeof(float), stream>>>(partial, nblocks, tab, q, coef);
+  sphere::coef_reduce<<<slots, 256, rows * sizeof(float), stream>>>(partial, nblocks, tab, q, coef);
   return cudaGetLastError();
 }
 
@@ -279,15 +187,18 @@ cudaError_t launch(const float* x, const float* mass, long long n,
 extern "C" {
 
 // x (n, 3), mass (n,), M (P, n_mono) packed-row monomial matrix with fac,
-// tab (nc + 2, (lmax+1)*nmax) spline-prefiltered radial table, partial
-// (nblocks, P, nc + 2) scratch, coef (2, lmax+1, lmax+1, nmax) output; all
-// f32, contiguous, on the current device.  Returns a cudaError_t.
+// tab (rows, (lmax+1)*nmax) radial table (rows = nc + 2 spline-prefiltered,
+// or nc node values with hat = 1), partial (nblocks, P, rows) scratch, coef
+// (2, lmax+1, lmax+1, nmax) output; all f32, contiguous, on the current
+// device.  nw warps a block, each with its own accumulator (the wrapper's
+// k1_warps fits them to the device's shared memory).  Returns a
+// cudaError_t.
 int sphere_coef_launch(const void* x, const void* mass, long long n,
                        const void* M, const void* tab, void* partial,
-                       int nblocks, void* coef, int lmax, int nmax, int nc,
+                       int nblocks, int nw, void* coef, int lmax, int nmax, int nc,
                        int cmap, float xmin, float dxc, float rmin, float rmax,
-                       float rmap, float scale, void* stream) {
-  Params q{lmax, nmax, nc, cmap, xmin, dxc, rmin, rmax, rmap, scale, 0.0f};
+                       float rmap, float scale, int hat, void* stream) {
+  Params q{lmax, nmax, nc, cmap, xmin, dxc, rmin, rmax, rmap, scale, 0.0f, hat};
   auto s = static_cast<cudaStream_t>(stream);
   auto xf = static_cast<const float*>(x);
   auto mf = static_cast<const float*>(mass);
@@ -296,13 +207,13 @@ int sphere_coef_launch(const void* x, const void* mass, long long n,
   auto pf = static_cast<float*>(partial);
   auto cf = static_cast<float*>(coef);
   switch (lmax) {
-    case 0: return launch<0>(xf, mf, n, Mf, tf, pf, nblocks, cf, q, s);
-    case 1: return launch<1>(xf, mf, n, Mf, tf, pf, nblocks, cf, q, s);
-    case 2: return launch<2>(xf, mf, n, Mf, tf, pf, nblocks, cf, q, s);
-    case 3: return launch<3>(xf, mf, n, Mf, tf, pf, nblocks, cf, q, s);
-    case 4: return launch<4>(xf, mf, n, Mf, tf, pf, nblocks, cf, q, s);
-    case 5: return launch<5>(xf, mf, n, Mf, tf, pf, nblocks, cf, q, s);
-    case 6: return launch<6>(xf, mf, n, Mf, tf, pf, nblocks, cf, q, s);
+    case 0: return launch<0>(xf, mf, n, Mf, tf, pf, nblocks, nw, cf, q, s);
+    case 1: return launch<1>(xf, mf, n, Mf, tf, pf, nblocks, nw, cf, q, s);
+    case 2: return launch<2>(xf, mf, n, Mf, tf, pf, nblocks, nw, cf, q, s);
+    case 3: return launch<3>(xf, mf, n, Mf, tf, pf, nblocks, nw, cf, q, s);
+    case 4: return launch<4>(xf, mf, n, Mf, tf, pf, nblocks, nw, cf, q, s);
+    case 5: return launch<5>(xf, mf, n, Mf, tf, pf, nblocks, nw, cf, q, s);
+    case 6: return launch<6>(xf, mf, n, Mf, tf, pf, nblocks, nw, cf, q, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,23 +1,35 @@
-// Device helpers shared by the two sphere kernels (sphere_coef.cu,
-// sphere_accel.cu): the radial map, the quadratic-B-spline weights and the
-// packed harmonic-row order.  Arithmetic follows exp_tpu/ops/pallas_sphere.py
-// (_geometry, _ximap, _spline_rows) operation by operation in f32, so the
-// kernels and their plain PyTorch versions round alike.
+// Device helpers shared by the sphere kernels (sphere_coef.cu K1,
+// sphere_accel.cu K2, sphere_coef_rec.cu K3, sphere_accel_poly.cu K6): the
+// radial map, the quadratic-B-spline and hat weights, the packed
+// harmonic-row order, the monomials of the poly harmonics and the ordered
+// reduction of the coefficient passes.  Arithmetic follows
+// exp_tpu/ops/pallas_sphere.py (_geometry, _ximap, _spline_rows, _hat_rows)
+// operation by operation in f32, so the kernels and their plain PyTorch
+// versions round alike.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <utility>
 
 namespace sphere {
 
 // Parameters of the radial table and the particle mask (host doubles rounded
 // to f32 once, as JAX rounds Python constants against f32 arrays).
 struct Params {
-  int lmax, nmax, nc, cmap;   // nc spline nodes; rows = nc + 2 ghosted
+  int lmax, nmax, nc, cmap;   // nc radial nodes (see table_rows)
   float xmin, dxc;            // first node and spacing of the xi grid
   float rmin, rmax;           // table support in scaled radius
   float rmap, scale;
   float rb;                   // rmax * scale (physical boundary radius)
+  int hat;                    // 0: 'spline' interpolation, 1: 'hat'
 };
+
+// Rows of the radial table: nc + 2 ghost-extended spline coefficients, or nc
+// plain node values for 'hat'.
+__host__ __device__ inline int table_rows(const Params& q) {
+  return q.hat ? q.nc : q.nc + 2;
+}
 
 __host__ __device__ constexpr int npacked(int L) { return (L + 1) * (L + 1); }
 __host__ __device__ constexpr int ncos(int L) { return (L + 1) * (L + 2) / 2; }
@@ -43,22 +55,39 @@ __host__ __device__ constexpr int row_m(int p, int L) {
   return q - l * (l - 1) / 2 + 1;
 }
 __host__ __device__ constexpr int row_cs(int p, int L) { return p < ncos(L) ? 0 : 1; }
+// the packed rows of (cos, l, m) and (sin, l, m >= 1)
+__host__ __device__ constexpr int cos_row(int l, int m) { return l * (l + 1) / 2 + m; }
+__host__ __device__ constexpr int sin_row(int l, int m, int L) {
+  return ncos(L) + l * (l - 1) / 2 + m - 1;
+}
 
 // xi(rs): cmap 1 is the algebraic map, anything else the identity (the
-// wrapper admits cmap 0 and 1 only).
+// wrappers admit cmap 0 and 1 only).
 __device__ __forceinline__ float ximap(float rs, const Params& q) {
   if (q.cmap == 1) return (rs / q.rmap - 1.0f) / (rs / q.rmap + 1.0f);
   return rs;
 }
 
-// The three nonzero quadratic-B-spline weights at grid position
-// t = clip((xi - xmin)/dxc, 0, nc-1): nodes c-1, c, c+1 of the ghosted
-// table with c = floor(t + 1.5), the node nearest s = t + 1.  Equal to
-// _b2(j - 1 - t) on those nodes and zero elsewhere.
+// r = |x| + 1e-10 with every product and sum rounded on its own, as the
+// plain version and the JAX kernel round it (no FMA contraction): the hat
+// cell and the pole terms depend on the last ulp.
+__device__ __forceinline__ float radius(float px, float py, float pz) {
+  return sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(px, px), __fmul_rn(py, py)),
+                         __fmul_rn(pz, pz))) + 1e-10f;
+}
+
+// Grid position t = clip((xi - xmin)/dxc, 0, nc-1).
+__device__ __forceinline__ float grid_t(float xi, const Params& q) {
+  const float t = (xi - q.xmin) / q.dxc;
+  return fminf(fmaxf(t, 0.0f), (float)(q.nc - 1));
+}
+
+// The three nonzero quadratic-B-spline weights at grid position t: nodes
+// c-1, c, c+1 of the ghosted table with c = floor(t + 1.5), the node nearest
+// s = t + 1.  Equal to _b2(j - 1 - t) on those nodes and zero elsewhere.
 __device__ __forceinline__ int spline_weights(float xi, const Params& q,
                                               float w[3]) {
-  float t = (xi - q.xmin) / q.dxc;
-  t = fminf(fmaxf(t, 0.0f), (float)(q.nc - 1));
+  const float t = grid_t(xi, q);
   int c = (int)floorf(t + 1.5f);
   c = min(max(c, 1), q.nc);
 #pragma unroll
@@ -69,6 +98,132 @@ __device__ __forceinline__ int spline_weights(float xi, const Params& q,
     w[k] = u <= 0.5f ? inner : (u <= 1.5f ? outer : 0.0f);
   }
   return c;
+}
+
+// The hat cell j0 = clip(floor t, 0, nc-2) and the two hat weights
+// max(0, 1 - |j - t|) at its nodes j0, j0 + 1 (_hat_rows: every other node
+// weighs 0).  The cell also decides the hat derivative, +-1/dxc at j0 + 1
+// and j0, so t is rounded exactly as the plain version rounds it.
+__device__ __forceinline__ int hat_weights(float xi, const Params& q,
+                                           float w[2]) {
+  const float t = grid_t(xi, q);
+  const int j0 = (int)fminf(fmaxf(floorf(t), 0.0f), (float)(q.nc - 2));
+  w[0] = fmaxf(0.0f, 1.0f - fabsf((float)j0 - t));
+  w[1] = fmaxf(0.0f, 1.0f - fabsf((float)(j0 + 1) - t));
+  return j0;
+}
+
+// The first table node a particle touches and its weights: nodes j0, j0+1,
+// j0+2 ('spline') or j0, j0+1 ('hat', w[2] = 0).
+__device__ __forceinline__ int radial_weights(float xi, const Params& q,
+                                              float w[3]) {
+  if (q.hat) {
+    w[2] = 0.0f;
+    return hat_weights(xi, q, w);
+  }
+  return spline_weights(xi, q, w) - 1;
+}
+
+// ---------------------------------------------------------------------------
+// Monomials mono(u) in the order degree, then i descending, then j
+// descending (exp_tpu solidharm.monomial_exponents).
+
+__host__ __device__ constexpr int nmono(int L) {
+  return (L + 1) * (L + 2) * (L + 3) / 6;
+}
+// the first monomial of degree d
+__host__ __device__ constexpr int mono_start(int d) { return d == 0 ? 0 : nmono(d - 1); }
+__host__ __device__ constexpr int mono_deg(int k) {
+  int d = 0;
+  while (nmono(d) <= k) ++d;
+  return d;
+}
+__host__ __device__ constexpr int mono_i(int k) {
+  int d = mono_deg(k), r = k - mono_start(d);
+  int i = d;
+  while (r > d - i) { r -= d - i + 1; --i; }
+  return i;
+}
+__host__ __device__ constexpr int mono_j(int k) {
+  int d = mono_deg(k), r = k - mono_start(d);
+  int i = d;
+  while (r > d - i) { r -= d - i + 1; --i; }
+  return d - i - r;
+}
+// index of the monomial of degree d with exponents (i, j, d - i - j)
+__host__ __device__ constexpr int mono_index(int d, int i, int j) {
+  int k = mono_start(d);
+  for (int a = d; a > i; --a) k += d - a + 1;
+  return k + (d - i) - j;
+}
+
+// Monomial K is a lower-degree monomial times one component of u: split off
+// the first axis with a nonzero exponent (solidharm.monomial_build_plan).
+// Everything here is evaluated by the compiler's front end.
+template <int K>
+struct MonoStep {
+  static constexpr int i = mono_i(K), j = mono_j(K), d = mono_deg(K);
+  static constexpr int axis = i > 0 ? 0 : (j > 0 ? 1 : 2);
+  static constexpr int src = mono_index(d - 1, i - (axis == 0), j - (axis == 1));
+};
+
+template <int... K>
+__device__ __forceinline__ void monomials_seq(float* mono, float ux, float uy, float uz,
+                                              std::integer_sequence<int, K...>) {
+  mono[0] = 1.0f;
+  ((mono[K + 1] = mono[MonoStep<K + 1>::src] *
+                  (MonoStep<K + 1>::axis == 0 ? ux
+                                              : (MonoStep<K + 1>::axis == 1 ? uy : uz))),
+   ...);
+}
+
+// mono[0 .. nmono(L)) of u
+template <int L>
+__device__ __forceinline__ void monomials(float* mono, float ux, float uy, float uz) {
+  monomials_seq(mono, ux, uy, uz, std::make_integer_sequence<int, nmono(L) - 1>{});
+}
+
+// ---------------------------------------------------------------------------
+// Second pass of the coefficient kernels (K1, K3): one block per (cs, l, m)
+// slot of the output reduces the block partials (nblocks, P, rows) of its
+// packed row in block order, then contracts them with the radial table
+// tab (rows, (L+1)*nmax) and scales by -4 pi.  Deterministic.
+
+__global__ void coef_reduce(const float* __restrict__ partial, int nblocks,
+                            const float* __restrict__ tab, Params q,
+                            float* __restrict__ coef) {
+  const int L = q.lmax, nmax = q.nmax, rows = table_rows(q);
+  const int P = npacked(L), F = (L + 1) * nmax;
+  const int slot = blockIdx.x;
+  const int m = slot % (L + 1), l = (slot / (L + 1)) % (L + 1);
+  const int cs = slot / ((L + 1) * (L + 1));
+  float* out = coef + (long long)slot * nmax;
+  const bool valid = m <= l && (cs == 0 || m >= 1);
+  if (!valid) {
+    for (int k = threadIdx.x; k < nmax; k += blockDim.x) out[k] = 0.0f;
+    return;
+  }
+  const int p = cs == 0 ? cos_row(l, m) : sin_row(l, m, L);
+
+  extern __shared__ float S[];                      // rows
+  for (int j = threadIdx.x; j < rows; j += blockDim.x) {
+    float s = 0.0f;
+    for (int b = 0; b < nblocks; ++b)
+      s += partial[(long long)b * P * rows + p * rows + j];
+    S[j] = s;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nw = blockDim.x / 32;
+  const float m4pi = (float)(-4.0 * 3.14159265358979323846);
+  for (int k = warp; k < nmax; k += nw) {
+    float s = 0.0f;
+    for (int j = lane; j < rows; j += 32) s += S[j] * tab[j * F + l * nmax + k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) out[k] = m4pi * s;
+  }
 }
 
 }  // namespace sphere

@@ -28,19 +28,8 @@ from exp_tpu_torch.ops import sphere_kernels as sk
 from exp_tpu_torch.ops.special import (dlegendre_lm, legendre_lm,
                                        real_ylm_norm, sincos_m)
 
-#: the pallas_* settings the pallas backend does not run yet, each with the
-#: ROADMAP queue-2 item that will port the kernel it selects
-_UNPORTED = {
-    "harmonics=poly": "K6 (make_accel_kernel_poly, ROADMAP queue 2)",
-    "harmonics=recurrence": "K3 (make_coef_kernel, ROADMAP queue 2)",
-    "lmax>6": "K3 (make_coef_kernel, ROADMAP queue 2)",
-    "interp=hat": "the 'hat' interpolation (K3 and the hat force pass, "
-                  "ROADMAP queue 2)",
-    "precision=default": "a Hopper meaning for pallas_precision='default' "
-                         "(ROADMAP queue 2)",
-    "precision=mixed3": "a Hopper meaning for pallas_precision='mixed3' "
-                        "(ROADMAP queue 2)",
-}
+#: the pallas_precision values the pallas backend does not run yet
+_UNPORTED_PRECISION = ("default", "mixed3")
 
 
 def _dsmall(dtype):
@@ -76,25 +65,33 @@ class SphereSL(nn.Module):
       'gather' — per-particle row gather from the full-resolution table.
       'matmul' — hat-function weight matrix against a coarse resampled
                  table (numr_c nodes), processed in particle chunks.
-      'pallas' — the hand-written Hopper kernels K1 (coefficients) and K2
-                 (force), ops/sphere_kernels.py, on the spline tables
-                 (numr_cs nodes + tabulated d(pot)/dxi).  On CPU tensors
-                 their plain PyTorch versions run instead.
+      'pallas' — the hand-written Hopper kernels of ops/sphere_kernels.py.
+                 On CPU tensors their plain PyTorch versions run instead.
+
+    The pallas kernels, chosen as exp_tpu chooses its Pallas kernels
+    (`_harmonics_eff`):
+      coefficients  'poly' harmonics: K1 (lmax 0..6); 'recurrence': K3
+                    (lmax 0..10).  'auto' is poly at lmax <= 6, else
+                    recurrence.
+      force         'poly': K6 (lmax 0..6); 'recurrence' and 'auto': K2
+                    (lmax 0..10).
+    Each runs 'spline' (numr_cs prefiltered nodes + tabulated d(pot)/dxi)
+    or 'hat' (numr_c nodes, the cell difference for the derivative);
+    'hat' is taken when the spline tables are absent (`_interp_eff`).  An
+    explicit 'poly' above lmax 6 and any lmax above 10 raise
+    NotImplementedError: no kernel is built there.
 
     Precision on the 'pallas' backend ('pallas_precision'):
-      'mixed' (the default) and 'highest' both run K1 and K2 in FP32 on the
-      CUDA cores.  For the coefficient pass this is at least as accurate as
-      the TPU's one-pass bf16 under 'mixed'.  The coefficient -> table
-      contraction is a torch matmul with TF32 off: constructing a SphereSL
-      on a CUDA device sets torch.backends.cuda.matmul.allow_tf32 and
-      torch.backends.cudnn.allow_tf32 to False.
+      'mixed' (the default) and 'highest' run every pass in FP32 on the
+      CUDA cores, for 'spline' and 'hat' alike (exp_tpu runs 'hat' at
+      HIGHEST for every precision but 'default').  For the coefficient
+      pass this is at least as accurate as the TPU's one-pass bf16 under
+      'mixed'.  The coefficient -> table contraction is a torch matmul with
+      TF32 off: constructing a SphereSL on a CUDA device sets
+      torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.
+      allow_tf32 to False.
       'default' (one bf16 pass) and 'mixed3' (the 3-pass bf16 split) raise
       NotImplementedError until a Hopper meaning is given to them.
-
-    The pallas backend runs only what is ported: 'auto' harmonics at
-    lmax <= 6 and the 'spline' interpolation; 'poly', 'recurrence',
-    lmax > 6 and 'hat' select kernels not ported yet and raise
-    NotImplementedError rather than run K1/K2 in their place.
     """
 
     def __init__(self, grid: SLGridSph, fac, tabc, lmax: int, nmax: int,
@@ -125,8 +122,15 @@ class SphereSL(nn.Module):
             fac_np = fac.detach().cpu().numpy().astype(np.float32)
             self.register_buffer(
                 "fac32", torch.as_tensor(fac_np, device=dev).contiguous())
-            self.register_buffer("Mp", torch.as_tensor(
-                sk.poly_matrix(self.lmax, fac_np), device=dev))
+            if self._harmonics_eff("coef") == "poly":
+                self.register_buffer("Mp", torch.as_tensor(
+                    sk.poly_matrix(self.lmax, fac_np), device=dev))
+            if self._harmonics_eff("accel") == "poly":
+                self.register_buffer("Ms", torch.as_tensor(
+                    sk.poly_matrix_stack(self.lmax, fac_np), device=dev))
+            if self._interp_eff == "hat":
+                self.register_buffer("tabc32", tabc.to(torch.float32)
+                                     .contiguous())
             # index tensors made once: a host list turned into a CUDA
             # tensor every step would stall the host on the device
             self.register_buffer("prows", sk.packed_rows_tensor(self.lmax,
@@ -187,23 +191,40 @@ class SphereSL(nn.Module):
         """'spline' only when the spline tables exist."""
         return self.pallas_interp if self.tabc_s is not None else "hat"
 
+    def _harmonics_eff(self, kind="coef"):
+        """Angular evaluation per pass (exp_tpu's _harmonics_eff): 'auto'
+        is poly for the coefficient pass while the f32 monomials hold
+        (lmax <= 6) and recurrence for the force pass."""
+        if self.pallas_harmonics == "auto":
+            if kind == "coef":
+                return "poly" if self.lmax <= 6 else "recurrence"
+            return "recurrence"
+        return self.pallas_harmonics
+
     def _check_ported(self):
-        """Raise NotImplementedError for a pallas setting whose kernel is
-        not ported yet."""
-        keys = []
-        if self.pallas_harmonics in ("poly", "recurrence"):
-            keys.append(f"harmonics={self.pallas_harmonics}")
-        elif self.lmax > 6:
-            keys.append("lmax>6")
-        if self._interp_eff == "hat":
-            keys.append("interp=hat")
-        if self.pallas_precision in ("default", "mixed3"):
-            keys.append(f"precision={self.pallas_precision}")
-        if keys:
+        """Raise NotImplementedError for a pallas setting no Hopper kernel
+        is built for: the bf16 precision knobs, and an lmax outside the
+        selected kernels' ranges."""
+        if self.pallas_precision in _UNPORTED_PRECISION:
             raise NotImplementedError(
-                "backend='pallas' with " + ", ".join(keys) + " needs "
-                + "; ".join(_UNPORTED[k] for k in keys)
-                + ", not ported to Hopper yet")
+                f"backend='pallas' with precision={self.pallas_precision} "
+                "needs a Hopper meaning for that pallas_precision, not "
+                "ported yet (every other knob runs FP32)")
+        setting = (f"lmax={self.lmax} (harmonics "
+                   f"'{self.pallas_harmonics}', interp '{self._interp_eff}')")
+        for kind in ("coef", "accel"):
+            if self._harmonics_eff(kind) == "poly":
+                if self.lmax not in sk.POLY_LMAX:
+                    raise NotImplementedError(
+                        f"backend='pallas' with {setting}: the poly kernels "
+                        "K1 and K6 are built for lmax 0..6, where the f32 "
+                        "monomial representation holds (it loses about a "
+                        "digit per degree above); use pallas_harmonics="
+                        "'auto' or 'recurrence'")
+            elif self.lmax not in sk.REC_LMAX:
+                raise NotImplementedError(
+                    f"backend='pallas' with {setting}: the recurrence "
+                    "kernels K3 and K2 are built for lmax 0..10")
         if self.grid.cmap not in (0, 1):
             raise NotImplementedError(
                 f"backend='pallas' with cmap={self.grid.cmap}: the sphere "
@@ -211,12 +232,18 @@ class SphereSL(nn.Module):
 
     def _kernel_params(self) -> sk.SphereKernelParams:
         g = self.grid
-        nc = self.numr_cs
+        interp = self._interp_eff
+        nc = self.numr_cs if interp == "spline" else self.numr_c
         return sk.SphereKernelParams(
             lmax=self.lmax, nmax=self.nmax, nc=nc, xmin=float(g.xmin),
             dxc=float((g.dxi * (g.numr - 1)) / (nc - 1)),
             rmin=float(g.rmin), rmax=float(g.rmax), cmap=g.cmap,
-            rmap=float(g.rmap), scale=self.scale)
+            rmap=float(g.rmap), scale=self.scale, interp=interp)
+
+    def _radial_table(self):
+        """The pallas passes' radial table: tabc_s ('spline') or tabc
+        ('hat')."""
+        return self.tabc_s if self._interp_eff == "spline" else self.tabc32
 
     # -- coarse-grid helpers (matmul backend) ---------------------------
 
@@ -252,9 +279,15 @@ class SphereSL(nn.Module):
         """Coefficients (2, lmax+1, lmax+1, nmax) of particles x (N, 3)
         with masses (N,); zero-mass rows contribute nothing."""
         if self.backend == "pallas":
-            c = sk.sphere_coef(x.to(torch.float32).contiguous(),
-                               mass.to(torch.float32).contiguous(),
-                               self.tabc_s, self.Mp, self._kernel_params())
+            x32 = x.to(torch.float32).contiguous()
+            m32 = mass.to(torch.float32).contiguous()
+            prm = self._kernel_params()
+            if self._harmonics_eff("coef") == "poly":
+                c = sk.sphere_coef(x32, m32, self._radial_table(), self.Mp,
+                                   prm)
+            else:
+                c = sk.sphere_coef_rec(x32, m32, self._radial_table(),
+                                       self.fac32, prm)
             return c.to(accum_dtype)
         if self.backend == "matmul":
             return self._chunked_sum(self._coef_chunk_matmul, x, mass,
@@ -330,10 +363,17 @@ class SphereSL(nn.Module):
         n = x.shape[0]
         ch = self.chunk
         if self.backend == "pallas":
-            twT = sk.contract_coef_table2(coef, self.tabc_s, self.tabd_s,
-                                          self.prows)
-            acc, pot = sk.sphere_accel(x.to(torch.float32).contiguous(), twT,
-                                       self.fac32, self._kernel_params())
+            if self._interp_eff == "spline":
+                twT = sk.contract_coef_table2(coef, self.tabc_s, self.tabd_s,
+                                              self.prows)
+            else:
+                twT = sk.contract_coef_table(coef, self.tabc32, self.prows)
+            x32 = x.to(torch.float32).contiguous()
+            prm = self._kernel_params()
+            if self._harmonics_eff("accel") == "poly":
+                acc, pot = sk.sphere_accel_poly(x32, twT, self.Ms, prm)
+            else:
+                acc, pot = sk.sphere_accel(x32, twT, self.fac32, prm)
             return acc.to(x.dtype), pot.to(x.dtype)
         if self.backend == "matmul" and n > ch and n % ch == 0:
             parts = [self._accel_chunk(coef, x[s:s + ch], deriv)

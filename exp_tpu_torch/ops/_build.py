@@ -22,8 +22,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("sphere_coef", "sphere_accel", "cyl_coef", "cyl_accel",
-           "cube_coef", "cube_accel", "slab_coef", "slab_accel")
+SOURCES = ("sphere_coef", "sphere_accel", "sphere_coef_rec",
+           "sphere_accel_poly", "cyl_coef", "cyl_accel", "cube_coef",
+           "cube_accel", "slab_coef", "slab_accel")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

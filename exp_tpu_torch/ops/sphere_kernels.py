@@ -1,18 +1,25 @@
-"""Sphere coefficient (K1) and force (K2) passes: CUDA kernels for Hopper,
-their plain PyTorch versions, and the host glue around them.
+"""Sphere coefficient (K1, K3) and force (K2, K6) passes: CUDA kernels for
+Hopper, their plain PyTorch versions, and the host glue around them.
 
-Port of exp_tpu/ops/pallas_sphere.py, the 'spline' interpolation with the
-default harmonics ('auto': poly coefficient pass, recurrence force pass):
+Port of exp_tpu/ops/pallas_sphere.py, for the 'spline' and 'hat'
+interpolations:
 
-  K1 `sphere_coef`  replaces make_coef_kernel_poly  (csrc/sphere_coef.cu)
-  K2 `sphere_accel` replaces make_accel_kernel      (csrc/sphere_accel.cu)
+  K1 `sphere_coef`        replaces make_coef_kernel_poly  (csrc/sphere_coef.cu)
+  K2 `sphere_accel`       replaces make_accel_kernel      (csrc/sphere_accel.cu)
+  K3 `sphere_coef_rec`    replaces make_coef_kernel       (csrc/sphere_coef_rec.cu)
+  K6 `sphere_accel_poly`  replaces make_accel_kernel_poly (csrc/sphere_accel_poly.cu)
 
-The kernels read x (N, 3) and mass (N,) as they are and mask their own
-ragged tail: the TPU's transposed (8, N) layout, its 4096-particle blocks
-and its lane padding of tables (C1, Fp) are not carried over.  Each
-wrapper takes its plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.  `launch_counts` counts kernel
-launches, one per wrapper call that reaches the card.
+K1 and K6 evaluate the harmonics as polynomials in the unit vector
+('poly'), K3 and K2 by the Legendre and trig recurrences ('recurrence').
+The poly kernels are built for lmax 0..6 (POLY_LMAX), where the f32
+monomial representation holds; the recurrence kernels for lmax 0..10
+(REC_LMAX).  The kernels read x (N, 3) and mass (N,) as they are and mask
+their own ragged tail: the TPU's transposed (8, N) layout, its
+4096-particle blocks and its lane padding of tables (C1, Fp) are not
+carried over.  Each wrapper takes its plain version only for tensors on
+the CPU; for CUDA tensors it launches the kernel or raises.
+`launch_counts` counts kernel launches, one per wrapper call that reaches
+the card.
 """
 
 from __future__ import annotations
@@ -28,10 +35,13 @@ from exp_tpu_torch.ops import _build
 from exp_tpu_torch.ops.spline import b2
 
 #: launches of each kernel since the last reset (only kernel launches count)
-launch_counts = {"sphere_coef": 0, "sphere_accel": 0}
+launch_counts = {"sphere_coef": 0, "sphere_accel": 0, "sphere_coef_rec": 0,
+                 "sphere_accel_poly": 0}
 
-#: the lmax values the kernels are instantiated for
-KERNEL_LMAX = range(0, 7)
+#: the lmax values each kernel is built for: the poly kernels K1 and K6,
+#: and the recurrence kernels K3 and K2
+POLY_LMAX = range(0, 7)
+REC_LMAX = range(0, 11)
 
 
 def reset_launch_counts() -> None:
@@ -64,6 +74,43 @@ def poly_matrix(lmax, fac_np=None) -> np.ndarray:
     return np.ascontiguousarray(M, dtype=np.float32)
 
 
+def poly_support(lmax) -> np.ndarray:
+    """(4P, n_mono) bool: the entries of the [M; Mx; My; Mz] stack that K6
+    multiplies.  A value row of degree l is fit on the monomials of degree
+    <= l and of l's parity; its gradient rows on degree <= l - 1 and the
+    other parity.  K6 skips the rest at compile time."""
+    from exp_tpu_torch.ops.solidharm import monomial_exponents
+
+    deg = np.array([sum(e) for e in monomial_exponents(lmax)])
+    ls = np.array([l for (_, l, _) in packed_rows(lmax)])[:, None]
+    val = (deg[None, :] <= ls) & ((ls - deg[None, :]) % 2 == 0)
+    grad = (deg[None, :] <= ls - 1) & ((ls - 1 - deg[None, :]) % 2 == 0)
+    return np.concatenate([val, grad, grad, grad])
+
+
+def poly_matrix_stack(lmax, fac_np=None) -> np.ndarray:
+    """[M; Mx; My; Mz] (4P, n_mono) f32: the value rows of poly_matrix and
+    their d/du_j rows M D_j (exp_tpu's _poly_matrices(accel=True),
+    unpadded), rescaled to a custom `fac_np` when given.  Raises if any
+    entry K6 skips (outside poly_support) is nonzero."""
+    from exp_tpu_torch.ops.solidharm import (harmonic_and_gradient_matrices,
+                                             standard_fac)
+
+    prows = packed_rows(lmax)
+    mats = harmonic_and_gradient_matrices(lmax, tuple(prows))
+    if fac_np is not None:
+        fac_np = np.asarray(fac_np)
+        ratio = np.array([fac_np[l, m] / standard_fac(l, m)
+                          for (cs, l, m) in prows])[:, None]
+        mats = [a * ratio for a in mats]
+    Ms = np.ascontiguousarray(np.concatenate(mats), dtype=np.float32)
+    skipped = np.count_nonzero(Ms[~poly_support(lmax)])
+    if skipped:
+        raise ValueError(f"poly_matrix_stack: {skipped} nonzero entries lie "
+                         "outside the support K6 multiplies")
+    return Ms
+
+
 def packed_rows_tensor(lmax, device):
     """packed_rows as an int64 (P, 3) tensor of (cs, l, m) on `device`."""
     return torch.as_tensor(packed_rows(lmax), dtype=torch.int64,
@@ -83,6 +130,14 @@ def expand_coef_matrix(coef, prows):
     return Wc.transpose(1, 2).reshape(L1 * nmax, P)
 
 
+def contract_coef_table(coef, tabc, prows):
+    """The hat interpolation's pot table (numr_c, F) contracted with the
+    coefficients -> twT (P, numr_c) f32, the force kernels' one-block
+    table (exp_tpu's contract_coef_table_jit).  TF32 off on CUDA, as for
+    contract_coef_table2."""
+    return (tabc.to(torch.float32) @ expand_coef_matrix(coef, prows)).T.contiguous()
+
+
 def contract_coef_table2(coef, tabc_s, tabd_s, prows):
     """The pot and d(pot)/dxi spline tables (each (rows, F)) contracted with
     the coefficients -> twT (2P, rows) f32, the force kernel's table.
@@ -99,8 +154,9 @@ def contract_coef_table2(coef, tabc_s, tabd_s, prows):
 @dataclass(frozen=True)
 class SphereKernelParams:
     """Static geometry of the sphere kernels (exp_tpu's kernel-maker
-    arguments): nc spline nodes over [xmin, xmin + (nc-1) dxc] in xi,
-    mass support rmin <= r/scale <= rmax, radial map (cmap, rmap)."""
+    arguments): nc radial nodes over [xmin, xmin + (nc-1) dxc] in xi, mass
+    support rmin <= r/scale <= rmax, radial map (cmap, rmap), and the
+    interpolation, 'spline' or 'hat'."""
 
     lmax: int
     nmax: int
@@ -112,27 +168,91 @@ class SphereKernelParams:
     cmap: int
     rmap: float
     scale: float
+    interp: str
 
     @property
     def rows(self):
-        return self.nc + 2
+        """Radial table rows: nc + 2 ghosted spline coefficients, or nc
+        node values for 'hat'."""
+        return self.nc + 2 if self.interp == "spline" else self.nc
 
 
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the same math in tensor ops)
 # ---------------------------------------------------------------------------
 
+def _div(a, c):
+    """a / c for a Python float c, rounded as IEEE division of f32 values.
+    (PyTorch on CUDA multiplies by the reciprocal of a Python scalar
+    divisor instead, an ulp away: enough to move t across a hat node, and
+    the hat derivative with it, against the kernels' division.)"""
+    return a / a.new_tensor(c)
+
+
 def _ximap(rs, prm):
     if prm.cmap == 1:
-        return (rs / prm.rmap - 1.0) / (rs / prm.rmap + 1.0)
+        return (_div(rs, prm.rmap) - 1.0) / (_div(rs, prm.rmap) + 1.0)
     return rs
 
 
-def _spline_matrix(xi, prm):
-    """Dense (n, nc + 2) quadratic-B-spline weights b2(j - 1 - t)."""
-    t = torch.clamp((xi - prm.xmin) / prm.dxc, 0.0, prm.nc - 1.0)
+def _grid_t(xi, prm):
+    return torch.clamp(_div(xi - prm.xmin, prm.dxc), 0.0, prm.nc - 1.0)
+
+
+def _weight_matrix(xi, prm):
+    """Dense (n, rows) radial weights: the quadratic B-spline
+    b2(j - 1 - t) against the nc + 2 ghosted rows, or the hat
+    max(0, 1 - |j - t|) against the nc node rows (_spline_rows,
+    _hat_rows)."""
+    t = _grid_t(xi, prm)
     j = torch.arange(prm.rows, dtype=xi.dtype, device=xi.device)
-    return b2(j[None, :] - 1.0 - t[:, None])
+    if prm.interp == "spline":
+        return b2(j[None, :] - 1.0 - t[:, None])
+    return torch.clamp(1.0 - torch.abs(j[None, :] - t[:, None]), min=0.0)
+
+
+def _hat_cell(xi, prm):
+    """The hat cell j0 = clip(floor t, 0, nc - 2) (int64) and the weights
+    max(0, 1 - |j - t|) at its nodes j0, j0 + 1 (every other node weighs
+    0); the cell also carries the derivative, +-1/dxc at j0 + 1 and j0
+    (_hat_rows)."""
+    t = _grid_t(xi, prm)
+    fl = torch.clamp(torch.floor(t), 0.0, prm.nc - 2.0)
+    w0 = torch.clamp(1.0 - torch.abs(fl - t), min=0.0)
+    w1 = torch.clamp(1.0 - torch.abs((fl + 1.0) - t), min=0.0)
+    return fl.long(), w0, w1
+
+
+def _interp_rows(xi, twT, prm):
+    """(pc, dpc) (n, P) each: twT interpolated at xi, dpc the raw d/dxi.
+    'spline': the dense weights against the pot and the tabulated
+    derivative rows.  'hat': the two nodes of the cell, and their
+    difference over dxc with each product rounded on its own, as the
+    kernels round it (T1/dxc and T0/dxc nearly cancel, so a dense product
+    that rounds them in another order moves dpc by ~1e-5 of itself)."""
+    if prm.interp == "spline":
+        P = twT.shape[0] // 2
+        pcd = _weight_matrix(xi, prm) @ twT.T                 # (n, 2P)
+        return pcd[:, :P], pcd[:, P:]
+    j0, w0, w1 = _hat_cell(xi, prm)
+    t0, t1 = twT.T[j0], twT.T[j0 + 1]                        # (n, P)
+    idx = float(np.float32(1.0) / np.float32(prm.dxc))
+    return (w0[:, None] * t0 + w1[:, None] * t1,
+            t0 * -idx + t1 * idx)
+
+
+def _radius(x0, x1, x2):
+    return torch.sqrt(x0 * x0 + x1 * x1 + x2 * x2) + 1e-10
+
+
+def _trig_lists(lmax, cphi, sphi):
+    """cos(m phi), sin(m phi) for m = 0..lmax by angle addition
+    (_trig_rows)."""
+    cm, sm = [torch.ones_like(cphi)], [torch.zeros_like(sphi)]
+    for _ in range(lmax):
+        cm.append(cm[-1] * cphi - sm[-1] * sphi)
+        sm.append(sm[-1] * cphi + cm[-2] * sphi)
+    return cm, sm
 
 
 def _monomials(lmax, ux, uy, uz):
@@ -150,11 +270,9 @@ def _monomials(lmax, ux, uy, uz):
     return torch.stack(cols, dim=1)
 
 
-def sphere_coef_plain(x, mass, tab, M, prm: SphereKernelParams,
-                      chunk: int = 65536):
-    """Plain version of K1: coefficients (2, L+1, L+1, nmax) f32 of
-    particles x (N, 3), mass (N,) against the spline table tab
-    (nc + 2, F) and the monomial matrix M (P, n_mono)."""
+def _coef_plain(x, mass, tab, prm, angular, chunk):
+    """The coefficient pass with the angular rows Y (n, P) from
+    `angular(xs, r, w)`: S = sum_i Y_i W_i, then the table contraction."""
     lmax, nmax = prm.lmax, prm.nmax
     prows = packed_rows(lmax)
     YW = torch.zeros((len(prows), prm.rows), dtype=torch.float32,
@@ -162,16 +280,13 @@ def sphere_coef_plain(x, mass, tab, M, prm: SphereKernelParams,
     for s in range(0, x.shape[0], chunk):
         xs = x[s:s + chunk].to(torch.float32)
         m = mass[s:s + chunk].to(torch.float32)
-        x0, x1, x2 = xs[:, 0], xs[:, 1], xs[:, 2]
-        r = torch.sqrt(x0 * x0 + x1 * x1 + x2 * x2) + 1e-10
-        rs = r / prm.scale
+        r = _radius(xs[:, 0], xs[:, 1], xs[:, 2])
+        rs = _div(r, prm.scale)
         w = torch.where((rs >= prm.rmin) & (rs <= prm.rmax), m,
                         torch.zeros_like(m))
-        u = xs * (1.0 / r)[:, None]
-        mono = _monomials(lmax, u[:, 0], u[:, 1], u[:, 2])
-        Y = (mono @ M.T) * w[:, None]                     # (n, P)
-        YW += Y.T @ _spline_matrix(_ximap(rs, prm), prm)
-    big = YW @ tab                                        # (P, F)
+        Y = angular(xs, r, w)                                 # (n, P)
+        YW += Y.T @ _weight_matrix(_ximap(rs, prm), prm)
+    big = YW @ tab.to(torch.float32)                          # (P, F)
     out = torch.zeros((2, lmax + 1, lmax + 1, nmax), dtype=torch.float32,
                       device=x.device)
     for p, (cs, l, mm) in enumerate(prows):
@@ -179,14 +294,45 @@ def sphere_coef_plain(x, mass, tab, M, prm: SphereKernelParams,
     return -4.0 * math.pi * out
 
 
-def sphere_accel_plain(x, twT, fac, prm: SphereKernelParams,
-                       chunk: int = 65536):
-    """Plain version of K2: (acc (N, 3), pot (N,)) f32 at x (N, 3) from the
-    coefficient-contracted table twT (2P, nc + 2) and fac (L+1, L+1)."""
+def sphere_coef_plain(x, mass, tab, M, prm: SphereKernelParams,
+                      chunk: int = 65536):
+    """Plain version of K1: coefficients (2, L+1, L+1, nmax) f32 of
+    particles x (N, 3), mass (N,) against the radial table tab (rows, F)
+    and the monomial matrix M (P, n_mono)."""
+    def angular(xs, r, w):
+        u = xs * (1.0 / r)[:, None]
+        mono = _monomials(prm.lmax, u[:, 0], u[:, 1], u[:, 2])
+        return (mono @ M.T) * w[:, None]
+
+    return _coef_plain(x, mass, tab, prm, angular, chunk)
+
+
+def sphere_coef_rec_plain(x, mass, tab, fac, prm: SphereKernelParams,
+                          chunk: int = 65536):
+    """Plain version of K3: K1's coefficients with the angular rows
+    w fac[l,m] P_lm(cos th) {cos, sin}(m phi) from the Legendre and trig
+    recurrences; fac (L+1, L+1)."""
+    from exp_tpu_torch.ops.special import _legendre_lists
+
+    fac = fac.to(torch.float32)
+    prows = packed_rows(prm.lmax)
+
+    def angular(xs, r, w):
+        x0, x1, x2 = xs[:, 0], xs[:, 1], xs[:, 2]
+        R = torch.sqrt(x0 * x0 + x1 * x1) + 1e-10
+        Pl = _legendre_lists(prm.lmax, x2 / r)
+        cm, sm = _trig_lists(prm.lmax, x0 / R, x1 / R)
+        return torch.stack([w * fac[l, mm] * Pl[l][mm]
+                            * (cm[mm] if cs == 0 else sm[mm])
+                            for cs, l, mm in prows], dim=1)
+
+    return _coef_plain(x, mass, tab, prm, angular, chunk)
+
+
+def _chunked_accel(chunk_fn, x, chunk):
     accs, pots = [], []
     for s in range(0, x.shape[0], chunk):
-        a, p = _accel_chunk_plain(x[s:s + chunk].to(torch.float32), twT,
-                                  fac.to(torch.float32), prm)
+        a, p = chunk_fn(x[s:s + chunk].to(torch.float32))
         accs.append(a)
         pots.append(p)
     if not accs:
@@ -195,21 +341,40 @@ def sphere_accel_plain(x, twT, fac, prm: SphereKernelParams,
     return torch.cat(accs), torch.cat(pots)
 
 
+def _radial_geometry(xs, prm):
+    """r, rs, outside r_b, xi at min(rs, rmax) and d xi / dr."""
+    r = _radius(xs[:, 0], xs[:, 1], xs[:, 2])
+    rs = _div(r, prm.scale)
+    outside = r > prm.rmax * prm.scale
+    xi = _ximap(torch.clamp(rs, max=prm.rmax), prm)
+    if prm.cmap == 1:
+        dxidr = 0.5 * (1.0 - xi) * (1.0 - xi) / prm.rmap
+    else:
+        dxidr = torch.ones_like(xi)
+    return r, rs, outside, xi, dxidr
+
+
+def sphere_accel_plain(x, twT, fac, prm: SphereKernelParams,
+                       chunk: int = 65536):
+    """Plain version of K2: (acc (N, 3), pot (N,)) f32 at x (N, 3) from the
+    coefficient-contracted table twT ((2P, nc + 2) 'spline', (P, nc)
+    'hat') and fac (L+1, L+1)."""
+    return _chunked_accel(
+        lambda xs: _accel_chunk_plain(xs, twT, fac.to(torch.float32), prm),
+        x, chunk)
+
+
 def _accel_chunk_plain(xs, twT, fac, prm):
     from exp_tpu_torch.ops.special import _legendre_lists
 
     lmax = prm.lmax
     prows = packed_rows(lmax)
-    P = len(prows)
     eps = 1e-10
     x, y, z = xs[:, 0], xs[:, 1], xs[:, 2]
-    r = torch.sqrt(x * x + y * y + z * z) + eps
+    r, rs, outside, xi, dxidr = _radial_geometry(xs, prm)
     R = torch.sqrt(x * x + y * y) + eps
     costh, cphi, sphi = z / r, x / R, y / R
-    rs = r / prm.scale
     rb = prm.rmax * prm.scale
-    outside = r > rb
-    xi = _ximap(torch.clamp(rs, max=prm.rmax), prm)
 
     # f32 pole clamp: 1 - 1e-12 would round back to 1 and 1/(x^2-1) overflow
     peps = 1e-6
@@ -226,18 +391,10 @@ def _accel_chunk_plain(xs, twT, fac, prm):
             else:
                 dP[(l, mm)] = inv * (l * xc * Pl[l][mm]
                                      - (l + mm) * Pl[l - 1][mm])
-    cm, sm = [torch.ones_like(cphi)], [torch.zeros_like(sphi)]
-    for _ in range(lmax):
-        cm.append(cm[-1] * cphi - sm[-1] * sphi)
-        sm.append(sm[-1] * cphi + cm[-2] * sphi)
+    cm, sm = _trig_lists(lmax, cphi, sphi)
 
-    if prm.cmap == 1:
-        dxidr = 0.5 * (1.0 - xi) * (1.0 - xi) / prm.rmap
-    else:
-        dxidr = torch.ones_like(xi)
-    pcd = _spline_matrix(xi, prm) @ twT.T                 # (n, 2P)
-    pc = pcd[:, :P]
-    dpc = pcd[:, P:] * dxidr[:, None]
+    pc, dpc = _interp_rows(xi, twT, prm)
+    dpc = dpc * dxidr[:, None]
 
     base = torch.where(outside, rb / r, torch.ones_like(r))
     att = [base]
@@ -281,6 +438,87 @@ def _accel_chunk_plain(xs, twT, fac, prm):
     return torch.stack([ax, ay, az], dim=1), potl
 
 
+def sphere_accel_poly_plain(x, twT, Ms, prm: SphereKernelParams,
+                            chunk: int = 65536):
+    """Plain version of K6: (acc (N, 3), pot (N,)) f32 at x (N, 3) from
+    K2's table twT and the stack Ms (4P, n_mono) of poly_matrix_stack:
+    [Y; Gx; Gy; Gz] = Ms mono(u), the radial rows g, dg with the
+    (r_b/r)^(l+1) continuation, and acc = -(u R / scale^2 + (T - u (u.T))
+    / (r scale))."""
+    return _chunked_accel(
+        lambda xs: _accel_poly_chunk_plain(xs, twT, Ms, prm), x, chunk)
+
+
+def _accel_poly_chunk_plain(xs, twT, Ms, prm):
+    lmax = prm.lmax
+    P = (lmax + 1) ** 2
+    r, rs, outside, xi, dxidr = _radial_geometry(xs, prm)
+    pc, dpc = _interp_rows(xi, twT, prm)
+    dpc = dpc * dxidr[:, None]
+
+    rb = prm.rmax * prm.scale
+    base = torch.where(outside, rb / r, torch.ones_like(r))
+    att = [base]
+    for _ in range(lmax):
+        att.append(att[-1] * base)
+    row_l = [l for (_, l, _) in packed_rows(lmax)]
+    attC = torch.stack([att[l] for l in row_l], dim=1)          # (n, P)
+    attD = torch.stack([(l + 1.0) * att[l] for l in row_l], dim=1)
+    g = pc * attC
+    dg = torch.where(outside[:, None], -pc * attD / rs[:, None], dpc * attC)
+
+    rinv = 1.0 / r
+    ux, uy, uz = xs[:, 0] * rinv, xs[:, 1] * rinv, xs[:, 2] * rinv
+    YG = _monomials(lmax, ux, uy, uz) @ Ms.T                    # (n, 4P)
+    Y = YG[:, :P]
+    potl = (Y * g).sum(1)
+    Tx = (YG[:, P:2 * P] * g).sum(1)
+    Ty = (YG[:, 2 * P:3 * P] * g).sum(1)
+    Tz = (YG[:, 3 * P:] * g).sum(1)
+    R = (Y * dg).sum(1)
+
+    uT = ux * Tx + uy * Ty + uz * Tz
+    s2inv = 1.0 / (prm.scale * prm.scale)
+    rsinv = rinv / prm.scale
+    ax = -(ux * R * s2inv + (Tx - ux * uT) * rsinv)
+    ay = -(uy * R * s2inv + (Ty - uy * uT) * rsinv)
+    az = -(uz * R * s2inv + (Tz - uz * uT) * rsinv)
+    return torch.stack([ax, ay, az], dim=1), potl / prm.scale
+
+
+def hat_node_points(prm: SphereKernelParams, nodes, window=256):
+    """Points (len(nodes), 3) f32 on the x axis whose grid position t is
+    exactly a hat node, as the plain versions (and the kernels, which round
+    t step by step alike) compute it: for each of `nodes`, the first node
+    from it up that some f32 radius within `window` ulps hits.  At a node
+    the hat cell, and with it the derivative, changes: the points hold both
+    rounding paths to the same cell."""
+    def hit(k):
+        xi = prm.xmin + k * prm.dxc
+        rs = prm.rmap * (1.0 + xi) / (1.0 - xi) if prm.cmap == 1 else xi
+        up = down = np.float32(rs * prm.scale)
+        cand = [up]
+        for _ in range(window):
+            up = np.nextafter(up, np.float32(np.inf))
+            down = np.nextafter(down, np.float32(0.0))
+            cand += [up, down]
+        xs = torch.tensor(np.array(cand, dtype=np.float32))
+        zero = torch.zeros_like(xs)
+        t = _grid_t(_ximap(_div(_radius(xs, zero, zero), prm.scale), prm),
+                    prm)
+        on = torch.nonzero(t == float(k)).flatten()
+        return float(xs[on[0]]) if on.numel() else None
+
+    pts = []
+    for k in nodes:
+        r = next((r for kk in range(k, prm.nc) if (r := hit(kk)) is not None),
+                 None)
+        if r is None:
+            raise ValueError(f"no f32 radius puts t exactly on a node >= {k}")
+        pts.append([r, 0.0, 0.0])
+    return np.array(pts, dtype=np.float32)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -290,83 +528,196 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
 
+_KERNEL_LMAX = {"sphere_coef": POLY_LMAX, "sphere_accel_poly": POLY_LMAX,
+                "sphere_coef_rec": REC_LMAX, "sphere_accel": REC_LMAX}
 
-def _check_prm(prm):
-    if prm.lmax not in KERNEL_LMAX:
-        raise ValueError(f"lmax={prm.lmax}: the sphere kernels are built "
-                         f"for lmax {KERNEL_LMAX.start}..{KERNEL_LMAX.stop - 1}")
+
+def check_params(prm: SphereKernelParams, name: str) -> None:
+    """Raise ValueError for a setting kernel `name` is not built for: lmax
+    outside its range, a map other than cmap 0 and 1, an interpolation
+    other than 'spline' and 'hat'."""
+    lr = _KERNEL_LMAX[name]
+    if prm.lmax not in lr:
+        raise ValueError(f"lmax={prm.lmax}: {name} is built for lmax "
+                         f"{lr.start}..{lr.stop - 1}")
     if prm.cmap not in (0, 1):
         raise ValueError(f"cmap={prm.cmap}: the sphere kernels take the "
                          "identity (0) and algebraic (1) maps")
+    if prm.interp not in ("spline", "hat"):
+        raise ValueError(f"interp={prm.interp!r}: the sphere kernels take "
+                         "'spline' and 'hat'")
+
+
+def _twt_rows(prm):
+    return 2 * (prm.lmax + 1) ** 2 if prm.interp == "spline" else (prm.lmax + 1) ** 2
+
+
+def _geometry_args(prm):
+    return (prm.lmax, prm.nmax, prm.nc, prm.cmap, prm.xmin, prm.dxc, prm.rmin,
+            prm.rmax, prm.rmap, prm.scale)
+
+
+_GEOM = [_I, _I, _I, _I, _F, _F, _F, _F, _F, _F]
+
+
+def _launch(name, argtypes, args, dev):
+    fn, err = _build.bind(name, argtypes)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(*args, stream)
+    _build.raise_on(code, err, name)
+    launch_counts[name] += 1
+
+
+def _coef_inputs(x, mass, tab, prm, name):
+    check_params(prm, name)
+    n, dev = x.shape[0], x.device
+    _build.check_tensor(x, "x", (n, 3), dev)
+    _build.check_tensor(mass, "mass", (n,), dev)
+    _build.check_tensor(tab, "tab", (prm.rows, (prm.lmax + 1) * prm.nmax), dev)
+    return n, dev
+
+
+def k1_warps(prm: SphereKernelParams, optin: int) -> int:
+    """K1's launch plan: the warps a block runs, as many (at most 8)
+    private (P, rows) accumulators as `optin` bytes of shared memory hold
+    beside M and the stage, as csrc/sphere_coef.cu lays them out.  Raises
+    ValueError when not even one fits (a 'hat' table of many nodes at high
+    lmax)."""
+    P = (prm.lmax + 1) ** 2
+    nm = (prm.lmax + 1) * (prm.lmax + 2) * (prm.lmax + 3) // 6
+    for nw in range(8, 0, -1):
+        if 4 * (P * nm + nw * P * (prm.rows | 1) + nw * 32 * ((P | 1) + 4)) <= optin:
+            return nw
+    raise ValueError(
+        f"sphere_coef: one warp's (P, rows) = ({P}, {prm.rows}) accumulator "
+        f"exceeds a block's {optin} bytes of shared memory; lower numr_c or "
+        "use pallas_harmonics='recurrence' (K3 splits the rows)")
 
 
 def sphere_coef(x, mass, tab, M, prm: SphereKernelParams):
     """K1: sphere coefficients (2, L+1, L+1, nmax) f32.
 
-    x (N, 3), mass (N,), tab (nc + 2, F) spline table, M (P, n_mono);
-    all f32.  CPU tensors take sphere_coef_plain; CUDA tensors launch
-    csrc/sphere_coef.cu."""
+    x (N, 3), mass (N,), tab (rows, F) radial table (prm.rows: nc + 2
+    'spline', nc 'hat'), M (P, n_mono); all f32.  CPU tensors take
+    sphere_coef_plain; CUDA tensors launch csrc/sphere_coef.cu."""
     if x.device.type == "cpu":
         return sphere_coef_plain(x, mass, tab, M, prm)
     if x.device.type != "cuda":
         raise ValueError(f"sphere_coef: unsupported device {x.device}")
-    _check_prm(prm)
-    n = x.shape[0]
+    n, dev = _coef_inputs(x, mass, tab, prm, "sphere_coef")
     lmax, nmax = prm.lmax, prm.nmax
     P = (lmax + 1) ** 2
-    dev = x.device
-    _build.check_tensor(x, "x", (n, 3), dev)
-    _build.check_tensor(mass, "mass", (n,), dev)
-    _build.check_tensor(tab, "tab", (prm.rows, (lmax + 1) * nmax), dev)
     _build.check_tensor(M, "M",
                         (P, (lmax + 1) * (lmax + 2) * (lmax + 3) // 6), dev)
-    fn, err = _build.bind("sphere_coef", [_P, _P, _LL, _P, _P, _P, _I, _P,
-                                          _I, _I, _I, _I, _F, _F, _F, _F, _F,
-                                          _F, _P])
-    nblocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    props = torch.cuda.get_device_properties(dev)
+    nw = k1_warps(prm, props.shared_memory_per_block_optin)
+    nblocks = props.multi_processor_count
     partial = torch.empty((nblocks, P, prm.rows), dtype=torch.float32,
                           device=dev)
     coef = torch.empty((2, lmax + 1, lmax + 1, nmax), dtype=torch.float32,
                        device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(x.data_ptr(), mass.data_ptr(), n, M.data_ptr(),
-                  tab.data_ptr(), partial.data_ptr(), nblocks,
-                  coef.data_ptr(), lmax, nmax, prm.nc, prm.cmap, prm.xmin,
-                  prm.dxc, prm.rmin, prm.rmax, prm.rmap, prm.scale, stream)
-    _build.raise_on(code, err, "sphere_coef")
-    launch_counts["sphere_coef"] += 1
+    _launch("sphere_coef",
+            [_P, _P, _LL, _P, _P, _P, _I, _I, _P, *_GEOM, _I, _P],
+            (x.data_ptr(), mass.data_ptr(), n, M.data_ptr(), tab.data_ptr(),
+             partial.data_ptr(), nblocks, nw, coef.data_ptr(),
+             *_geometry_args(prm), int(prm.interp == "hat")), dev)
     return coef
 
 
-def sphere_accel(x, twT, fac, prm: SphereKernelParams):
-    """K2: sphere force (acc (N, 3), pot (N,)) f32.
+def coef_rec_plan(prm: SphereKernelParams, props):
+    """K3's launch plan on a device with properties `props`: (rows a group
+    G, warps a block, blocks nbx along the particles).  A block holds fac
+    and, for each warp, a (G, rows) accumulator and a stage of 32
+    particles x G rows, as csrc/sphere_coef_rec.cu lays them out; G = 32 (a
+    lane a row) unless not even one warp's share fits, then halved.  nbx
+    fills the SMs once."""
+    P = (prm.lmax + 1) ** 2
+    G = min(32, P)
+    while G >= 1:
+        for nw in range(8, 0, -1):
+            smem = 4 * (P + nw * G * (prm.rows | 1) + nw * 32 * ((G | 1) + 4))
+            if smem <= props.shared_memory_per_block_optin:
+                return G, nw, props.multi_processor_count
+        G //= 2
+    raise ValueError(f"sphere_coef_rec: a {prm.rows}-row table does not fit "
+                     "a block's shared memory")
 
-    x (N, 3), twT (2P, nc + 2) from contract_coef_table2, fac (L+1, L+1);
-    all f32.  CPU tensors take sphere_accel_plain; CUDA tensors launch
+
+def sphere_coef_rec(x, mass, tab, fac, prm: SphereKernelParams):
+    """K3: sphere coefficients (2, L+1, L+1, nmax) f32 from the recurrences.
+
+    x (N, 3), mass (N,), tab (rows, F) as for sphere_coef, fac (L+1, L+1);
+    all f32.  CPU tensors take sphere_coef_rec_plain; CUDA tensors launch
+    csrc/sphere_coef_rec.cu."""
+    if x.device.type == "cpu":
+        return sphere_coef_rec_plain(x, mass, tab, fac, prm)
+    if x.device.type != "cuda":
+        raise ValueError(f"sphere_coef_rec: unsupported device {x.device}")
+    n, dev = _coef_inputs(x, mass, tab, prm, "sphere_coef_rec")
+    lmax, nmax = prm.lmax, prm.nmax
+    _build.check_tensor(fac, "fac", (lmax + 1, lmax + 1), dev)
+    G, nw, nbx = coef_rec_plan(prm, torch.cuda.get_device_properties(dev))
+    partial = torch.empty((nbx, (lmax + 1) ** 2, prm.rows),
+                          dtype=torch.float32, device=dev)
+    coef = torch.empty((2, lmax + 1, lmax + 1, nmax), dtype=torch.float32,
+                       device=dev)
+    _launch("sphere_coef_rec",
+            [_P, _P, _LL, _P, _P, _P, _I, _I, _I, _P, *_GEOM, _I, _P],
+            (x.data_ptr(), mass.data_ptr(), n, fac.data_ptr(), tab.data_ptr(),
+             partial.data_ptr(), nbx, G, nw, coef.data_ptr(),
+             *_geometry_args(prm), int(prm.interp == "hat")), dev)
+    return coef
+
+
+def _accel_launch(name, x, twT, mat, prm):
+    n, dev = x.shape[0], x.device
+    acc = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    pot = torch.empty((n,), dtype=torch.float32, device=dev)
+    _launch(name, [_P, _LL, _P, _P, _P, _P, *_GEOM, _F, _I, _P],
+            (x.data_ptr(), n, twT.data_ptr(), mat.data_ptr(), acc.data_ptr(),
+             pot.data_ptr(), *_geometry_args(prm), prm.rmax * prm.scale,
+             int(prm.interp == "hat")), dev)
+    return acc, pot
+
+
+def _accel_inputs(x, twT, prm, name):
+    check_params(prm, name)
+    n, dev = x.shape[0], x.device
+    _build.check_tensor(x, "x", (n, 3), dev)
+    _build.check_tensor(twT, "twT", (_twt_rows(prm), prm.rows), dev)
+    return dev
+
+
+def sphere_accel(x, twT, fac, prm: SphereKernelParams):
+    """K2: sphere force (acc (N, 3), pot (N,)) f32 from the recurrences.
+
+    x (N, 3), twT ((2P, nc + 2) from contract_coef_table2 for 'spline',
+    (P, nc) from contract_coef_table for 'hat'), fac (L+1, L+1); all f32.
+    CPU tensors take sphere_accel_plain; CUDA tensors launch
     csrc/sphere_accel.cu."""
     if x.device.type == "cpu":
         return sphere_accel_plain(x, twT, fac, prm)
     if x.device.type != "cuda":
         raise ValueError(f"sphere_accel: unsupported device {x.device}")
-    _check_prm(prm)
-    n = x.shape[0]
-    lmax = prm.lmax
-    dev = x.device
-    _build.check_tensor(x, "x", (n, 3), dev)
-    _build.check_tensor(twT, "twT", (2 * (lmax + 1) ** 2, prm.rows), dev)
-    _build.check_tensor(fac, "fac", (lmax + 1, lmax + 1), dev)
-    fn, err = _build.bind("sphere_accel", [_P, _LL, _P, _P, _P, _P, _I, _I,
-                                           _I, _I, _F, _F, _F, _F, _F, _F, _F,
-                                           _P])
-    acc = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    pot = torch.empty((n,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(x.data_ptr(), n, twT.data_ptr(), fac.data_ptr(),
-                  acc.data_ptr(), pot.data_ptr(), lmax, prm.nmax, prm.nc,
-                  prm.cmap, prm.xmin, prm.dxc, prm.rmin, prm.rmax,
-                  prm.rmap, prm.scale, prm.rmax * prm.scale, stream)
-    _build.raise_on(code, err, "sphere_accel")
-    launch_counts["sphere_accel"] += 1
-    return acc, pot
+    dev = _accel_inputs(x, twT, prm, "sphere_accel")
+    _build.check_tensor(fac, "fac", (prm.lmax + 1, prm.lmax + 1), dev)
+    return _accel_launch("sphere_accel", x, twT, fac, prm)
+
+
+def sphere_accel_poly(x, twT, Ms, prm: SphereKernelParams):
+    """K6: sphere force (acc (N, 3), pot (N,)) f32 from the polynomial
+    harmonics.
+
+    x (N, 3), twT as for sphere_accel, Ms (4P, n_mono) from
+    poly_matrix_stack; all f32.  CPU tensors take sphere_accel_poly_plain;
+    CUDA tensors launch csrc/sphere_accel_poly.cu."""
+    if x.device.type == "cpu":
+        return sphere_accel_poly_plain(x, twT, Ms, prm)
+    if x.device.type != "cuda":
+        raise ValueError(f"sphere_accel_poly: unsupported device {x.device}")
+    dev = _accel_inputs(x, twT, prm, "sphere_accel_poly")
+    L = prm.lmax
+    _build.check_tensor(Ms, "Ms", (4 * (L + 1) ** 2,
+                                   (L + 1) * (L + 2) * (L + 3) // 6), dev)
+    return _accel_launch("sphere_accel_poly", x, twT, Ms, prm)

@@ -8,6 +8,8 @@ dependencies are installed:
 Every test skips without a CUDA device.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -449,5 +451,161 @@ def test_slab_step_on_card_matches_cpu(cuda):
         out[dev.type] = (ps.x.cpu(), ps.v.cpu())
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
                                atol=1e-7)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                               atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the sphere's other settings: K3 (sphere_coef_rec), K6 (sphere_accel_poly),
+# the 'hat' branches of K1 and K2, and K2 above lmax 6
+# ---------------------------------------------------------------------------
+
+_SPHERE_TABLES = {}
+
+
+def _sphere_tables(lmax):
+    if lmax not in _SPHERE_TABLES:
+        _SPHERE_TABLES[lmax] = build_sph_sl_tables(
+            hernquist_model(rmin=1e-3, rmax=20.0), lmax=lmax, nmax=6,
+            numr=800, cmap=1, rmap=1.0)
+    return _SPHERE_TABLES[lmax]
+
+
+def _variant(cuda, lmax, interp, harmonics="auto"):
+    """The pallas force of that setting and the inputs: _inputs plus rows
+    exactly on hat nodes (where the cell, and the hat derivative, change)."""
+    f = SphereSL.from_tables(_sphere_tables(lmax), backend="pallas",
+                             pallas_interp=interp, pallas_harmonics=harmonics,
+                             device=cuda)
+    prm = f._kernel_params()
+    x, m = _inputs(cuda)
+    if interp == "hat":
+        nx = sk.hat_node_points(prm, [3, 60, 200, prm.nc - 2])
+        x = torch.cat([x, torch.tensor(nx, device=cuda)])
+        m = torch.cat([m, torch.full((len(nx),), 1e-4, device=cuda)])
+    return f, prm, x.contiguous(), m.contiguous()
+
+
+def _twt(f, c):
+    if f._interp_eff == "spline":
+        return sk.contract_coef_table2(c, f.tabc_s, f.tabd_s, f.prows)
+    return sk.contract_coef_table(c, f.tabc32, f.prows)
+
+
+def _check_coef(fn, plain, x, m, key):
+    before = sk.launch_counts[key]
+    c, c0 = fn(x, m), plain(x, m)
+    torch.cuda.synchronize()
+    assert float((c - c0).abs().max() / c0.abs().max()) < 1e-5
+    assert sk.launch_counts[key] == before + 1
+    # zero-mass and masked rows (beyond rmax, inside rmin) add exactly 0
+    dead = torch.tensor([N + 3, N + 4, N + 5], device=x.device)
+    assert float(fn(x[dead], m[dead]).abs().max()) == 0.0
+    return c0
+
+
+def _check_accel(a, p, a0, p0):
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
+    torch.testing.assert_close(a, a0, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(p, p0, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["spline", "hat"])
+@pytest.mark.parametrize("lmax", [0, 2, 4, 6, 8, 10])
+def test_k3_matches_plain_version(cuda, lmax, interp):
+    """K3 against sphere_coef_rec_plain: max|dc|/max|c| < 1e-5 (f32 sums in
+    another order), masked rows 0, one launch a call."""
+    f, prm, x, m = _variant(cuda, lmax, interp, "recurrence")
+    _check_coef(lambda a, b: sk.sphere_coef_rec(a, b, f._radial_table(),
+                                                f.fac32, prm),
+                lambda a, b: sk.sphere_coef_rec_plain(a, b, f._radial_table(),
+                                                      f.fac32, prm),
+                x, m, "sphere_coef_rec")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["spline", "hat"])
+@pytest.mark.parametrize("lmax", [0, 2, 4, 6])
+def test_k6_matches_plain_version(cuda, lmax, interp):
+    """K6 against sphere_accel_poly_plain: acc rtol 1e-4 / atol 1e-6, pot
+    rtol 1e-5 / atol 1e-7 (K2's gates), one launch a call."""
+    f, prm, x, m = _variant(cuda, lmax, interp, "poly")
+    c0 = sk.sphere_coef_plain(x, m, f._radial_table(), f.Mp, prm)
+    twT = _twt(f, c0)
+    before = sk.launch_counts["sphere_accel_poly"]
+    a, p = sk.sphere_accel_poly(x, twT, f.Ms, prm)
+    _check_accel(a, p, *sk.sphere_accel_poly_plain(x, twT, f.Ms, prm))
+    assert sk.launch_counts["sphere_accel_poly"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lmax", [0, 2, 4, 6])
+def test_k1_hat_matches_plain_version(cuda, lmax):
+    """K1's hat branch against sphere_coef_plain, as K1's spline test."""
+    f, prm, x, m = _variant(cuda, lmax, "hat")
+    _check_coef(lambda a, b: sk.sphere_coef(a, b, f.tabc32, f.Mp, prm),
+                lambda a, b: sk.sphere_coef_plain(a, b, f.tabc32, f.Mp, prm),
+                x, m, "sphere_coef")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lmax,interp", [(0, "hat"), (4, "hat"), (8, "hat"),
+                                         (10, "hat"), (7, "spline"),
+                                         (8, "spline"), (10, "spline")])
+def test_k2_hat_and_high_lmax_match_plain_version(cuda, lmax, interp):
+    """K2 on 'hat' and on 'spline' above lmax 6 against
+    sphere_accel_plain, at K2's gates."""
+    f, prm, x, m = _variant(cuda, lmax, interp, "recurrence")
+    c0 = sk.sphere_coef_rec_plain(x, m, f._radial_table(), f.fac32, prm)
+    twT = _twt(f, c0)
+    before = sk.launch_counts["sphere_accel"]
+    a, p = sk.sphere_accel(x, twT, f.fac32, prm)
+    _check_accel(a, p, *sk.sphere_accel_plain(x, twT, f.fac32, prm))
+    assert sk.launch_counts["sphere_accel"] == before + 1
+
+
+@pytest.mark.gpu
+def test_variant_wrappers_reject_bad_inputs(cuda):
+    f, prm, x, m = _variant(cuda, 4, "hat", "poly")
+    tab = f._radial_table()
+    with pytest.raises(TypeError, match="float32"):
+        sk.sphere_coef_rec(x, m, tab, f.fac32.double(), prm)
+    with pytest.raises(ValueError, match="shape"):
+        sk.sphere_coef_rec(x, m, f.tabc_s, f.fac32, prm)
+    twT = _twt(f, sk.sphere_coef_plain(x, m, tab, f.Mp, prm))
+    with pytest.raises(ValueError, match="shape"):
+        sk.sphere_accel_poly(x, twT, f.Ms[:-1].contiguous(), prm)
+    with pytest.raises(ValueError, match="is on"):
+        sk.sphere_accel_poly(x, twT.cpu(), f.Ms, prm)
+    with pytest.raises(ValueError, match="lmax 0..6"):
+        sk.sphere_accel_poly(x, twT, f.Ms, dataclasses.replace(prm, lmax=7))
+    with pytest.raises(ValueError, match="lmax 0..10"):
+        sk.sphere_coef_rec(x, m, tab, f.fac32, dataclasses.replace(prm, lmax=11))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lmax,interp,harmonics", [(4, "hat", "poly"),
+                                                   (8, "spline", "auto")])
+def test_variant_step_on_card_matches_cpu(cuda, lmax, interp, harmonics):
+    """One KDK step under hat + poly (K1-hat, K6-hat) and lmax 8 (K3, K2
+    above 6) through the kernels against the plain versions on the CPU:
+    positions and velocities to f32 roundoff, as the default setting."""
+    from exp_tpu_torch.nbody.particles import ParticleSystem
+    from exp_tpu_torch.nbody.step import init_force_state, make_kdk_step
+
+    t = _sphere_tables(lmax)
+    x, v, m = hernquist_sample_np(N, seed=2)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        f = SphereSL.from_tables(t, backend="pallas", pallas_interp=interp,
+                                 pallas_harmonics=harmonics, device=dev)
+        ps = ParticleSystem.from_arrays(x, v, m, device=dev)
+        ps, _, _ = init_force_state(f, ps)
+        ps, _, _ = make_kdk_step(f, 1e-3)(ps)
+        out[dev.type] = (ps.x.cpu(), ps.v.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-6)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
                                atol=1e-6)

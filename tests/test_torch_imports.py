@@ -123,3 +123,20 @@ def test_slab_entry_point_without_device_raises_when_no_cuda(monkeypatch):
         bench_slab(n=10, tables=t)
     with pytest.raises(RuntimeError, match="times the card"):
         bench_slab(n=10, tables=t, device="cpu")
+
+
+def test_sphere_settings_entry_points_without_device_raise_when_no_cuda(
+        monkeypatch):
+    from exp_tpu_torch.basis.model import hernquist_model
+    from exp_tpu_torch.basis.slgrid import build_sph_sl_tables
+    from exp_tpu_torch.bench_sphere import bench_sphere, sphere_force
+
+    t = build_sph_sl_tables(hernquist_model(rmin=1e-3, rmax=20.0), lmax=0,
+                            nmax=2, numr=100, cmap=1, rmap=1.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sphere_force(t, None, harmonics="recurrence", interp="hat")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_sphere(n=10, tables=t, harmonics="poly")
+    with pytest.raises(RuntimeError, match="times the card"):
+        bench_sphere(n=10, tables=t, device="cpu", interp="hat")

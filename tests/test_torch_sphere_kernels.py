@@ -118,29 +118,55 @@ def test_lmax0_custom_fac(setup):
                                atol=1e-7)
 
 
+@pytest.fixture(scope="module")
+def tables_7_11():
+    """Port tables at lmax 7 (poly's first refused degree) and lmax 11 (the
+    recurrence kernels' first)."""
+    from exp_tpu_torch.basis.model import hernquist_model as hm
+    from exp_tpu_torch.basis.slgrid import build_sph_sl_tables as build
+
+    return {L: build(hm(rmin=1e-3, rmax=20.0), lmax=L, nmax=2, numr=200,
+                     cmap=1, rmap=1.0) for L in (7, 11)}
+
+
 @pytest.mark.parametrize("kw,match", [
-    (dict(pallas_harmonics="poly"), "K6"),
-    (dict(pallas_harmonics="recurrence"), "K3"),
-    (dict(pallas_interp="hat"), "hat"),
+    (dict(pallas_harmonics="poly", lmax=7), "K6"),
+    (dict(pallas_harmonics="recurrence", lmax=11), "K3"),
+    (dict(pallas_interp="hat", lmax=11), "hat"),
     (dict(pallas_precision="default"), "default"),
     (dict(pallas_precision="mixed3"), "mixed3"),
 ])
-def test_unported_settings_raise(setup, kw, match):
-    tp = setup[2]
+def test_unported_settings_raise(setup, tables_7_11, kw, match):
+    """The pallas backend refuses what no Hopper kernel is built for: the
+    bf16 precision knobs, 'poly' above lmax 6 (K1, K6) and any lmax above
+    10 (K3, K2).  The same harmonics and interp run one degree inside those
+    ranges, and every setting runs on the XLA-style backends."""
+    kw = dict(kw)
+    lmax = kw.pop("lmax", None)
+    tp = setup[2] if lmax is None else tables_7_11[lmax]
     with pytest.raises(NotImplementedError, match=match):
         SphereSL.from_tables(tp, backend="pallas", device="cpu", **kw)
     # the same settings on the XLA-style backends are not kernel choices
     SphereSL.from_tables(tp, backend="matmul", device="cpu", **kw)
+    if lmax is not None:
+        inside = setup[2] if lmax == 7 else tables_7_11[7]
+        f = SphereSL.from_tables(inside, backend="pallas", device="cpu", **kw)
+        x, mass = setup[5][:200], setup[6][:200]
+        c = f.coefficients(torch.from_numpy(x), torch.from_numpy(mass))
+        a, p = f.acceleration(c, torch.from_numpy(x))
+        assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
 
 
-def test_lmax_above_6_raises_on_pallas():
-    from exp_tpu_torch.basis.model import hernquist_model as hm
-    from exp_tpu_torch.basis.slgrid import build_sph_sl_tables as build
-
-    t = build(hm(rmin=1e-3, rmax=20.0), lmax=7, nmax=2, numr=200, cmap=1,
-              rmap=1.0)
-    with pytest.raises(NotImplementedError, match="lmax>6"):
-        SphereSL.from_tables(t, backend="pallas", device="cpu")
+def test_lmax_above_6_raises_on_pallas(tables_7_11):
+    """At lmax 7 'auto' runs the recurrence kernels K3 and K2, as exp_tpu's
+    'auto' does; an explicit 'poly' is refused (K1 and K6 stop at 6)."""
+    t = tables_7_11[7]
+    f = SphereSL.from_tables(t, backend="pallas", device="cpu")
+    assert (f._harmonics_eff("coef"), f._harmonics_eff("accel")) == (
+        "recurrence", "recurrence")
+    with pytest.raises(NotImplementedError, match="lmax=7"):
+        SphereSL.from_tables(t, backend="pallas", device="cpu",
+                             pallas_harmonics="poly")
 
 
 def test_precision_argument_checks(setup):
@@ -172,7 +198,8 @@ def test_wrappers_take_plain_version_only_on_cpu(setup):
     a0, p0 = sk.sphere_accel_plain(xs, twT, fp.fac32, prm)
     torch.testing.assert_close(a, a0, rtol=0, atol=0)
     torch.testing.assert_close(p, p0, rtol=0, atol=0)
-    assert sk.launch_counts == {"sphere_coef": 0, "sphere_accel": 0}
+    assert sk.launch_counts == {"sphere_coef": 0, "sphere_accel": 0,
+                                "sphere_coef_rec": 0, "sphere_accel_poly": 0}
 
 
 def test_cmap2_refused_on_pallas():
