@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Five paths of exp_tpu_torch, each with backend='pallas', run the port's
-ten hand-written kernels:
+Seven paths of exp_tpu_torch, each with backend='pallas', run the port's
+eleven hand-written kernels:
 
   the sphere path (1,048,576 particles): the sphereSL KDK step of a
     Hernquist halo under the spherical Sturm-Liouville basis (lmax=4,
@@ -27,7 +27,16 @@ ten hand-written kernels:
     under SphereSL's other pallas settings, through K3 (recurrence
     coefficients, csrc/sphere_coef_rec.cu), K6 (poly force,
     csrc/sphere_accel_poly.cu), the 'hat' branches of K1 and K2 and K2 at
-    lmax 10.
+    lmax 10;
+  the composite path (1,048,576 particles): the flagship disk + halo of
+    the composite bench (exp_tpu_torch/bench_composite.py), 786,432 halo
+    particles under the sphere path's basis and 262,144 disk particles
+    under the disk path's, from the DiskHalo ICs, coupled both ways and
+    stepped by the 4-level binary multistep (M=4, dtime 2e-3), through K1,
+    K2, K4 and K5 on the per-level buckets;
+  the phase-stream probe (1,048,576 particles): the slab coefficients G
+    from a streamed bf16 phase table (exp_tpu_torch/
+    probe_slab_phasestream.py), through P1 (csrc/slab_phasestream.cu).
 
 Phases:
 
@@ -81,7 +90,21 @@ Phases:
      each setting, with each kernel's launch count, finiteness, the virial
      ratio and the energy drift gated;
   V4. the steady step of each setting, and each new kernel and branch with
-     its plain version by CUDA events, and each bound.
+     its plain version by CUDA events, and each bound;
+  CM1. the composite's forces on phase 3's and D1's tables and the DiskHalo
+     ICs on the card, with the virial ratio gated;
+  CM2. init_state, the warmup (until the capacity signature holds for 2
+     relevels, at most 8 big steps) and 10 big steps with relevels, with
+     finiteness, the live count and identities after every relevel, the
+     capacity signature, each level's move, the energy drift and each
+     kernel's launches against the schedule gated;
+  CM3. big steps and relevels timed; K1, K2, K4 and K5 against their plain
+     versions on every bucket, with the stated tolerances, and each one's
+     device time a big step by CUDA events beside its bound;
+  PS1. P1 against its plain version on the probe's sample with edge rows,
+     stream1 and stream2, with the stated tolerances;
+  PS2. the probe's run: producer + P1, P1 alone, the producer, the
+     yardstick and K9 at the same particles by CUDA events, each bound.
 
 Prints one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 ...}.  Any failure raises and exits non-zero before the last line.  Needs
@@ -243,6 +266,40 @@ VARIANTS = {
 VARIANT_DRIFT_BOUND = 1e-5
 # hat nodes (of numr_c = 512) the agreement inputs put rows exactly on
 HAT_NODES = [20, 90, 140, 200, 300, 510]
+
+# The composite path (exp_tpu_torch/bench_composite.py, bench_suite.py:
+# 211-314): 786,432 halo + 262,144 disk particles from the DiskHalo ICs,
+# M=4, dtime 2e-3; big steps with relevels after the warmup, and big steps
+# timed.
+COMP_NBIG = 10
+COMP_TIMED = 5
+# |dEtot/Etot| bound from the warmup's last big step to the last of the
+# COMP_NBIG.  The same run through the plain versions on a CPU (python -m
+# exp_tpu_torch.bench_composite kdk --device cpu, the full 1,048,576
+# particles) gave 6.50e-5: the integrator's own drift (the coarse levels'
+# long steps, the interpolated coefficient tableau, particles that change
+# level).  Sums taken in another order on the card move each end's Etot by
+# about eps log2 N (|KE| + |PE|) / |Etot| ~ 1e-5 of it and send particles
+# near a level boundary to the other level, which changes the drift by a
+# part of itself, not a multiple; 2e-4 fails a run whose force or tableau
+# breaks conservation by twice the CPU's drift.
+COMP_DRIFT_BOUND = 2e-4
+# No level's population may move by more than this share of its component
+# from the start of the run to its end (tests/test_diskhalo.py:165-170's
+# gate, there over 4 big steps at M=2); the largest move at any relevel is
+# reported.
+COMP_LEVEL_MOVE = 0.02
+
+# The phase-stream probe P1 (exp_tpu_torch/probe_slab_phasestream.py, the
+# JAX probe's shapes: nmax 4, nzc 126 'spline', 2^20 particles).
+P1_N = 1 << 20
+P1_REPS = 30
+# P1 against its plain version on the same bf16 table: G within P1_RTOL of
+# max|G| (the k = 0 row, the sheet's z profile: f32 sums of 2^20 terms in
+# another order) and the k != 0 rows within P1_KN_RTOL of their own largest
+# value (shot noise, ~1/sqrt(N) of the k = 0 row), K9's gates (SL2).
+P1_RTOL = 1e-5
+P1_KN_RTOL = 1e-4
 
 
 def nvidia_smi_line():
@@ -483,7 +540,8 @@ def bound_ms(byts, ops):
 
 
 def disk_path(dev):
-    """Phases D1-D4 on the card; returns the kernels-line rows of K4, K5."""
+    """Phases D1-D4 on the card; returns the kernels-line rows of K4, K5 and
+    the EOF tables (the composite's disk uses them too)."""
     import numpy as np
     import torch
 
@@ -600,7 +658,7 @@ def disk_path(dev):
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "library_note": "no single PyTorch call computes this function",
             "bytes": byts, "operations": ops})
-    return rows
+    return rows, tables
 
 
 def _cube_state(force, x, v, m, steps, dev):
@@ -856,6 +914,21 @@ def _slab_phase_ops(nmaxx, nmaxy):
     return 2 + 4 + 6 * (nmaxx + nmaxy)
 
 
+def p1_work(n, n_in, C, zrows, kz, split):
+    """Bytes and FP32 operations the function of P1 needs at least on these
+    inputs (an FMA counts 2), not the kernel's own arithmetic.  The mass
+    mask for every particle (1); for the n_in particles with mass inside
+    |z| <= zmax, the grid position (3) and the kz z weights (11 each) times
+    w (1 each), with a split table the sum hi + lo of each of the 2C rows
+    (1), and one FMA into kz sums of each of the 2C rows.  Bytes: the 2C
+    table rows G needs (4C with a split table; the Cr - C padding rows are
+    not needed), 2 bytes an entry, z and mass, and G out."""
+    A = 2 * C
+    rows = 2 * A if split else A
+    per_in = 3 + 12 * kz + (A if split else 0) + A * kz * 2
+    return n * (2 * rows + 8) + C * zrows * 8, n + n_in * per_in
+
+
 def k9_work(n, n_in, nmaxx, nmaxy, zrows, kz):
     """Bytes and FP32 operations the function of K9 needs at least on these
     inputs (an FMA counts 2), not the kernel's own arithmetic.  Real
@@ -1081,11 +1154,13 @@ def slab_path(dev):
           flush=True)
     if not run["finite"]:
         raise AssertionError("non-finite state after the slab KDK run")
-    for name in sk.launch_counts:
+    for name in ("slab_coef", "slab_accel"):
         if launches[name] != SLAB_STEPS + 1:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"on the slab path, expected "
                                  f"{SLAB_STEPS + 1}")
+    if launches["slab_phasestream"] != 0:
+        raise AssertionError("P1 launched on the slab path")
     for key, bound in (("dE_rel", SLAB_DRIFT_BOUND),
                        ("dPxy", SLAB_MOM_BOUND),
                        ("dzrms_rel", SLAB_THICKNESS_BOUND)):
@@ -1326,6 +1401,297 @@ def sphere_settings_path(dev, tables, xe, ve, me):
     return rows
 
 
+def _comp_kernels(halo, disk, coef):
+    """The composite's four kernels as (kernels-line name, wrapper, source,
+    TPU site, components whose buckets it runs on, fn(b) -> kernel call,
+    plain(b), work(b) -> (bytes, operations), check(out, out0) -> (ok,
+    max abs error)); the force kernels take the tables of the assembled
+    coefficients `coef` of a substep."""
+    import torch
+
+    from exp_tpu_torch.ops import cyl_kernels as ck
+    from exp_tpu_torch.ops import sphere_kernels as sk
+
+    hp, dp = halo._kernel_params(), disk._kernel_params()
+    twT = sk.contract_coef_table2(coef["halo"], halo.tabc_s, halo.tabd_s,
+                                  halo.prows)
+    Ct = ck.contract_coef_tables(coef["disk"], disk.tab3, dp.xrows, dp.ncy)
+    kx = 3 if dp.interp == "spline" else 2
+
+    def sph_in(b):
+        rs = b.x.norm(dim=1) / hp.scale
+        return int(((rs >= hp.rmin) & (rs <= hp.rmax) & (b.mass > 0)).sum())
+
+    def cyl_in(b):
+        return int(((b.x.norm(dim=1) <= dp.rmax_grid) & (b.mass > 0)).sum())
+
+    def coef_check(rtol):
+        def check(c, c0):
+            err = float((c - c0).abs().max())
+            return err <= rtol * float(c0.abs().max()), err
+        return check
+
+    def accel_check(a_rtol, a_atol, p_rtol, p_atol, rel):
+        def check(out, out0):
+            (a, p), (a0, p0) = out, out0
+            da, dp_ = (a - a0).abs(), (p - p0).abs()
+            sa = float(a0.abs().max()) if rel else 1.0
+            sp = float(p0.abs().max()) if rel else 1.0
+            ok = (bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
+                  and bool((da <= a_atol * sa + a_rtol * a0.abs()).all())
+                  and bool((dp_ <= p_atol * sp + p_rtol * p0.abs()).all()))
+            return ok, max(float(da.max()), float(dp_.max()))
+        return check
+
+    return [
+        ("sphere_coef[composite]", "sphere_coef", "sphere_coef.cu",
+         "exp_tpu/ops/pallas_sphere.py:521", ("halo",),
+         lambda b: sk.sphere_coef(b.x, b.mass, halo.tabc_s, halo.Mp, hp),
+         lambda b: sk.sphere_coef_plain(b.x, b.mass, halo.tabc_s, halo.Mp, hp),
+         lambda b: k1_work(b.x.shape[0], sph_in(b), hp.lmax, hp.nmax,
+                           hp.rows),
+         coef_check(COEF_RTOL)),
+        ("sphere_accel[composite]", "sphere_accel", "sphere_accel.cu",
+         "exp_tpu/ops/pallas_sphere.py:398", ("halo", "disk"),
+         lambda b: sk.sphere_accel(b.x, twT, halo.fac32, hp),
+         lambda b: sk.sphere_accel_plain(b.x, twT, halo.fac32, hp),
+         lambda b: k2_work(b.x.shape[0], hp.lmax, hp.rows),
+         accel_check(ACC_RTOL, ACC_ATOL, POT_RTOL, POT_ATOL, False)),
+        ("cyl_coef[composite]", "cyl_coef", "cyl_coef.cu",
+         "exp_tpu/ops/pallas_cylinder.py:164", ("disk",),
+         lambda b: ck.cyl_coef(b.x, b.mass, dp),
+         lambda b: ck.cyl_coef_plain(b.x, b.mass, dp),
+         lambda b: k4_work(b.x.shape[0], cyl_in(b), dp.mmax, dp.xrows,
+                           dp.ncy, kx),
+         coef_check(CYL_COEF_RTOL)),
+        ("cyl_accel[composite]", "cyl_accel", "cyl_accel.cu",
+         "exp_tpu/ops/pallas_cylinder.py:257", ("halo", "disk"),
+         lambda b: ck.cyl_accel(b.x, Ct, dp),
+         lambda b: ck.cyl_accel_plain(b.x, Ct, dp),
+         lambda b: k5_work(b.x.shape[0], dp.mmax, dp.xrows, dp.ncy, kx),
+         accel_check(CYL_ACC_RTOL, CYL_ACC_ATOL_REL, CYL_POT_RTOL,
+                     CYL_POT_ATOL_REL, True)),
+    ]
+
+
+def composite_path(dev, sphere_tables, disk_tables):
+    """Phases CM1-CM3 on the card: `sphere_tables` are phase 3's, the disk's
+    EOF tables D1's (the composite uses the benches' tables).  Returns the
+    kernels-line rows of K1, K2, K4 and K5 at the composite's buckets."""
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch import bench_composite as bc
+
+    # CM1. the forces and the DiskHalo ICs on the card, at full size
+    t0 = time.perf_counter()
+    forces = bc.composite_forces(dev, sphere_tables, disk_tables)
+    s = bc.prepare(bc.N_HALO, bc.N_DISK, dev, forces)
+    n_total = bc.N_HALO + bc.N_DISK
+    print(f"CM1 DiskHalo ICs of {bc.N_HALO} halo + {bc.N_DISK} disk "
+          f"particles: {time.perf_counter() - t0:.1f} s; -2T/VC = "
+          f"{s['virial']:.5f} (within {VIRIAL_TOL} of 1)", flush=True)
+    if not abs(s["virial"] - 1.0) < VIRIAL_TOL:
+        raise AssertionError(f"CM1: the ICs' virial ratio {s['virial']}")
+
+    # CM2. init_state, the warmup, COMP_NBIG big steps with relevels
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    s = bc.start(s)
+    runner = s["runner"]
+    st, regs, rep = bc.composite_run(runner, s["st"], s["regs"], s["diag"],
+                                     COMP_NBIG)
+    torch.cuda.synchronize()
+    launches = bc.kernel_launches()
+    nbig_total = s["warmup_bigsteps"] + COMP_NBIG
+    want = {k: 0 for k in launches}
+    want.update(bc.expected_launches(runner, nbig_total))
+    print("CM2 composite path: " + json.dumps({
+        **rep, "warmup_bigsteps": s["warmup_bigsteps"],
+        "warmup_stable": s["warmup_stable"],
+        "relevel_rebuilds": runner.n_rebuilds,
+        "relevel_fallbacks": runner.n_fallbacks, "launches": launches,
+        "expected_launches": want,
+        "sec": time.perf_counter() - t0}), flush=True)
+    if not rep["finite"]:
+        raise AssertionError("CM2: non-finite state or coefficients")
+    if not (rep["n_live"] == n_total and rep["ids_unchanged"]):
+        raise AssertionError(f"CM2: {rep['n_live']} live particles or "
+                             "their identities changed")
+    if not (s["warmup_stable"] and rep["caps_unchanged"]):
+        raise AssertionError("CM2: the capacity signature changed after "
+                             "the warmup")
+    if not rep["level_move_net"] <= COMP_LEVEL_MOVE:
+        raise AssertionError(f"CM2: a level moved by {rep['level_move_net']}"
+                             f" of its component (bound {COMP_LEVEL_MOVE})")
+    if not rep["dE_rel"] < COMP_DRIFT_BOUND:
+        raise AssertionError(f"CM2: |dEtot/Etot| = {rep['dE_rel']} exceeds "
+                             f"{COMP_DRIFT_BOUND}")
+    if launches != want:
+        raise AssertionError(f"CM2: launches {launches}, the schedule "
+                             f"implies {want}")
+
+    # CM3. big steps and relevels timed; each kernel against its plain
+    # version on every bucket; its device time in one big step from
+    # torch.profiler (CUDA events around launches of the small buckets
+    # would time the host's enqueue), by the device kernels it launches
+    st, regs, big, rel = bc.time_bigsteps(runner, st, regs, COMP_TIMED)
+    step = float(np.median(big))
+    counts = runner.level_counts(st)
+    st, regs, coef, _ = runner.bigstep(st, regs)
+    kernels = _comp_kernels(s["halo"], s["disk"], coef)
+    names = {k[0]: set(bc.profile_call(lambda: k[5](st[k[4][0]][0]))[0])
+             for k in kernels}
+    ops, n_ops = bc.profile_call(lambda: runner.bigstep(st, regs))
+    dev_ms = sum(ops.values())
+    print("CM3 composite step: " + json.dumps({
+        "metric": "composite_particle_substeps_per_sec",
+        "value": bc.substeps_per_bigstep(counts) / step, "unit": "1/s",
+        "step_ms": step * 1e3, "step_ms_all": [t * 1e3 for t in big],
+        "relevel_ms": float(np.median(rel)) * 1e3,
+        "relevel_ms_all": [t * 1e3 for t in rel],
+        "device_ms_per_bigstep": dev_ms, "device_busy": dev_ms / (step * 1e3),
+        "device_launches_per_bigstep": n_ops, "level_counts": counts,
+        "caps": runner.caps, "device": torch.cuda.get_device_name(dev)}),
+        flush=True)
+    rows, bad = [], []
+    for name, wrapper, src, line, comps, fn, plain, work, check in kernels:
+        per = {"plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0, "operations": 0}
+        nl, err = 0, 0.0
+        for c in comps:
+            for l, b in enumerate(st[c]):
+                ok, e = check(fn(b), plain(b))
+                err = max(err, e)
+                if not ok:
+                    bad.append(f"{name} {c} level {l}")
+                byts, ops_ = work(b)
+                w = 2 ** l          # level l runs 2^l times a big step
+                nl += w
+                per["plain_ms"] += w * cuda_ms(lambda: plain(b), 1)
+                per["bound_ms"] += w * bound_ms(byts, ops_)[0]
+                per["bytes"] += w * byts
+                per["operations"] += w * ops_
+        ms = sum(t for k, t in ops.items() if k in names[name])
+        by = bound_ms(per["bytes"], per["operations"])[1]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"exp_tpu_torch/csrc/{src}", "replaces": line,
+            "launches": launches[wrapper], "max_abs_err": err,
+            "ms": ms / nl, "plain_ms": per["plain_ms"] / nl,
+            "bound_ms": per["bound_ms"] / nl, "bound_by": by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes this function",
+            "launches_per_bigstep": nl, "ms_per_bigstep": ms,
+            "bound_ms_per_bigstep": per["bound_ms"],
+            "bytes_per_bigstep": per["bytes"],
+            "operations_per_bigstep": per["operations"],
+            "device_kernels": sorted(n[:60] for n in names[name])})
+        print(f"CM3 {name}: {nl} launches a big step, {ms:.3f} ms of device "
+              f"time (bound {per['bound_ms']:.4f}), max error against the "
+              f"plain version over the buckets {err:.3e}", flush=True)
+    if bad:
+        raise AssertionError(f"CM3: kernels disagree with their plain "
+                             f"versions on the buckets {bad}")
+    return rows
+
+
+def phasestream_path(dev):
+    """Phases PS1-PS2 on the card: P1 against its plain version, then the
+    probe's own run timed.  Returns the kernels-line rows of P1."""
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch import probe_slab_phasestream as probe
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    # PS1. P1 against its plain version at 2^20 particles, edge rows last:
+    # zero mass, |z| > zmax of both signs, z exactly +-zmax
+    prm = probe.probe_params()
+    xs, ms = probe.probe_sample(P1_N)
+    zmax = np.float32(probe.ZMAX)
+    xs[-5:, 2] = [0.01, 0.3, -0.25, zmax, -zmax]
+    ms[-5] = 0.0
+    x = torch.tensor(xs, device=dev)
+    m = torch.tensor(ms, device=dev)
+    kn = torch.arange(prm.C, device=dev) != (prm.C - 1) // 2
+    errs, bad = {}, []
+    for split in (False, True):
+        ph = lk.phase_table(x, prm, split)
+        errs[split] = 0.0
+        for n in (P1_N, P1_N - 3):      # 16-byte loads, then element loads
+            xn, mn = x[:n], m[:n]
+            phn = ph if n == P1_N else ph[:, :n].contiguous()
+            G = lk.stream_coef(phn, xn, mn, prm)
+            G0 = lk.stream_coef_plain(phn, xn, mn, prm)
+            torch.cuda.synchronize()
+            dG = (G - G0).abs()
+            rel = float(dG.max()) / float(G0.abs().max())
+            rel_kn = float(dG[kn].max()) / float(G0[kn].abs().max())
+            again = bool(torch.equal(G, lk.stream_coef(phn, xn, mn, prm)))
+            errs[split] = max(errs[split], float(dG.max()))
+            print(f"PS1 P1 {'stream2' if split else 'stream1'} n={n} vs "
+                  f"plain: max|dG|/max|G| = {rel:.3e} (tolerance "
+                  f"{P1_RTOL:.0e}), k != 0 rows {rel_kn:.3e} (tolerance "
+                  f"{P1_KN_RTOL:.0e}); repeatable {again}", flush=True)
+            if not (rel <= P1_RTOL and rel_kn <= P1_KN_RTOL and again):
+                bad.append(f"split={split} n={n}")
+        for rows, nonzero in ((slice(-5, -2), False), (slice(-2, None), True)):
+            xr, mr = x[rows].contiguous(), m[rows].contiguous()
+            g = lk.stream_coef(lk.phase_table(xr, prm, split), xr, mr, prm)
+            if (float(g.abs().max()) > 0.0) != nonzero:
+                bad.append(f"split={split} edge rows {rows}")
+        del ph
+    print(f"PS1 P1 edge rows: zero-mass and |z| > zmax rows give 0, rows at "
+          f"+-zmax count: {not any('edge' in b for b in bad)}", flush=True)
+    if bad:
+        raise AssertionError(f"PS1: P1 disagrees with its plain version: "
+                             f"{bad}")
+
+    # PS2. the probe's run: producer + P1, P1 alone, the producer, the
+    # yardstick and K9 at the same particles, by CUDA events
+    rows = []
+    n_in = int(((m > 0) & (x[:, 2].abs() <= prm.zmax)).sum())
+    kz = 3 if prm.interp == "spline" else 2
+    for variant, split in probe.VARIANTS.items():
+        lk.reset_launch_counts()
+        out = probe.bench(n=P1_N, reps=P1_REPS, device=dev,
+                          variants=(variant,))
+        torch.cuda.synchronize()
+        count = lk.launch_counts["slab_phasestream"]
+        k9, r = out[0], out[1]
+        byts, ops = p1_work(P1_N, n_in, prm.C, prm.zrows, kz, split)
+        bms, by = bound_ms(byts, ops)
+        # the producer writes the padded table (2 Cr or 4 Cr rows) and
+        # reads x and y; producer + P1 move both
+        prod_bytes = P1_N * (8 + 2 * (4 if split else 2) * lk.phase_rows(prm))
+        ph = lk.phase_table(x, prm, split)
+        row = {
+            "name": f"slab_phasestream[{'stream2' if split else 'stream1'}]",
+            "route": "cuda", "source": "exp_tpu_torch/csrc/slab_phasestream.cu",
+            "replaces": "scripts/probe_slab_phasestream.py:128",
+            "launches": count, "max_abs_err": errs[split],
+            "ms": r["kernel_ms"],
+            "plain_ms": cuda_ms(lambda: lk.stream_coef_plain(ph, x, m, prm),
+                                3),
+            "bound_ms": bms, "bound_by": by, "library_ms": r["library_ms"],
+            "library_note": "torch.matmul of the bf16 table with a prebuilt "
+                            "bf16 Wz^T (N, zrows): the contraction alone, "
+                            "without building Wz",
+            "bytes": byts, "operations": ops,
+            "producer_plus_kernel_ms": r["ms"], "producer_ms": r["producer_ms"],
+            "producer_plus_kernel_bound_ms": (prod_bytes + byts)
+            / HBM_BYTES_PER_S * 1e3,
+            "k9_ms": k9["ms"], "max_err_vs_f64": r["max_err"],
+            "k9_max_err_vs_f64": k9["max_err"]}
+        del ph
+        rows.append(row)
+        print(f"PS2 {variant}: " + json.dumps(row), flush=True)
+        if count == 0:
+            raise AssertionError(f"PS2: the probe's {variant} run launched "
+                                 "no P1")
+    return rows
+
+
 
 def main():
     import torch
@@ -1346,6 +1712,11 @@ def main():
     # 1. the card
     print(nvidia_smi_line(), flush=True)
     dev = torch.device("cuda")
+    # every matmul of the port's glue (the table contractions, and the
+    # multistep's rotation of positions when one is given) runs in full
+    # FP32: TF32 would round positions to 10 bits of mantissa
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the port needs them off")
 
     # 2. build
     t0 = time.perf_counter()
@@ -1458,10 +1829,13 @@ def main():
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "library_note": "no single PyTorch call computes this function",
             "bytes": byts, "operations": ops})
-    rows += disk_path(dev)
+    disk_rows, disk_tables = disk_path(dev)
+    rows += disk_rows
     rows += cube_path(dev)
     rows += slab_path(dev)
     rows += sphere_settings_path(dev, tables, xe, ve, me)
+    rows += composite_path(dev, tables, disk_tables)
+    rows += phasestream_path(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

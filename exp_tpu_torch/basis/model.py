@@ -1,6 +1,6 @@
 """Spherical mass models (host-side NumPy/SciPy; a copy of
-`SphericalModelTable` (with `from_density`) and `hernquist_model` from
-exp_tpu/basis/model.py).
+`SphericalModelTable` (with `from_density`), `hernquist_model` and
+`add_disk_to_model` from exp_tpu/basis/model.py).
 
 `SphericalModelTable` is the background profile a basis or an IC generator
 needs: rho(r), M(r), Phi(r), in the reference's 4-column file format
@@ -164,3 +164,27 @@ def hernquist_model(a: float = 1.0, M: float = 1.0, rmin: float = 1e-4,
     pot = -M / (r + a)
     return SphericalModelTable(r, rho, mass, pot,
                                comment=f"! Hernquist a={a} M={M}")
+
+
+def add_disk_to_model(halo: SphericalModelTable, Mdisk: float,
+                      acyl: float) -> SphericalModelTable:
+    """Composite halo+disk model for IC generation (utils/ICs/AddDisk.cc,
+    the DiskHalo path): the exponential disk's spherically averaged
+    enclosed mass M_d(r) = Mdisk (1 - (1 + r/a) e^{-r/a}) added to the
+    halo's mass and potential, the halo density kept as the tracer
+    profile.  Eddington inversion of the result gives the halo DF in the
+    total potential."""
+    r = halo.r
+    Md = Mdisk * (1.0 - (1.0 + r / acyl) * np.exp(-r / acyl))
+    # spherical-shell potential of the disk mass profile:
+    # Phi_d = -Md(r)/r - int_r^inf (dMd/ds)/s ds
+    dMd = np.gradient(Md, r)
+    integ = dMd / r
+    tail = np.concatenate([
+        np.cumsum((0.5 * (integ[1:] + integ[:-1]) * np.diff(r))[::-1])[::-1],
+        [0.0]])
+    pot_d = -Md / r - tail
+    return SphericalModelTable(r, halo.rho, halo.mass + Md,
+                               halo.pot + pot_d,
+                               comment=(halo.comment
+                                        + f" + disk M={Mdisk} a={acyl}"))

@@ -2,6 +2,7 @@
 
 The JAX objects are handed over as plain NumPy arrays and Python scalars
 (for example `dataclasses.asdict` of an `exp_tpu.basis.slgrid.SphSLTables`),
+or as objects whose fields NumPy can read (a multistep runner's buckets),
 so this module imports nothing of `exp_tpu` or `jax`.
 """
 
@@ -106,6 +107,34 @@ def cube_from_numpy(norm, lap, nmaxx, nmaxy, nmaxz, nminx=0, nminy=0,
                 nminy=nminy, nminz=nminz, backend=backend,
                 pallas_precision=pallas_precision,
                 pallas_version=pallas_version)
+
+
+_PS_FIELDS = ("x", "v", "mass", "acc", "pot", "level", "indx", "scale")
+
+
+def buckets_from_numpy(buckets, regs=None, device=None):
+    """The port's multistep buckets from a JAX runner's, on `device` (None:
+    CUDA, raising when there is none): `buckets` is a LevelBuckets (its
+    `.buckets`) or a sequence of bucket ParticleSystems, whose fields are
+    read as NumPy arrays and kept in their dtypes (`level` and `indx`
+    int32).  With `regs`, the component's (L, N) register sequences, returns
+    (buckets, [L list, N list]) for MultistepRunner.bigstep."""
+    from exp_tpu_torch.nbody.particles import ParticleSystem
+
+    device = resolve_device(device)
+    out = []
+    for b in getattr(buckets, "buckets", buckets):
+        f = {k: np.array(getattr(b, k)) for k in _PS_FIELDS}
+        for k in ("level", "indx"):
+            if f[k].dtype != np.int32:
+                raise TypeError(f"bucket {k} has dtype {f[k].dtype}, "
+                                "expected int32")
+        out.append(ParticleSystem(**{k: torch.as_tensor(a, device=device)
+                                     for k, a in f.items()}))
+    if regs is None:
+        return out
+    return out, [[torch.as_tensor(np.array(c), device=device) for c in side]
+                 for side in regs]
 
 
 def complex_from_numpy(a, dtype=None, device=None) -> torch.Tensor:

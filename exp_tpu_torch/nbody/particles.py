@@ -60,7 +60,9 @@ class ParticleSystem:
         m = x.shape[0]
 
         def tens(a, dt=dtype):
-            return torch.as_tensor(a, dtype=dt, device=device)
+            # a copy: the steps update the state in place, and as_tensor
+            # would share a CPU f64 array with the caller
+            return torch.tensor(a, dtype=dt, device=device)
 
         return cls(x=tens(x), v=tens(v), mass=tens(mass),
                    acc=torch.zeros((m, 3), dtype=dtype, device=device),

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("sphere_coef", "sphere_accel", "sphere_coef_rec",
            "sphere_accel_poly", "cyl_coef", "cyl_accel", "cube_coef",
-           "cube_accel", "slab_coef", "slab_accel")
+           "cube_accel", "slab_coef", "slab_accel", "slab_phasestream")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -133,3 +133,11 @@ def check_tensor(t, name, shape, device) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def div_f32(a, c):
+    """a / c for a Python float c, rounded as IEEE division of f32 values,
+    as the kernels divide.  (PyTorch on CUDA multiplies by the reciprocal
+    of a Python scalar divisor instead, an ulp away: enough to move a grid
+    position across a node, and a force that changes fast there with it.)"""
+    return a / a.new_tensor(c)

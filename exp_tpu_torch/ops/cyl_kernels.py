@@ -164,11 +164,15 @@ def _cyl_maps(x, y, z, eps=1e-12):
 
 
 def _grid_coords(R, z, prm):
-    xg = (R / prm.acyl - 1.0) / (R / prm.acyl + 1.0)
-    u = z / prm.hcyl
+    """Grid positions (tx, ty), each division rounded as the kernels' (on
+    CUDA an ulp of u = z / hcyl is enough: the TPU's arcsinh below cancels
+    for z < 0, and F_z flips sign across the midplane within one y cell)."""
+    div = _build.div_f32
+    xg = (div(R, prm.acyl) - 1.0) / (div(R, prm.acyl) + 1.0)
+    u = div(z, prm.hcyl)
     yg = torch.log(u + torch.sqrt(u * u + 1.0))           # the TPU's arcsinh
-    tx = torch.clamp((xg - prm.xmin) / prm.dxc, 0.0, prm.ncx - 1.0)
-    ty = torch.clamp((yg - prm.ymin) / prm.dy, 0.0, prm.ncy - 1.0)
+    tx = torch.clamp(div(xg - prm.xmin, prm.dxc), 0.0, prm.ncx - 1.0)
+    ty = torch.clamp(div(yg - prm.ymin, prm.dy), 0.0, prm.ncy - 1.0)
     return tx, ty
 
 
@@ -250,7 +254,8 @@ def _accel_chunk_plain(xs, Ct, prm):
     x, y, z = xs[:, 0], xs[:, 1], xs[:, 2]
     R, r, cphi, sphi = _cyl_maps(x, y, z)
     outside = r > prm.rmax_grid
-    shrink = torch.where(outside, prm.rmax_grid / r, torch.ones_like(r))
+    shrink = torch.where(outside, r.new_tensor(prm.rmax_grid) / r,
+                         torch.ones_like(r))
     tx, ty = _grid_coords(R * shrink, z * shrink, prm)
     jx, wx = _x_nodes(tx, prm)
     (j0, j1), (w0, w1) = _hat_nodes(ty, ncy)

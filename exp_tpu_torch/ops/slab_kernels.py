@@ -6,6 +6,12 @@ SlabForce) and 'linear':
 
   K9  `slab_coef`   replaces make_slab_coef_kernel   (csrc/slab_coef.cu)
   K10 `slab_accel`  replaces make_slab_accel_kernel  (csrc/slab_accel.cu)
+  P1  `stream_coef` replaces the probe's make_stream_kernel
+                    (scripts/probe_slab_phasestream.py; csrc/slab_phasestream.cu)
+
+P1 computes K9's G from a bf16 phase table streamed from device memory,
+which `phase_table` (the probe's producer, plain torch) builds; it serves
+the port's probe (exp_tpu_torch/probe_slab_phasestream.py), not SlabForce.
 
 The kernels read x (N, 3) and mass (N,) as they are and mask their own
 ragged tail: the TPU's transposed (8, N) layout, its 1024-particle padding,
@@ -44,7 +50,7 @@ from exp_tpu_torch.ops.cube_kernels import axis_phases, wrap
 from exp_tpu_torch.ops.spline import b2
 
 #: launches of each kernel since the last reset (only kernel launches count)
-launch_counts = {"slab_coef": 0, "slab_accel": 0}
+launch_counts = {"slab_coef": 0, "slab_accel": 0, "slab_phasestream": 0}
 
 #: the nmax values per axis the kernels are built for, and the most table
 #: rows in z (nzc + 2 for 'spline', nzc for 'linear')
@@ -55,6 +61,13 @@ KERNEL_ZROWS_MAX = 128
 #: (kTile and kMaxGroups of csrc/slab_coef.cu)
 K9_TILE = 64
 K9_MAX_GROUPS = 8
+
+#: P1's particles a staged tile, its 32-bit words a staged table row and
+#: its most threads a block (kTile, kStride, kMaxThreads of
+#: csrc/slab_phasestream.cu)
+P1_TILE = 64
+P1_STRIDE = P1_TILE // 2 + 1
+P1_MAX_THREADS = 256
 
 INTERPS = ("spline", "linear")
 
@@ -263,7 +276,8 @@ def slab_accel_aux(coef, phi_top, phi_bot, dphi_top, dphi_bot, nmaxx, nmaxy):
 def z_grid(z, prm: SlabKernelParams):
     """Grid position t = clip((z + zmax) / dz, 0, nzc - 1), as the JAX
     kernels round it (f32, zmax and dz rounded to f32)."""
-    return torch.clamp((z + prm.zmax) / prm.dz, 0.0, prm.nzc - 1.0)
+    return torch.clamp(_build.div_f32(z + prm.zmax, prm.dz), 0.0,
+                       prm.nzc - 1.0)
 
 
 def z_nodes(t, prm: SlabKernelParams):
@@ -308,6 +322,71 @@ def slab_coef_plain(x, mass, prm: SlabKernelParams, chunk: int = 65536):
             Wz.scatter_add_(1, (j0 + k)[:, None], wk[:, None])
         acc += XY.T @ Wz
     return torch.complex(acc[:C], acc[C:])
+
+
+def phase_rows(prm: SlabKernelParams) -> int:
+    """Cr: the rows of each half (re, im) of P1's phase table, C rounded up
+    to 8 as the probe pads it."""
+    return _round_up(prm.C, 8)
+
+
+def phase_table(x, prm: SlabKernelParams, split: bool = False):
+    """The probe's producer (probe_slab_phasestream.py:70-93), plain torch:
+    the phases e^{-2 pi i (kx u_x + ky u_y)} of the wrapped positions
+    u = x - floor(x), k in the (kx, ky) order of G, rounded to bf16 (round
+    to nearest even) as a (2 Cr, N) table [re | im]; with `split`, the bf16
+    residuals of the f32 phases follow as [re_hi | im_hi | re_lo | im_lo]
+    (4 Cr, N).  The Cr - C padding rows have k = 0 (phase 1), as the probe's
+    have.  x (N, 3) f32."""
+    C, Cr = prm.C, phase_rows(prm)
+    B2 = 2 * prm.nmaxy + 1
+    r = torch.arange(Cr, device=x.device)
+    ka = torch.where(r < C, torch.div(r, B2, rounding_mode="floor")
+                     - prm.nmaxx, 0).to(torch.float32)
+    kb = torch.where(r < C, r % B2 - prm.nmaxy, 0).to(torch.float32)
+    u = wrap(x[:, :2].to(torch.float32))
+    ang = (-_TWO_PI) * (ka[:, None] * u[None, :, 0] + kb[:, None] * u[None, :, 1])
+    re, im = torch.cos(ang), torch.sin(ang)
+    if not split:
+        return torch.cat([re, im]).to(torch.bfloat16)
+    re_h, im_h = re.to(torch.bfloat16), im.to(torch.bfloat16)
+    re_l = (re - re_h.to(torch.float32)).to(torch.bfloat16)
+    im_l = (im - im_h.to(torch.float32)).to(torch.bfloat16)
+    return torch.cat([re_h, im_h, re_l, im_l])
+
+
+def _phase_split(ph, prm):
+    """Whether a phase table of ph's rows is split (4 Cr) or not (2 Cr)."""
+    Cr = phase_rows(prm)
+    if ph.dim() != 2 or ph.shape[0] not in (2 * Cr, 4 * Cr):
+        raise ValueError(f"phase table has shape {tuple(ph.shape)}, expected "
+                         f"({2 * Cr} or {4 * Cr}, N)")
+    return ph.shape[0] == 4 * Cr
+
+
+def stream_coef_plain(ph, x, mass, prm: SlabKernelParams, chunk: int = 65536):
+    """Plain version of P1: G (C, zrows) complex64 = sum_i P[r, i] w_i
+    Wz[j, i] from the bf16 phase table ph (phase_table) of particles x
+    (N, 3), mass (N,), with w the mass masked to |z| <= zmax and Wz the
+    particle's z weights (z_nodes); P is ph widened to f32, or hi + lo of
+    a split table (exact in f32).  One f32 matmul a chunk of particles."""
+    split = _phase_split(ph, prm)
+    C, Cr, zr = prm.C, phase_rows(prm), prm.zrows
+    acc = torch.zeros((2 * Cr, zr), dtype=torch.float32, device=x.device)
+    for s in range(0, x.shape[0], chunk):
+        z = x[s:s + chunk, 2].to(torch.float32)
+        m = mass[s:s + chunk].to(torch.float32)
+        w = torch.where(torch.abs(z) <= prm.zmax, m, torch.zeros_like(m))
+        j0, ws = z_nodes(z_grid(z, prm), prm)
+        Wz = torch.zeros((z.shape[0], zr), dtype=torch.float32,
+                         device=x.device)
+        for k, wk in enumerate(ws):
+            Wz.scatter_add_(1, (j0 + k)[:, None], (w * wk)[:, None])
+        P = ph[:2 * Cr, s:s + chunk].to(torch.float32)
+        if split:
+            P = P + ph[2 * Cr:, s:s + chunk].to(torch.float32)
+        acc += P @ Wz
+    return torch.complex(acc[:C], acc[Cr:Cr + C])
 
 
 def slab_accel_plain(x, tab, aux, prm: SlabKernelParams, chunk: int = 65536):
@@ -431,6 +510,72 @@ def slab_coef(x, mass, prm: SlabKernelParams):
                   out.data_ptr(), ng, nblocks, *_geometry_args(prm), stream)
     _build.raise_on(code, err, "slab_coef")
     launch_counts["slab_coef"] += 1
+    return torch.view_as_complex(out)
+
+
+def stream_smem_bytes(prm: SlabKernelParams, split: bool) -> int:
+    """P1's shared memory a block, as csrc/slab_phasestream.cu lays it
+    out: each particle's z record (16 B), the staged tile of the 2C (or
+    4C, split) table rows it reads, and the (zrows, 2C) f32 accumulator."""
+    A = 2 * prm.C
+    nst = 2 * A if split else A
+    return 16 * P1_TILE + 4 * nst * P1_STRIDE + 4 * prm.zrows * A
+
+
+def stream_plan(prm: SlabKernelParams, split: bool, props, n):
+    """P1's blocks on a device with properties `props`: two an SM where
+    their shared memory fits, else one; no more than tiles of particles.
+    Raises ValueError when a block's 2C threads (rounded up to 32) or its
+    shared memory do not fit (nmax above 5)."""
+    if -(-2 * prm.C // 32) * 32 > P1_MAX_THREADS:
+        raise ValueError(f"slab_phasestream: {2 * prm.C} output rows exceed "
+                         f"a block's {P1_MAX_THREADS} threads")
+    smem = stream_smem_bytes(prm, split)
+    if smem > props.shared_memory_per_block_optin:
+        raise ValueError(f"slab_phasestream: {smem} B of shared memory a "
+                         "block exceeds the device's "
+                         f"{props.shared_memory_per_block_optin}")
+    per_sm = 2 if 2 * (smem + 1024) <= props.shared_memory_per_multiprocessor \
+        else 1
+    tiles = -(-n // P1_TILE)
+    return max(1, min(per_sm * props.multi_processor_count, tiles))
+
+
+def stream_coef(ph, x, mass, prm: SlabKernelParams):
+    """P1: G (C, zrows) complex64 from the bf16 phase table.
+
+    ph (2 Cr or 4 Cr, N) bf16 from phase_table, x (N, 3) and mass (N,) f32.
+    CPU tensors take stream_coef_plain; CUDA tensors launch
+    csrc/slab_phasestream.cu."""
+    check_params(prm)
+    split = _phase_split(ph, prm)
+    if x.device.type == "cpu":
+        return stream_coef_plain(ph, x, mass, prm)
+    _on_card(x, "slab_phasestream")
+    n = x.shape[0]
+    dev = x.device
+    _build.check_tensor(x, "x", (n, 3), dev)
+    _build.check_tensor(mass, "mass", (n,), dev)
+    if ph.device != dev or ph.dtype != torch.bfloat16 or ph.shape[1] != n \
+            or not ph.is_contiguous():
+        raise ValueError(f"ph must be a contiguous bf16 ({ph.shape[0]}, {n}) "
+                         f"tensor on {dev}")
+    fn, err = _build.bind("slab_phasestream",
+                          [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _F, _P])
+    nblocks = stream_plan(prm, split, torch.cuda.get_device_properties(dev),
+                          n)
+    partial = torch.empty((nblocks, prm.zrows, 2 * prm.C),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty((prm.C, prm.zrows, 2), dtype=torch.float32, device=dev)
+    vec = int(n % 8 == 0 and ph.data_ptr() % 16 == 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(ph.data_ptr(), x.data_ptr(), mass.data_ptr(), n,
+                  partial.data_ptr(), out.data_ptr(), nblocks, int(split),
+                  vec, *_geometry_args(prm), stream)
+    _build.raise_on(code, err, "slab_phasestream")
+    launch_counts["slab_phasestream"] += 1
     return torch.view_as_complex(out)
 
 

@@ -181,22 +181,16 @@ class SphereKernelParams:
 # plain PyTorch versions (the same math in tensor ops)
 # ---------------------------------------------------------------------------
 
-def _div(a, c):
-    """a / c for a Python float c, rounded as IEEE division of f32 values.
-    (PyTorch on CUDA multiplies by the reciprocal of a Python scalar
-    divisor instead, an ulp away: enough to move t across a hat node, and
-    the hat derivative with it, against the kernels' division.)"""
-    return a / a.new_tensor(c)
-
-
 def _ximap(rs, prm):
     if prm.cmap == 1:
-        return (_div(rs, prm.rmap) - 1.0) / (_div(rs, prm.rmap) + 1.0)
+        xs = _build.div_f32(rs, prm.rmap)
+        return (xs - 1.0) / (xs + 1.0)
     return rs
 
 
 def _grid_t(xi, prm):
-    return torch.clamp(_div(xi - prm.xmin, prm.dxc), 0.0, prm.nc - 1.0)
+    return torch.clamp(_build.div_f32(xi - prm.xmin, prm.dxc), 0.0,
+                       prm.nc - 1.0)
 
 
 def _weight_matrix(xi, prm):
@@ -281,7 +275,7 @@ def _coef_plain(x, mass, tab, prm, angular, chunk):
         xs = x[s:s + chunk].to(torch.float32)
         m = mass[s:s + chunk].to(torch.float32)
         r = _radius(xs[:, 0], xs[:, 1], xs[:, 2])
-        rs = _div(r, prm.scale)
+        rs = _build.div_f32(r, prm.scale)
         w = torch.where((rs >= prm.rmin) & (rs <= prm.rmax), m,
                         torch.zeros_like(m))
         Y = angular(xs, r, w)                                 # (n, P)
@@ -344,7 +338,7 @@ def _chunked_accel(chunk_fn, x, chunk):
 def _radial_geometry(xs, prm):
     """r, rs, outside r_b, xi at min(rs, rmax) and d xi / dr."""
     r = _radius(xs[:, 0], xs[:, 1], xs[:, 2])
-    rs = _div(r, prm.scale)
+    rs = _build.div_f32(r, prm.scale)
     outside = r > prm.rmax * prm.scale
     xi = _ximap(torch.clamp(rs, max=prm.rmax), prm)
     if prm.cmap == 1:
@@ -504,8 +498,8 @@ def hat_node_points(prm: SphereKernelParams, nodes, window=256):
             cand += [up, down]
         xs = torch.tensor(np.array(cand, dtype=np.float32))
         zero = torch.zeros_like(xs)
-        t = _grid_t(_ximap(_div(_radius(xs, zero, zero), prm.scale), prm),
-                    prm)
+        rs = _build.div_f32(_radius(xs, zero, zero), prm.scale)
+        t = _grid_t(_ximap(rs, prm), prm)
         on = torch.nonzero(t == float(k)).flatten()
         return float(xs[on[0]]) if on.numel() else None
 

@@ -609,3 +609,183 @@ def test_variant_step_on_card_matches_cpu(cuda, lmax, interp, harmonics):
                                atol=1e-6)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the composite's multistep buckets: K1, K2, K4 and K5 on tiny and ragged N,
+# and the all-finest == flat exactness gate through the kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 3, 1025])
+def test_bucket_sizes_match_plain_versions(cuda, cyl_tables, n):
+    """A multistep bucket of n rows, the last a padding row (the origin, zero
+    mass) where n > 1: K1 and K4 against their plain versions (the
+    coefficients within 1e-5 of their largest value), K2 and K5 on the
+    field of the full sample (K2's and K5's gates); one launch a call."""
+    from exp_tpu_torch.forces.cylinder import CylinderForce
+    from exp_tpu_torch.ops import cyl_kernels as ck
+
+    def bucket(x, m):
+        x, m = x[:n].clone(), m[:n].clone()
+        if n > 1:
+            x[-1], m[-1] = 0.0, 0.0
+        return x, m
+
+    f = SphereSL.from_tables(_sphere_tables(4), backend="pallas", device=cuda)
+    prm = f._kernel_params()
+    xf, mf = _inputs(cuda)
+    x, m = bucket(xf, mf)
+    before = dict(sk.launch_counts)
+    c = sk.sphere_coef(x, m, f.tabc_s, f.Mp, prm)
+    c0 = sk.sphere_coef_plain(x, m, f.tabc_s, f.Mp, prm)
+    torch.cuda.synchronize()
+    assert float((c - c0).abs().max()) <= 1e-5 * float(c0.abs().max())
+    twT = _twt(f, sk.sphere_coef_plain(xf, mf, f.tabc_s, f.Mp, prm))
+    a, p = sk.sphere_accel(x, twT, f.fac32, prm)
+    _check_accel(a, p, *sk.sphere_accel_plain(x, twT, f.fac32, prm))
+    assert sk.launch_counts["sphere_coef"] == before["sphere_coef"] + 1
+    assert sk.launch_counts["sphere_accel"] == before["sphere_accel"] + 1
+
+    g = CylinderForce.from_tables(cyl_tables, backend="pallas", device=cuda)
+    gp = g._kernel_params()
+    xf, mf = _cyl_inputs(cuda)
+    x, m = bucket(xf, mf)
+    before = dict(ck.launch_counts)
+    G = ck.cyl_coef(x, m, gp)
+    G0 = ck.cyl_coef_plain(x, m, gp)
+    torch.cuda.synchronize()
+    assert float((G - G0).abs().max()) <= 1e-5 * float(G0.abs().max())
+    Ct = ck.contract_coef_tables(
+        ck.contract_coef_output(ck.cyl_coef_plain(xf, mf, gp), g.tab3), g.tab3,
+        gp.xrows, gp.ncy)
+    a, p = ck.cyl_accel(x, Ct, gp)
+    a0, p0 = ck.cyl_accel_plain(x, Ct, gp)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
+    torch.testing.assert_close(a, a0, rtol=1e-4,
+                               atol=1e-6 * float(a0.abs().max()))
+    torch.testing.assert_close(p, p0, rtol=1e-5,
+                               atol=1e-7 * float(p0.abs().max()))
+    assert ck.launch_counts["cyl_coef"] == before["cyl_coef"] + 1
+    assert ck.launch_counts["cyl_accel"] == before["cyl_accel"] + 1
+
+
+@pytest.mark.gpu
+def test_multistep_all_finest_equals_flat_on_card(cuda):
+    """Every particle at level M == flat KDK stepping at dtime/2^M
+    (tests/test_multistep.py:80-99) through K1 and K2 in f32: the finest
+    bucket holds the flat order with zero rows after it, which K1 skips
+    without moving any live particle to another warp or block, the other
+    buckets project to exactly 0 and the weights are exactly 1, so the
+    arithmetic is the flat step's: positions and velocities bit for bit,
+    Etot within the rounding of its f32 sums (the bucket sums over more
+    rows, in another order).  (The plain versions on the CPU are not bit
+    exact: the padded chunk's matmul blocks its sums otherwise.)"""
+    from dataclasses import replace
+
+    from exp_tpu_torch.nbody.multistep import (MultistepRunner, bucketize,
+                                               flatten_buckets)
+    from exp_tpu_torch.nbody.particles import ParticleSystem
+    from exp_tpu_torch.nbody.step import energies, init_force_state, \
+        make_kdk_step
+
+    M, dtime, nbig = 2, 0.08, 3
+    f = SphereSL.from_tables(_sphere_tables(4), backend="pallas", device=cuda)
+    x, v, m = hernquist_sample_np(N, seed=4)
+    ps = ParticleSystem.from_arrays(x, v, m, device=cuda)
+    ps = replace(ps, level=torch.full((N,), M, dtype=torch.int32,
+                                      device=cuda))
+    runner = MultistepRunner({"c": f}, {"c": ["c"]}, dtime, M)
+    lb = bucketize(ps, M)
+    runner.caps = {"c": lb.caps}
+    before = dict(sk.launch_counts)
+    st, regs, _, _ = runner._init({"c": lb.buckets})
+    for _ in range(nbig):
+        st, regs, _, diag = runner.bigstep(st, regs)
+    # the prime projects every bucket; a big step projects level l 2^l times
+    assert sk.launch_counts["sphere_coef"] - before["sphere_coef"] == \
+        (M + 1) + nbig * (2 ** (M + 1) - 1)
+    fl = flatten_buckets(st["c"])
+    live = fl.mass > 0
+    ref = ParticleSystem.from_arrays(x, v, m, device=cuda)
+    ref, _, d = init_force_state(f, ref)
+    step = make_kdk_step(f, dtime / 2 ** M)
+    for _ in range(nbig * 2 ** M):
+        ref, _, d = step(ref)
+    dx = float((fl.x[live] - ref.x).abs().max())
+    dv = float((fl.v[live] - ref.v).abs().max())
+    assert torch.equal(fl.x[live], ref.x) and torch.equal(fl.v[live], ref.v), \
+        (dx, dv)
+    assert energies(diag["c"])["Etot"] == pytest.approx(
+        energies(d)["Etot"], rel=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the slab phase-stream probe P1 (stream_coef)
+# ---------------------------------------------------------------------------
+
+def _p1_inputs(device, n):
+    """The probe's sample, its last rows replaced by edge rows: zero mass,
+    |z| > zmax of both signs, z exactly +-zmax (f32)."""
+    from exp_tpu_torch import probe_slab_phasestream as probe
+
+    x, m = probe.probe_sample(n, seed=2)
+    zmax = np.float32(probe.ZMAX)
+    x[-5:, 2] = [0.01, 0.3, -0.25, zmax, -zmax]
+    m[-5] = 0.0
+    return (torch.tensor(x, device=device), torch.tensor(m, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [20_000, 20_003])
+@pytest.mark.parametrize("interp", ["spline", "linear"])
+@pytest.mark.parametrize("split", [False, True], ids=["stream1", "stream2"])
+def test_p1_matches_plain_version(cuda, split, interp, n):
+    """P1 against stream_coef_plain on the same bf16 table: G within 1e-5 of
+    max|G| and its k != 0 rows within 1e-4 of their own largest value (f32
+    sums in another order; the k != 0 rows are shot noise); two launches
+    agree bit for bit; the zero-mass and |z| > zmax rows add exactly 0 and
+    the rows at +-zmax count; one launch a call.  n = 20,003 takes the
+    unvectorised loads."""
+    from exp_tpu_torch import probe_slab_phasestream as probe
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    prm = probe.probe_params(interp=interp)
+    x, m = _p1_inputs(cuda, n)
+    ph = lk.phase_table(x, prm, split)
+    before = lk.launch_counts["slab_phasestream"]
+    G = lk.stream_coef(ph, x, m, prm)
+    G0 = lk.stream_coef_plain(ph, x, m, prm)
+    torch.cuda.synchronize()
+    dG = (G - G0).abs()
+    assert float(dG.max()) <= 1e-5 * float(G0.abs().max())
+    kn = torch.arange(prm.C, device=cuda) != (prm.C - 1) // 2
+    assert float(dG[kn].max()) <= 1e-4 * float(G0[kn].abs().max())
+    assert torch.equal(G, lk.stream_coef(ph, x, m, prm))
+    assert lk.launch_counts["slab_phasestream"] == before + 2
+    for rows, nonzero in ((slice(-5, -2), False), (slice(-2, None), True)):
+        xs, ms = x[rows].contiguous(), m[rows].contiguous()
+        g = lk.stream_coef(lk.phase_table(xs, prm, split), xs, ms, prm)
+        assert (float(g.abs().max()) > 0.0) == nonzero
+
+
+@pytest.mark.gpu
+def test_p1_wrapper_rejects_bad_inputs(cuda):
+    from exp_tpu_torch import probe_slab_phasestream as probe
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    prm = probe.probe_params()
+    x, m = _p1_inputs(cuda, 4096)
+    ph = lk.phase_table(x, prm)
+    with pytest.raises(ValueError, match="phase table"):
+        lk.stream_coef(ph[:-1], x, m, prm)
+    with pytest.raises(ValueError, match="bf16"):
+        lk.stream_coef(ph.float(), x, m, prm)
+    with pytest.raises(ValueError, match="bf16"):
+        lk.stream_coef(ph[:, :-1], x, m, prm)
+    with pytest.raises(TypeError, match="float32"):
+        lk.stream_coef(ph, x.double(), m, prm)
+    with pytest.raises(ValueError, match="threads"):
+        lk.stream_coef(lk.phase_table(x, probe.probe_params(nmax=6)), x, m,
+                       probe.probe_params(nmax=6))

@@ -28,7 +28,9 @@ def test_import_loads_no_jax_or_exp_tpu():
         "exp_tpu_torch.ic.cubeics, exp_tpu_torch.bench_cube, "
         "exp_tpu_torch.basis.slab, exp_tpu_torch.forces.slab, "
         "exp_tpu_torch.ops.slab_kernels, exp_tpu_torch.ic.slab, "
-        "exp_tpu_torch.bench_slab\n"
+        "exp_tpu_torch.bench_slab, exp_tpu_torch.nbody.multistep, "
+        "exp_tpu_torch.ic.diskhalo, exp_tpu_torch.bench_composite, "
+        "exp_tpu_torch.probe_slab_phasestream\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exp_tpu' or m.startswith('exp_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -140,3 +142,20 @@ def test_sphere_settings_entry_points_without_device_raise_when_no_cuda(
         bench_sphere(n=10, tables=t, harmonics="poly")
     with pytest.raises(RuntimeError, match="times the card"):
         bench_sphere(n=10, tables=t, device="cpu", interp="hat")
+
+
+def test_composite_and_probe_entry_points_without_device_raise_when_no_cuda(
+        monkeypatch):
+    from exp_tpu_torch import probe_slab_phasestream as probe
+    from exp_tpu_torch.bench_composite import (bench_composite,
+                                               composite_forces, prepare)
+    from exp_tpu_torch.convert import buckets_from_numpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: composite_forces(), lambda: prepare(8, 8),
+                 lambda: bench_composite(8, 8), lambda: probe.check(n=8),
+                 lambda: probe.bench(n=8), lambda: buckets_from_numpy([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(RuntimeError, match="times the card"):
+        bench_composite(8, 8, device="cpu")
