@@ -100,7 +100,15 @@ Phases:
      kernel's launches against the schedule gated;
   CM3. big steps and relevels timed; K1, K2, K4 and K5 against their plain
      versions on every bucket, with the stated tolerances, and each one's
-     device time a big step by CUDA events beside its bound;
+     device time a big step (profiler) beside its bound, and a launch on
+     each level's bucket (CUDA events around launches queued behind a spin
+     kernel);
+  KS. K1 ('spline' and 'hat') and K4 on the sphere and disk benches'
+     samples cut to 224 ...
+     1,048,576 rows with a padding row last, each against its plain
+     version (K1 also bit for bit under more padding), then timed at each
+     size beside its bound, with the fitted fixed cost a launch and cost a
+     row (exp_tpu_torch/bench_kernels.py);
   PS1. P1 against its plain version on the probe's sample with edge rows,
      stream1 and stream2, with the stated tolerances;
   PS2. the probe's run: producer + P1, P1 alone, the producer, the
@@ -289,6 +297,10 @@ COMP_DRIFT_BOUND = 2e-4
 # gate, there over 4 big steps at M=2); the largest move at any relevel is
 # reported.
 COMP_LEVEL_MOVE = 0.02
+# KS: calls a size queued behind a spin kernel, and launches in a row (5x
+# below 2^16 rows), each timed by CUDA events; CM3: calls a level's bucket
+KS_REPS = 20
+CM3_LEVEL_REPS = 10
 
 # The phase-stream probe P1 (exp_tpu_torch/probe_slab_phasestream.py, the
 # JAX probe's shapes: nmax 4, nzc 126 'spline', 2^20 particles).
@@ -1482,6 +1494,7 @@ def composite_path(dev, sphere_tables, disk_tables):
     import torch
 
     from exp_tpu_torch import bench_composite as bc
+    from exp_tpu_torch import bench_kernels as bk
 
     # CM1. the forces and the DiskHalo ICs on the card, at full size
     t0 = time.perf_counter()
@@ -1534,16 +1547,22 @@ def composite_path(dev, sphere_tables, disk_tables):
     # CM3. big steps and relevels timed; each kernel against its plain
     # version on every bucket; its device time in one big step from
     # torch.profiler (CUDA events around launches of the small buckets
-    # would time the host's enqueue), by the device kernels it launches
+    # would time the host's enqueue), by the device kernels it launches:
+    # their union over one profile of calls on every bucket (which kernels
+    # a call launches depends on its rows); a launch on each level's bucket
+    # by bench_kernels.queued_ms
     st, regs, big, rel = bc.time_bigsteps(runner, st, regs, COMP_TIMED)
     step = float(np.median(big))
     counts = runner.level_counts(st)
     st, regs, coef, _ = runner.bigstep(st, regs)
     kernels = _comp_kernels(s["halo"], s["disk"], coef)
-    names = {k[0]: set(bc.profile_call(lambda: k[5](st[k[4][0]][0]))[0])
-             for k in kernels}
-    ops, n_ops = bc.profile_call(lambda: runner.bigstep(st, regs))
+    ops, n_ops = bk.device_ops(lambda: runner.bigstep(st, regs))
     dev_ms = sum(ops.values())
+    names = {}
+    for name, _, _, _, comps, fn, *_ in kernels:
+        ops_w, _ = bk.device_ops(
+            lambda: [fn(b) for c in comps for b in st[c] for _ in range(3)])
+        names[name] = set(ops_w)
     print("CM3 composite step: " + json.dumps({
         "metric": "composite_particle_substeps_per_sec",
         "value": bc.substeps_per_bigstep(counts) / step, "unit": "1/s",
@@ -1557,7 +1576,7 @@ def composite_path(dev, sphere_tables, disk_tables):
     rows, bad = [], []
     for name, wrapper, src, line, comps, fn, plain, work, check in kernels:
         per = {"plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0, "operations": 0}
-        nl, err = 0, 0.0
+        nl, err, levels = 0, 0.0, []
         for c in comps:
             for l, b in enumerate(st[c]):
                 ok, e = check(fn(b), plain(b))
@@ -1571,6 +1590,25 @@ def composite_path(dev, sphere_tables, disk_tables):
                 per["bound_ms"] += w * bound_ms(byts, ops_)[0]
                 per["bytes"] += w * byts
                 per["operations"] += w * ops_
+                # device time a launch on this level's bucket: launches
+                # queued behind a spin kernel, timed by CUDA events
+                lv_ms = bk.queued_ms(lambda: fn(b), CM3_LEVEL_REPS)
+                levels.append({"component": c, "level": l,
+                               "rows": int(b.x.shape[0]),
+                               "launches_per_bigstep": w, "device_ms": lv_ms,
+                               "bound_ms": bound_ms(byts, ops_)[0]})
+                if wrapper in ("sphere_coef", "cyl_coef"):
+                    print(f"CM3 {name} {c} level {l}: {b.x.shape[0]} rows, "
+                          f"{w} launches a big step, {lv_ms:.4f} ms device "
+                          f"time a launch (bound "
+                          f"{bound_ms(byts, ops_)[0]:.5f}), "
+                          f"{w * lv_ms:.4f} ms a big step", flush=True)
+        # the profile's categories must file every device kernel of the
+        # wrapper under the port's kernels
+        stray = [k for k in names[name] if bc._category(k) != "kernels"]
+        if stray:
+            bad.append(f"{name}: device ops {stray} outside the profile's "
+                       "kernels category")
         ms = sum(t for k, t in ops.items() if k in names[name])
         by = bound_ms(per["bytes"], per["operations"])[1]
         rows.append({
@@ -1585,6 +1623,7 @@ def composite_path(dev, sphere_tables, disk_tables):
             "bound_ms_per_bigstep": per["bound_ms"],
             "bytes_per_bigstep": per["bytes"],
             "operations_per_bigstep": per["operations"],
+            "levels": levels,
             "device_kernels": sorted(n[:60] for n in names[name])})
         print(f"CM3 {name}: {nl} launches a big step, {ms:.3f} ms of device "
               f"time (bound {per['bound_ms']:.4f}), max error against the "
@@ -1593,6 +1632,84 @@ def composite_path(dev, sphere_tables, disk_tables):
         raise AssertionError(f"CM3: kernels disagree with their plain "
                              f"versions on the buckets {bad}")
     return rows
+
+
+def sweep_path(dev, sphere_tables, disk_tables, rows):
+    """Phase KS on the card: K1 ('spline' and 'hat') and K4 on the sphere
+    and disk benches' samples cut to bench_kernels.SWEEP_SIZES rows, the
+    last a padding row (zero mass) as in a bucket; at each size each against
+    its plain version and K1 bit for bit against the same rows padded to
+    twice as many; then each timed (device time a launch by CUDA events
+    around KS_REPS launches queued behind a spin kernel, and by CUDA events
+    over launches in a row) beside its bound, and the device times fitted
+    to a fixed cost a launch plus a cost a row.  Adds the sweep to
+    K1's, K1 'hat''s and K4's rows of the kernels line (`rows`)."""
+    import torch
+
+    from exp_tpu_torch import bench_kernels as bk
+    from exp_tpu_torch.ops import cyl_kernels as ck
+    from exp_tpu_torch.ops import sphere_kernels as sk
+
+    forces = bk.samples(dev, sphere_tables, disk_tables)
+    fns = bk.kernel_fns(forces)
+    prms = {key: f._kernel_params() for key, (f, _, _) in forces.items()}
+
+    def plain(key, x, m):
+        if key == "K4":
+            return ck.cyl_coef_plain(x, m, prms[key])
+        f = forces[key][0]
+        return sk.sphere_coef_plain(x, m, f._radial_table(), f.Mp,
+                                    prms[key])
+
+    def work(key, x, m):
+        p = prms[key]
+        if key != "K4":
+            rs = (x.norm(dim=1) + 1e-10) / p.scale
+            n_in = int(((rs >= p.rmin) & (rs <= p.rmax) & (m > 0)).sum())
+            return k1_work(x.shape[0], n_in, p.lmax, p.nmax, p.rows,
+                           p.interp)
+        n_in = int(((x.norm(dim=1) <= p.rmax_grid) & (m > 0)).sum())
+        return k4_work(x.shape[0], n_in, p.mmax, p.xrows, p.ncy,
+                       3 if p.interp == "spline" else 2)
+
+    bad, bounds = [], {}
+    for key in fns:
+        _, x, m = forces[key]
+        for n in bk.SWEEP_SIZES:
+            xb, mb = bk.bucket(x, m, n)
+            out, ref = fns[key](xb, mb), plain(key, xb, mb)
+            torch.cuda.synchronize()
+            rtol = CYL_COEF_RTOL if key == "K4" else COEF_RTOL
+            ok = float((out - ref).abs().max()) <= \
+                rtol * float(ref.abs().max())
+            if key != "K4":
+                xp, mp = bk.bucket(x, m, n, cap=2 * n + 64)
+                ok = ok and torch.equal(out, fns[key](xp, mp))
+            if not ok:
+                bad.append(f"{key} n={n}")
+            bounds[key, n] = bound_ms(*work(key, xb, mb))
+    res = bk.sweep(forces, reps=KS_REPS)
+    for r in res["rows"]:
+        r["bound_ms"], r["bound_by"] = bounds[r["kernel"], r["n"]]
+        print(f"KS {r['kernel']} n={r['n']}: {r['device_ms']:.4f} ms device "
+              f"time a launch (queued), {r['event_ms']:.4f} ms a launch by "
+              f"CUDA events over {r['event_reps']} in a row, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+    for key, f in res["fit"].items():
+        print(f"KS {key} fit: {f['fixed_ms'] * 1e3:.2f} us a launch + "
+              f"{f['ms_per_row'] * 1e6:.4f} us a 1,000 rows", flush=True)
+    if bad:
+        raise AssertionError(f"KS: kernels disagree with their plain versions"
+                             f" or K1 changed under padding: {bad}")
+    for row in rows:
+        key = {"sphere_coef": "K1", "sphere_coef[hat]": "K1hat",
+               "cyl_coef": "K4"}.get(row["name"])
+        if key:
+            row["sweep"] = [{k: r[k] for k in ("n", "device_ms", "event_ms",
+                                               "bound_ms")}
+                            for r in res["rows"] if r["kernel"] == key]
+            row["sweep_fixed_ms"] = res["fit"][key]["fixed_ms"]
+            row["sweep_ms_per_row"] = res["fit"][key]["ms_per_row"]
 
 
 def phasestream_path(dev):
@@ -1835,6 +1952,7 @@ def main():
     rows += slab_path(dev)
     rows += sphere_settings_path(dev, tables, xe, ve, me)
     rows += composite_path(dev, tables, disk_tables)
+    sweep_path(dev, tables, disk_tables, rows)
     rows += phasestream_path(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

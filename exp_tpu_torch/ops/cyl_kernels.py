@@ -314,11 +314,67 @@ def _geometry_args(prm):
             prm.rmax_grid)
 
 
+#: K4's launch plan: at least this many particles a chunk (a block's fixed
+#: cost, zeroing its accumulator and writing its rows, then stays a small
+#: share of its time)
+K4_MIN_CHUNK = 2048
+#: K4's largest block
+K4_MAX_WARPS = 24
+
+
+@dataclass(frozen=True)
+class CylCoefPlan:
+    """K4's launch: `groups` groups of at most `tg` of the 2M+1 nonzero trig
+    rows, `nw` warps a block, `chunks` particle chunks (grid (chunks,
+    groups)), `ncyp` the shared accumulator's row stride (ncy rounded up to
+    2 mod 32) and `smem` bytes of shared memory a block."""
+
+    tg: int
+    groups: int
+    nw: int
+    chunks: int
+    ncyp: int
+    smem: int
+
+
+def k4_record_words(kx, tg):
+    """Words of a staged particle record in csrc/cyl_coef.cu: its base
+    offset and its kx * 2 * tg fixed-point updates, rounded up to odd."""
+    return (1 + 2 * kx * tg) | 1
+
+
+def coef_plan(n, prm: CylKernelParams, sm_count, smem_optin) -> CylCoefPlan:
+    """K4's launch plan for n particles on a device of `sm_count` SMs and
+    `smem_optin` bytes of shared memory a block, as csrc/cyl_coef.cu lays
+    it out.  The fewest row groups whose rows' accumulator (xrows, tg,
+    ncyp) i32 and at least 4 warps (a sum and 32 records each) fit, with a
+    particle's kx * 2 * tg updates on at most 32 lanes; as many warps (at
+    most K4_MAX_WARPS) as the rest holds; chunks of at least K4_MIN_CHUNK
+    particles, at most one block an SM.  Raises ValueError when not even
+    one trig row fits."""
+    R = 2 * prm.mmax + 1
+    kx = 3 if prm.interp == "spline" else 2
+    ncyp = prm.ncy + (2 - prm.ncy) % 32
+    for groups in range(-(-R // min(R, 32 // (2 * kx))), R + 1):
+        tg = -(-R // groups)
+        acc = 4 * prm.xrows * tg * ncyp
+        warp_bytes = 4 + 4 * 32 * k4_record_words(kx, tg)
+        nw = min(K4_MAX_WARPS, (smem_optin - acc) // warp_bytes)
+        if nw >= 4:
+            break
+    else:
+        raise ValueError(f"cyl_coef: one trig row of G ({prm.xrows} x "
+                         f"{ncyp} i32) and 4 warps' stage exceed a block's "
+                         f"{smem_optin} bytes of shared memory")
+    chunks = max(1, min(n // K4_MIN_CHUNK, sm_count // groups))
+    return CylCoefPlan(tg, groups, nw, chunks, ncyp, acc + nw * warp_bytes)
+
+
 def cyl_coef(x, mass, prm: CylKernelParams):
     """K4: G (xrows, 2(M+1), ncy) f32 raw MTTKRP sums.
 
     x (N, 3), mass (N,), f32.  CPU tensors take cyl_coef_plain; CUDA
-    tensors launch csrc/cyl_coef.cu."""
+    tensors launch csrc/cyl_coef.cu with the plan of coef_plan."""
     _check_prm(prm)
     if x.device.type == "cpu":
         return cyl_coef_plain(x, mass, prm)
@@ -329,27 +385,23 @@ def cyl_coef(x, mass, prm: CylKernelParams):
     _build.check_tensor(x, "x", (n, 3), dev)
     _build.check_tensor(mass, "mass", (n,), dev)
     fn, err = _build.bind("cyl_coef", [_P, _P, _LL, _P, _P, _I, _I, _I, _I,
-                                       _I, _I, _F, _F, _F, _F, _F, _F, _F,
-                                       _P])
-    # tg trig rows a block (at most 4, as many as its shared memory holds),
-    # and enough particle chunks to give every SM one block
+                                       _I, _I, _I, _I, _I, _F, _F, _F, _F,
+                                       _F, _F, _F, _P])
     props = torch.cuda.get_device_properties(dev)
+    plan = coef_plan(n, prm, props.multi_processor_count,
+                     props.shared_memory_per_block_optin)
     T = prm.trig_rows
-    tg = min(T, 4)
-    row_bytes = 4 * prm.xrows * prm.ncy
-    while tg and row_bytes * tg > props.shared_memory_per_block_optin:
-        tg -= 1
-    if not tg:
-        raise ValueError(f"cyl_coef: one trig row of G ({prm.xrows} x "
-                         f"{prm.ncy} f32) exceeds a block's shared memory")
-    nchunks = -(-props.multi_processor_count // -(-T // tg))
-    shape = (prm.xrows, T, prm.ncy)
-    partial = torch.empty((nchunks, *shape), dtype=torch.float32, device=dev)
-    G = torch.empty(shape, dtype=torch.float32, device=dev)
+    G = torch.empty((prm.xrows, T, prm.ncy), dtype=torch.float32, device=dev)
+    partial = None
+    if plan.chunks > 1:
+        partial = torch.empty((plan.chunks, prm.xrows, T - 1, prm.ncy),
+                              dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(x.data_ptr(), mass.data_ptr(), n, partial.data_ptr(),
-                  G.data_ptr(), tg, nchunks, *_geometry_args(prm), stream)
+        code = fn(x.data_ptr(), mass.data_ptr(), n,
+                  None if partial is None else partial.data_ptr(),
+                  G.data_ptr(), plan.tg, plan.groups, plan.nw, plan.chunks,
+                  plan.ncyp, *_geometry_args(prm), stream)
     _build.raise_on(code, err, "cyl_coef")
     launch_counts["cyl_coef"] += 1
     return G

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -572,21 +573,121 @@ def _coef_inputs(x, mass, tab, prm, name):
     return n, dev
 
 
-def k1_warps(prm: SphereKernelParams, optin: int) -> int:
-    """K1's launch plan: the warps a block runs, as many (at most 8)
-    private (P, rows) accumulators as `optin` bytes of shared memory hold
-    beside M and the stage, as csrc/sphere_coef.cu lays them out.  Raises
-    ValueError when not even one fits (a 'hat' table of many nodes at high
-    lmax)."""
+def k1_support(lmax) -> np.ndarray:
+    """(P, n_mono) bool: the entries of M that K1 multiplies.  Row (cs, l,
+    m) of M is fit on the monomials of degree <= l, and the harmonic is
+    even or odd under x -> -x, y -> -y and z -> -z, so its monomials
+    x^i y^j z^k have i = m + cs, j = cs and k = l + m (mod 2)."""
+    from exp_tpu_torch.ops.solidharm import monomial_exponents
+
+    rows = packed_rows(lmax)
+    sup = np.zeros((len(rows), len(monomial_exponents(lmax))), dtype=bool)
+    for p, (cs, l, m) in enumerate(rows):
+        for k, (i, j, kz) in enumerate(monomial_exponents(lmax)):
+            sup[p, k] = (i + j + kz <= l and (i - m - cs) % 2 == 0
+                         and (j - cs) % 2 == 0 and (kz - l - m) % 2 == 0)
+    return sup
+
+
+@dataclass(frozen=True)
+class SphereCoefPlan:
+    """K1's launch: `nblocks` blocks of `nw` warps and `smem` bytes of
+    shared memory a block.  One block writes the coefficients itself;
+    several write partials that a second kernel sums."""
+
+    nw: int
+    nblocks: int
+    smem: int
+
+
+#: K1's warps a block, and the threads a block of its second kernel
+#: (csrc/sphere_coef.cu)
+K1_WARPS = 16
+K1_FINISH_THREADS = 1024
+
+
+def k1_smem(prm: SphereKernelParams, nw: int) -> int:
+    """K1's shared memory a block of nw warps, as csrc/sphere_coef.cu lays
+    it out: each warp's stage (32 x (4 weights + P rows, P rounded up to
+    odd)), the block's (P, rows | 1) i32 accumulator and nw f32 sums."""
     P = (prm.lmax + 1) ** 2
-    nm = (prm.lmax + 1) * (prm.lmax + 2) * (prm.lmax + 3) // 6
-    for nw in range(8, 0, -1):
-        if 4 * (P * nm + nw * P * (prm.rows | 1) + nw * 32 * ((P | 1) + 4)) <= optin:
-            return nw
-    raise ValueError(
-        f"sphere_coef: one warp's (P, rows) = ({P}, {prm.rows}) accumulator "
-        f"exceeds a block's {optin} bytes of shared memory; lower numr_c or "
-        "use pallas_harmonics='recurrence' (K3 splits the rows)")
+    return 4 * (nw * 32 * (4 + (P | 1)) + P * (prm.rows | 1) + nw)
+
+
+def k1_plan(n, prm: SphereKernelParams, sm_count, smem_optin,
+            smem_per_sm) -> SphereCoefPlan:
+    """K1's launch plan for n rows: blocks of K1_WARPS warps (fewer when
+    their shared memory, k1_smem, does not fit smem_optin), as many a SM as
+    smem_per_sm holds (at most 2); warp tiles of 32 rows go to blocks by
+    the row index alone, tile t to block (t // nw) mod (blocks a SM x
+    sm_count), so the grid is the blocks that rows reach, at most that, and
+    rows after the live ones move no live tile.  Raises ValueError when
+    not even one warp fits (a 'hat' table of many nodes at high lmax)."""
+    P = (prm.lmax + 1) ** 2
+    nw = next((w for w in range(K1_WARPS, 0, -1)
+               if k1_smem(prm, w) <= smem_optin), 0)
+    finish = 4 * (prm.rows * (1 + prm.nmax) + K1_FINISH_THREADS
+                  + 4 * prm.nmax)
+    if not nw or finish > smem_optin:
+        raise ValueError(
+            f"sphere_coef: the (P, rows) = ({P}, {prm.rows}) accumulator "
+            f"and one warp's stage exceed a block's {smem_optin} bytes of "
+            "shared memory; lower numr_c or use "
+            "pallas_harmonics='recurrence' (K3 splits the rows)")
+    smem = k1_smem(prm, nw)
+    # the card keeps 1 KB of an SM's shared memory for each block
+    per_sm = max(1, min(2, smem_per_sm // (smem + 1024)))
+    tiles = -(-n // 32)
+    nblocks = max(1, min(-(-tiles // nw), per_sm * sm_count))
+    return SphereCoefPlan(nw, nblocks, smem)
+
+
+def k1_row_bounds(Mh, lmax) -> np.ndarray:
+    """(P,) f32 bounds of |Y_p| = |M[p] . mono(u)| on the unit sphere, which
+    set K1's fixed-point scales.  A row that is the standard harmonic's
+    times a factor (poly_matrix, any fac) is a real harmonic times that
+    factor: |Y_lm| <= sqrt((2l + 1) / 4 pi), sqrt 2 more for m > 0 (the
+    addition theorem), with 1% to spare for f32 rounding.  Any other row
+    gets sum_k |M[p, k]|."""
+    from exp_tpu_torch.ops.solidharm import harmonic_matrix
+
+    prows = packed_rows(lmax)
+    std = harmonic_matrix(lmax, tuple(prows))
+    out = np.abs(Mh).sum(axis=1).astype(np.float64)
+    for p, (cs, l, m) in enumerate(prows):
+        k = int(np.argmax(np.abs(std[p])))
+        ratio = Mh[p, k] / std[p, k]
+        if np.allclose(Mh[p], ratio * std[p], rtol=1e-5, atol=1e-7 * out[p]):
+            cap = abs(ratio) * math.sqrt((2 * l + 1) / (4 * math.pi)
+                                         * (2.0 if m else 1.0))
+            out[p] = min(out[p], 1.01 * cap + 1e-6 * out[p])
+    return out.astype(np.float32)
+
+
+#: host copies of the M given to sphere_coef: id -> (weak reference, the
+#: tensor's version, the f32 array of M and its row bounds), so each M is
+#: read back once
+_host_m: dict = {}
+
+
+def _m_on_host(M, lmax):
+    """M (P, n_mono) and its k1_row_bounds as one contiguous f32 host array
+    for K1's launch parameters, read from the device once per tensor and
+    version; raises ValueError when M has nonzero entries outside
+    k1_support."""
+    hit = _host_m.get(id(M))
+    if hit is not None and hit[0]() is M and hit[1] == M._version:
+        return hit[2]
+    Mh = np.ascontiguousarray(M.detach().cpu().numpy(), dtype=np.float32)
+    outside = np.count_nonzero(Mh[~k1_support(lmax)])
+    if outside:
+        raise ValueError(f"sphere_coef: M has {outside} nonzero entries "
+                         "outside the support K1 multiplies")
+    packed = np.concatenate([Mh.ravel(), k1_row_bounds(Mh, lmax)])
+    for k in [k for k, v in _host_m.items() if v[0]() is None]:
+        del _host_m[k]
+    _host_m[id(M)] = (weakref.ref(M), M._version, packed)
+    return packed
 
 
 def sphere_coef(x, mass, tab, M, prm: SphereKernelParams):
@@ -594,7 +695,9 @@ def sphere_coef(x, mass, tab, M, prm: SphereKernelParams):
 
     x (N, 3), mass (N,), tab (rows, F) radial table (prm.rows: nc + 2
     'spline', nc 'hat'), M (P, n_mono); all f32.  CPU tensors take
-    sphere_coef_plain; CUDA tensors launch csrc/sphere_coef.cu."""
+    sphere_coef_plain; CUDA tensors launch csrc/sphere_coef.cu with the
+    plan of k1_plan (M is read back to the host once, for the launch
+    parameters)."""
     if x.device.type == "cpu":
         return sphere_coef_plain(x, mass, tab, M, prm)
     if x.device.type != "cuda":
@@ -605,16 +708,21 @@ def sphere_coef(x, mass, tab, M, prm: SphereKernelParams):
     _build.check_tensor(M, "M",
                         (P, (lmax + 1) * (lmax + 2) * (lmax + 3) // 6), dev)
     props = torch.cuda.get_device_properties(dev)
-    nw = k1_warps(prm, props.shared_memory_per_block_optin)
-    nblocks = props.multi_processor_count
-    partial = torch.empty((nblocks, P, prm.rows), dtype=torch.float32,
-                          device=dev)
+    plan = k1_plan(n, prm, props.multi_processor_count,
+                   props.shared_memory_per_block_optin,
+                   props.shared_memory_per_multiprocessor)
+    Mh = _m_on_host(M, lmax)
+    partial = None
+    if plan.nblocks > 1:
+        partial = torch.empty((plan.nblocks, P, prm.rows),
+                              dtype=torch.float32, device=dev)
     coef = torch.empty((2, lmax + 1, lmax + 1, nmax), dtype=torch.float32,
                        device=dev)
     _launch("sphere_coef",
             [_P, _P, _LL, _P, _P, _P, _I, _I, _P, *_GEOM, _I, _P],
-            (x.data_ptr(), mass.data_ptr(), n, M.data_ptr(), tab.data_ptr(),
-             partial.data_ptr(), nblocks, nw, coef.data_ptr(),
+            (x.data_ptr(), mass.data_ptr(), n, Mh.ctypes.data, tab.data_ptr(),
+             None if partial is None else partial.data_ptr(),
+             plan.nblocks, plan.nw, coef.data_ptr(),
              *_geometry_args(prm), int(prm.interp == "hat")), dev)
     return coef
 

@@ -789,3 +789,153 @@ def test_p1_wrapper_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="threads"):
         lk.stream_coef(lk.phase_table(x, probe.probe_params(nmax=6)), x, m,
                        probe.probe_params(nmax=6))
+
+
+# ---------------------------------------------------------------------------
+# K1 and K4 under their launch plans (ops/sphere_kernels.k1_plan,
+# ops/cyl_kernels.coef_plan): the grid follows the rows
+# ---------------------------------------------------------------------------
+
+def _k1_rows_a_block(prm):
+    props = torch.cuda.get_device_properties(0)
+    return 32 * sk.k1_plan(1, prm, props.multi_processor_count,
+                           props.shared_memory_per_block_optin,
+                           props.shared_memory_per_multiprocessor).nw
+
+
+def _padded(x, m, n, cap):
+    """Rows [0, n) of (x, m), then zero rows (the origin, zero mass) up to
+    cap, as a multistep bucket pads its live rows."""
+    return (torch.cat([x[:n], x.new_zeros((cap - n, 3))]).contiguous(),
+            torch.cat([m[:n], m.new_zeros((cap - n,))]).contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["spline", "hat"])
+def test_k1_bitwise_under_trailing_zero_rows(cuda, interp):
+    """K1's row-to-block assignment depends on the row index alone: the
+    same live rows padded with zero-mass rows to several capacities (one
+    block, several, the SM count) give identical coefficients, for live
+    counts on both sides of a block's rows and of a warp's; and they agree
+    with the plain version at K1's tolerance."""
+    f, prm, x, m = _variant(cuda, 4, interp)
+    tab = f.tabc_s if interp == "spline" else f.tabc32
+    rb = _k1_rows_a_block(prm)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for live in (31, rb - 1, rb, rb + 1, 3 * rb + 33, N):
+        ref = None
+        for cap in (live, live + 1, rb * ((live + rb - 1) // rb) + 7,
+                    2 * live + 64, rb * sms + 5, rb * sms * 3):
+            xb, mb = _padded(x, m, live, max(cap, live))
+            c = sk.sphere_coef(xb, mb, tab, f.Mp, prm)
+            if ref is None:
+                ref = c
+                c0 = sk.sphere_coef_plain(xb, mb, tab, f.Mp, prm)
+                assert float((c - c0).abs().max()) <= \
+                    1e-5 * float(c0.abs().max())
+            assert torch.equal(c, ref), (live, cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["spline", "hat"])
+@pytest.mark.parametrize("n", [200, 20_000, 300_000])
+def test_k1_repeatable_bit_for_bit(cuda, interp, n):
+    """Two K1 calls on the same rows give the same bits (the sums run in a
+    fixed order: no atomics), on one block and on many."""
+    f, prm, _, _ = _variant(cuda, 4, interp)
+    tab = f.tabc_s if interp == "spline" else f.tabc32
+    xs, _, ms = hernquist_sample_np(n, seed=5)
+    x = torch.tensor(xs, dtype=torch.float32, device=cuda)
+    m = torch.tensor(ms, dtype=torch.float32, device=cuda)
+    a = sk.sphere_coef(x, m, tab, f.Mp, prm)
+    assert torch.equal(a, sk.sphere_coef(x, m, tab, f.Mp, prm))
+
+
+@pytest.mark.gpu
+def test_k1_rejects_m_outside_its_support(cuda):
+    """K1 multiplies only the entries of M that k1_support allows; an M
+    with others is refused, not silently cut."""
+    f, prm, x, m = _variant(cuda, 2, "spline")
+    bad = f.Mp.clone()
+    bad[~torch.as_tensor(sk.k1_support(2), device=cuda)] = 1.0
+    with pytest.raises(ValueError, match="outside the support"):
+        sk.sphere_coef(x, m, f.tabc_s, bad, prm)
+
+
+def _k4_check(G, G0):
+    assert float((G - G0).abs().max()) <= 1e-5 * float(G0.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["spline", "linear"])
+def test_k4_matches_plain_on_every_plan_path(cuda, cyl_tables, interp):
+    """K4 against its plain version (max|dG| within 1e-5 of max|G|: the
+    kernel rounds each update to a fixed point and sums exactly, the plain
+    version sums in f32) at sizes that take the one-chunk path (G written
+    directly), the boundary to two chunks, and several chunks up to the SM
+    count (a second pass sums them); one launch a call; a second call gives
+    the same bits (integer sums, chunks in order); zero-mass rows give
+    exactly 0."""
+    from exp_tpu_torch.bench_disk import disk_sample
+    from exp_tpu_torch.forces.cylinder import CylinderForce
+    from exp_tpu_torch.ops import cyl_kernels as ck
+
+    f = CylinderForce.from_tables(cyl_tables, backend="pallas",
+                                  pallas_interp=interp, device=cuda)
+    prm = f._kernel_params()
+    xs, _, ms = disk_sample(400_000, seed=3)
+    x = torch.tensor(xs, dtype=torch.float32, device=cuda)
+    m = torch.tensor(ms, dtype=torch.float32, device=cuda)
+    props = torch.cuda.get_device_properties(0)
+    one = ck.K4_MIN_CHUNK
+    chunks = set()
+    for n in (1, 33, one, 2 * one - 1, 2 * one, 2 * one + 1, 100_000,
+              400_000):
+        plan = ck.coef_plan(n, prm, props.multi_processor_count,
+                            props.shared_memory_per_block_optin)
+        chunks.add(plan.chunks)
+        before = ck.launch_counts["cyl_coef"]
+        G = ck.cyl_coef(x[:n], m[:n], prm)
+        _k4_check(G, ck.cyl_coef_plain(x[:n], m[:n], prm))
+        assert ck.launch_counts["cyl_coef"] == before + 1
+        assert torch.equal(G, ck.cyl_coef(x[:n], m[:n], prm))
+        assert float(ck.cyl_coef(x[:n], torch.zeros_like(m[:n]),
+                                 prm).abs().max()) == 0.0
+    assert 1 in chunks and 2 in chunks and max(chunks) > 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["spline", "linear"])
+@pytest.mark.parametrize("n", [500, 50_000])
+def test_k4_all_rows_on_one_node(cuda, cyl_tables, interp, n):
+    """The atomic worst case: every particle at one position, so every warp
+    adds into the same (jx, jy) nodes at once.  One particle's G is held
+    against the plain version; n particles' G against n times it (f64).
+    The kernel rounds each of a chunk's updates once to its fixed point,
+    a quantum of at most 2^-29 of the chunk's sum |mass| W_c, so the n_c
+    equal updates of an entry are off by at most n_c W_c 2^-30 (and the one
+    particle's by mass 2^-30 an entry, n times); converting a chunk's sum to
+    f32 and summing the chunks in f32 round by 2^-24 of |G| each.  That
+    bound lies below max|G|/n, so one lost update fails it."""
+    from exp_tpu_torch.forces.cylinder import CylinderForce
+    from exp_tpu_torch.ops import cyl_kernels as ck
+
+    f = CylinderForce.from_tables(cyl_tables, backend="pallas",
+                                  pallas_interp=interp, device=cuda)
+    prm = f._kernel_params()
+    x = torch.tensor([[0.011, 0.004, 0.0007]], dtype=torch.float32,
+                     device=cuda).repeat(n, 1).contiguous()
+    m = torch.full((n,), 0.05 / n, dtype=torch.float32, device=cuda)
+    props = torch.cuda.get_device_properties(0)
+    plan = ck.coef_plan(n, prm, props.multi_processor_count,
+                        props.shared_memory_per_block_optin)
+    one = ck.cyl_coef(x[:1], m[:1], prm)
+    _k4_check(one, ck.cyl_coef_plain(x[:1], m[:1], prm))
+    G = ck.cyl_coef(x, m, prm).double()
+    want = n * one.double()
+    gmax, msum = float(want.abs().max()), float(m.double().sum())
+    per = -(-n // plan.chunks)                  # rows of the largest chunk
+    bound = ((per + 1) * msum * 2.0 ** -30
+             + (2 * plan.chunks + 2) * 2.0 ** -24 * gmax)
+    assert bound < gmax / n
+    assert float((G - want).abs().max()) <= bound

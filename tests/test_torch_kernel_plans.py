@@ -1,0 +1,242 @@
+"""The launch plans of K1 (ops/sphere_kernels.k1_plan) and K4
+(ops/cyl_kernels.coef_plan): pure arithmetic on the device's SM count and
+shared memory, checked here on the CPU at the H100's figures (132 SMs,
+232,448 bytes of shared memory a block) and at a smaller device's."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from exp_tpu_torch.ops import cyl_kernels as ck
+from exp_tpu_torch.ops import sphere_kernels as sk
+from exp_tpu_torch.ops.solidharm import monomial_exponents
+
+H100 = (132, 232_448, 233_472)
+SMALL = (46, 101_376, 102_400)
+SIZES = [1, 2, 31, 32, 33, 224, 225, 768, 4095, 4096, 4097, 5_120, 10_240,
+         49_152, 131_072, 196_608, 1_048_576, 4_194_304]
+
+DISK = ck.CylKernelParams(mmax=6, ncx=64, ncy=128, acyl=0.01, hcyl=0.002,
+                          xmin=-0.998, dxc=0.0302, ymin=-5.298, dy=0.0834,
+                          rmax_grid=0.2)
+SPHERE = sk.SphereKernelParams(lmax=4, nmax=10, nc=256, xmin=-0.998,
+                               dxc=0.0075, rmin=1e-3, rmax=20.0, cmap=1,
+                               rmap=1.0, scale=1.0, interp="spline")
+
+
+def _disk(**kw):
+    return dataclasses.replace(DISK, **kw)
+
+
+def _sphere(**kw):
+    return dataclasses.replace(SPHERE, **kw)
+
+
+# --------------------------------------------------------------------- K4
+
+@pytest.mark.parametrize("device", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("interp", ["spline", "linear"])
+def test_k4_chunks_grow_with_n_and_fill_the_sms_once(device, interp):
+    sms, optin, _ = device
+    prm = _disk(interp=interp)
+    plans = [ck.coef_plan(n, prm, sms, optin) for n in SIZES]
+    chunks = [p.chunks for p in plans]
+    assert chunks == sorted(chunks)
+    for n, p in zip(SIZES, plans):
+        assert p.chunks * p.groups <= sms
+        assert p.chunks == max(1, min(n // ck.K4_MIN_CHUNK, sms // p.groups))
+        # at least K4_MIN_CHUNK particles a chunk whenever there are two
+        assert p.chunks == 1 or n / p.chunks >= ck.K4_MIN_CHUNK
+    assert chunks[-1] == sms // plans[-1].groups
+
+
+@pytest.mark.parametrize("n", [1, 224, 768, ck.K4_MIN_CHUNK,
+                               2 * ck.K4_MIN_CHUNK - 1])
+def test_k4_one_chunk_below_the_threshold(n):
+    assert ck.coef_plan(n, DISK, *H100[:2]).chunks == 1
+    assert ck.coef_plan(2 * ck.K4_MIN_CHUNK, DISK, *H100[:2]).chunks == 2
+
+
+@pytest.mark.parametrize("mmax", list(ck.KERNEL_MMAX))
+@pytest.mark.parametrize("interp", ["spline", "linear"])
+@pytest.mark.parametrize("ncx,ncy", [(64, 128), (32, 64), (48, 100),
+                                     (16, 31)])
+def test_k4_layout_fits_and_matches_the_kernel(mmax, interp, ncx, ncy):
+    """The plan's shared memory is what csrc/cyl_coef.cu allocates (the
+    (xrows, tg, ncyp) i32 accumulator, a sum a warp and nw warps' stages of
+    32 records of a base offset and kx * 2 * tg updates), and fits; a
+    particle's updates fit one warp's lanes; the row stride puts those
+    lanes on distinct banks; the groups cover the 2M+1 nonzero trig
+    rows."""
+    prm = _disk(mmax=mmax, interp=interp, ncx=ncx, ncy=ncy)
+    p = ck.coef_plan(1_048_576, prm, *H100[:2])
+    kx = 3 if interp == "spline" else 2
+    R = 2 * mmax + 1
+    rec = ck.k4_record_words(kx, p.tg)
+    assert rec % 2 == 1 and rec >= 1 + 2 * kx * p.tg
+    assert p.smem == 4 * (prm.xrows * p.tg * p.ncyp + p.nw + p.nw * 32 * rec)
+    assert p.smem <= H100[1]
+    assert 4 <= p.nw <= ck.K4_MAX_WARPS
+    assert kx * 2 * p.tg <= 32
+    assert p.ncyp >= ncy and p.ncyp % 32 == 2 and p.ncyp - ncy < 32
+    assert p.groups * p.tg >= R and (p.groups - 1) * p.tg < R
+    # the rows of group g, [g R / groups, (g + 1) R / groups), at most tg
+    bounds = [g * R // p.groups for g in range(p.groups + 1)]
+    assert bounds[0] == 0 and bounds[-1] == R
+    assert max(b - a for a, b in zip(bounds, bounds[1:])) <= p.tg
+    # one particle's updates: lane 2 (a tg + t) + b at row (jx0 + a) tg + t
+    # of stride ncyp, column jy0 + b: 32 distinct banks
+    lanes = [(a, t, b) for a in range(kx) for t in range(p.tg)
+             for b in range(2)]
+    for jx0, jy0 in ((0, 0), (5, 17), (prm.xrows - kx, ncy - 2)):
+        banks = {(((jx0 + a) * p.tg + t) * p.ncyp + jy0 + b) % 32
+                 for a, t, b in lanes}
+        assert len(banks) == len(lanes)
+
+
+def test_k4_refuses_a_table_too_wide_for_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.coef_plan(1000, _disk(ncx=512, ncy=512), *H100[:2])
+
+
+# --------------------------------------------------------------------- K1
+
+@pytest.mark.parametrize("device", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("lmax,interp,nc", [(4, "spline", 256),
+                                            (6, "spline", 256),
+                                            (4, "hat", 512), (0, "hat", 64)])
+def test_k1_row_to_block_assignment_is_independent_of_n(device, lmax, interp,
+                                                        nc):
+    """Tile t (rows 32 t .. 32 t + 31) runs on block (t // nw) mod nblocks
+    (csrc/sphere_coef.cu); the plan's nblocks makes that (t // nw) mod V
+    for every tile of every n, V the blocks a SM the shared memory allows
+    (at most 2) times the SMs, and the grid grows with n up to V."""
+    sms, optin, per_sm_bytes = device
+    prm = _sphere(lmax=lmax, interp=interp, nc=nc)
+    big = sk.k1_plan(1 << 30, prm, sms, optin, per_sm_bytes)
+    V = big.nblocks
+    assert V in (sms, 2 * sms)
+    assert (V == 2 * sms) == (2 * (big.smem + 1024) <= per_sm_bytes)
+    prev = 0
+    for n in SIZES:
+        p = sk.k1_plan(n, prm, sms, optin, per_sm_bytes)
+        assert p.nw == big.nw and p.smem == big.smem
+        tiles = np.arange(-(-n // 32))
+        assert np.array_equal((tiles // p.nw) % p.nblocks,
+                              (tiles // p.nw) % V)
+        assert 1 <= p.nblocks <= V and p.nblocks >= prev
+        assert p.nblocks == min(-(-len(tiles) // p.nw), V)
+        prev = p.nblocks
+
+
+@pytest.mark.parametrize("lmax", list(sk.POLY_LMAX))
+@pytest.mark.parametrize("interp,nc", [("spline", 256), ("spline", 2000),
+                                       ("hat", 512)])
+def test_k1_layout_fits_and_matches_the_kernel(lmax, interp, nc):
+    """The plan's shared memory is what csrc/sphere_coef.cu allocates: each
+    warp's stage (32 float4 weights and 32 rows of P, P rounded up to odd),
+    the block's (P, rows | 1) i32 accumulator and a sum a warp; it fits; nw
+    is the most (at most K1_WARPS) that fit."""
+    prm = _sphere(lmax=lmax, interp=interp, nc=nc)
+    P = (lmax + 1) ** 2
+
+    def smem(nw):
+        return 4 * (nw * 32 * (4 + (P | 1)) + P * (prm.rows | 1) + nw)
+
+    try:
+        p = sk.k1_plan(1_048_576, prm, *H100)
+    except ValueError:
+        assert smem(1) > H100[1]
+        return
+    assert p.smem == sk.k1_smem(prm, p.nw) == smem(p.nw)
+    assert p.smem <= H100[1]
+    assert p.nw == sk.K1_WARPS or smem(p.nw + 1) > H100[1]
+
+
+def test_k1_plan_at_the_benches_shapes():
+    """lmax 4 'spline' on 258 rows: 16 warps on one (25, 259) accumulator,
+    85,356 bytes, two blocks an SM; one block for a 224-row bucket, two an
+    SM at 2^20 rows."""
+    assert sk.k1_plan(224, SPHERE, *H100) == sk.SphereCoefPlan(
+        16, 1, 85_356)
+    assert sk.k1_plan(1_048_576, SPHERE, *H100).nblocks == 264
+
+
+def test_k1_refuses_a_hat_table_too_long_for_shared_memory():
+    prm = _sphere(lmax=6, interp="hat", nc=2000)
+    with pytest.raises(ValueError, match=r"recurrence' \(K3 splits the rows"):
+        sk.k1_plan(1000, prm, *H100)
+
+
+@pytest.mark.parametrize("lmax", list(sk.POLY_LMAX))
+def test_k1_support_holds_every_nonzero_of_m(lmax):
+    """k1_support (the entries K1 multiplies) holds every nonzero entry of
+    poly_matrix, with and without a custom fac; and it is the kernel's
+    rule: degree <= l, exponents of the row's parities."""
+    sup = sk.k1_support(lmax)
+    M = sk.poly_matrix(lmax)
+    assert not np.any(M[~sup])
+    fac = np.arange(1.0, (lmax + 1) ** 2 + 1).reshape(lmax + 1, lmax + 1)
+    assert not np.any(sk.poly_matrix(lmax, fac)[~sup])
+    exps = monomial_exponents(lmax)
+    for p, (cs, l, m) in enumerate(sk.packed_rows(lmax)):
+        for k, (i, j, kz) in enumerate(exps):
+            if sup[p, k]:
+                assert i + j + kz <= l and (i + j + kz - l) % 2 == 0
+                assert j % 2 == cs and (i - m - cs) % 2 == 0
+
+
+def test_k1_support_counts():
+    """94 of the 25 x 35 entries at lmax 4 (the first port multiplied 334),
+    362 of 49 x 84 at lmax 6."""
+    assert int(sk.k1_support(4).sum()) == 94
+    assert int(sk.k1_support(6).sum()) == 362
+
+
+@pytest.mark.parametrize("lmax", list(sk.POLY_LMAX))
+@pytest.mark.parametrize("custom", [False, True], ids=["fac", "custom_fac"])
+def test_k1_row_bounds_hold_every_row_on_the_sphere(lmax, custom):
+    """K1's fixed-point scales rest on bound_p >= |Y_p| = |M[p] . mono(u)|
+    for every unit u: held against 20,000 random directions (f64), for the
+    standard fac, a custom one, and an M whose rows are no harmonic's
+    multiple (each entry scaled on its own), which get sum_k |M[p, k]|;
+    the bounds are never looser than that sum."""
+    from exp_tpu_torch.ops.solidharm import monomial_exponents
+
+    fac = None
+    if custom:
+        rng = np.random.default_rng(lmax)
+        fac = rng.uniform(0.1, 5.0, (lmax + 1, lmax + 1))
+    M = sk.poly_matrix(lmax, fac)
+    u = np.random.default_rng(7).normal(size=(20_000, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    mono = np.stack([u[:, 0] ** i * u[:, 1] ** j * u[:, 2] ** k
+                     for i, j, k in monomial_exponents(lmax)], axis=1)
+    skew = (1.0 + 0.1 * np.arange(M.shape[1]))[None, :].astype(np.float32)
+    for mat in (M, M * skew):
+        bound = sk.k1_row_bounds(mat, lmax)
+        Y = np.abs(mono @ mat.astype(np.float64).T).max(axis=0)
+        assert np.all(Y <= bound)
+        assert np.all(bound <= np.abs(mat).sum(axis=1) * (1 + 1e-6))
+    several = np.count_nonzero(M, axis=1) > 1
+    np.testing.assert_allclose(sk.k1_row_bounds(M * skew, lmax)[several],
+                               np.abs(M * skew).sum(axis=1)[several],
+                               rtol=1e-6)
+
+
+def test_k4_split_probe_patches_the_kernel(tmp_path):
+    """probe_k4_split's variants: each patch matches csrc/cyl_coef.cu once
+    (so the probe times the kernel as it is), every variant's source
+    differs from the others, and a patch that no longer matches raises."""
+    from exp_tpu_torch import probe_k4_split as pk
+
+    roots = pk.make_variants(tmp_path)
+    texts = {name: (root / "exp_tpu_torch" / "csrc" / "cyl_coef.cu")
+             .read_text() for name, root in roots.items()}
+    assert texts["full"] == (pk.PORT / "csrc" / "cyl_coef.cu").read_text()
+    assert len(set(texts.values())) == len(pk.VARIANTS)
+    assert "cyl::cyl_maps" not in texts["no_geometry"]
+    assert "cyl::cyl_maps" in texts["no_adds"]
+    with pytest.raises(ValueError):
+        pk.patched_source(texts["neither"], pk.VARIANTS["neither"])
