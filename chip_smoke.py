@@ -102,13 +102,13 @@ Phases:
      versions on every bucket, with the stated tolerances, and each one's
      device time a big step (profiler) beside its bound, and a launch on
      each level's bucket (CUDA events around launches queued behind a spin
-     kernel);
-  KS. K1 ('spline' and 'hat') and K4 on the sphere and disk benches'
-     samples cut to 224 ...
-     1,048,576 rows with a padding row last, each against its plain
-     version (K1 also bit for bit under more padding), then timed at each
-     size beside its bound, with the fitted fixed cost a launch and cost a
-     row (exp_tpu_torch/bench_kernels.py);
+     kernel), printed for each kernel and level;
+  KS. K1 and K2 ('spline' and 'hat'), K4 and K5 on the sphere and disk
+     benches' samples cut to 224 ... 1,048,576 rows with a padding row
+     last, each against its plain version (K1, K2 and K5 also bit for bit
+     under more padding), then timed at each size beside its bound, with
+     the fitted fixed cost a launch and cost a row
+     (exp_tpu_torch/bench_kernels.py);
   PS1. P1 against its plain version on the probe's sample with edge rows,
      stream1 and stream2, with the stated tolerances;
   PS2. the probe's run: producer + P1, P1 alone, the producer, the
@@ -1249,10 +1249,7 @@ def _variant_fns(sk, wrapper, f, x, m, c0):
     if wrapper == "sphere_coef_rec":
         return (lambda: sk.sphere_coef_rec(x, m, tab, f.fac32, prm),
                 lambda: sk.sphere_coef_rec_plain(x, m, tab, f.fac32, prm))
-    if prm.interp == "spline":
-        twT = sk.contract_coef_table2(c0, f.tabc_s, f.tabd_s, f.prows)
-    else:
-        twT = sk.contract_coef_table(c0, f.tabc32, f.prows)
+    twT = f.accel_table(c0)
     if wrapper == "sphere_accel":
         return (lambda: sk.sphere_accel(x, twT, f.fac32, prm),
                 lambda: sk.sphere_accel_plain(x, twT, f.fac32, prm))
@@ -1425,8 +1422,7 @@ def _comp_kernels(halo, disk, coef):
     from exp_tpu_torch.ops import sphere_kernels as sk
 
     hp, dp = halo._kernel_params(), disk._kernel_params()
-    twT = sk.contract_coef_table2(coef["halo"], halo.tabc_s, halo.tabd_s,
-                                  halo.prows)
+    twT = halo.accel_table(coef["halo"])
     Ct = ck.contract_coef_tables(coef["disk"], disk.tab3, dp.xrows, dp.ncy)
     kx = 3 if dp.interp == "spline" else 2
 
@@ -1597,12 +1593,11 @@ def composite_path(dev, sphere_tables, disk_tables):
                                "rows": int(b.x.shape[0]),
                                "launches_per_bigstep": w, "device_ms": lv_ms,
                                "bound_ms": bound_ms(byts, ops_)[0]})
-                if wrapper in ("sphere_coef", "cyl_coef"):
-                    print(f"CM3 {name} {c} level {l}: {b.x.shape[0]} rows, "
-                          f"{w} launches a big step, {lv_ms:.4f} ms device "
-                          f"time a launch (bound "
-                          f"{bound_ms(byts, ops_)[0]:.5f}), "
-                          f"{w * lv_ms:.4f} ms a big step", flush=True)
+                print(f"CM3 {name} {c} level {l}: {b.x.shape[0]} rows, "
+                      f"{w} launches a big step, {lv_ms:.4f} ms device "
+                      f"time a launch (bound "
+                      f"{bound_ms(byts, ops_)[0]:.5f}), "
+                      f"{w * lv_ms:.4f} ms a big step", flush=True)
         # the profile's categories must file every device kernel of the
         # wrapper under the port's kernels
         stray = [k for k in names[name] if bc._category(k) != "kernels"]
@@ -1635,57 +1630,71 @@ def composite_path(dev, sphere_tables, disk_tables):
 
 
 def sweep_path(dev, sphere_tables, disk_tables, rows):
-    """Phase KS on the card: K1 ('spline' and 'hat') and K4 on the sphere
-    and disk benches' samples cut to bench_kernels.SWEEP_SIZES rows, the
-    last a padding row (zero mass) as in a bucket; at each size each against
-    its plain version and K1 bit for bit against the same rows padded to
-    twice as many; then each timed (device time a launch by CUDA events
-    around KS_REPS launches queued behind a spin kernel, and by CUDA events
-    over launches in a row) beside its bound, and the device times fitted
-    to a fixed cost a launch plus a cost a row.  Adds the sweep to
-    K1's, K1 'hat''s and K4's rows of the kernels line (`rows`)."""
+    """Phase KS on the card: K1 and K2 ('spline' and 'hat'), K4 and K5 on
+    the sphere and disk benches' samples cut to bench_kernels.SWEEP_SIZES
+    rows, the last a padding row (zero mass, at the origin) as in a bucket;
+    at each size each against its plain version, and bit for bit against
+    the same rows padded to twice as many (each kernel's output on a row
+    depends on that row alone: K2, K5; or on the rows in order, with zero
+    rows adding exactly nothing: K1); then each timed (device time a launch
+    by CUDA events around KS_REPS launches queued behind a spin kernel, and
+    by CUDA events over launches in a row) beside its bound, and the device
+    times fitted to a fixed cost a launch plus a cost a row.  Adds the
+    sweep to the kernels line's rows of these kernels (`rows`)."""
     import torch
 
     from exp_tpu_torch import bench_kernels as bk
-    from exp_tpu_torch.ops import cyl_kernels as ck
-    from exp_tpu_torch.ops import sphere_kernels as sk
 
     forces = bk.samples(dev, sphere_tables, disk_tables)
     fns = bk.kernel_fns(forces)
     prms = {key: f._kernel_params() for key, (f, _, _) in forces.items()}
 
-    def plain(key, x, m):
-        if key == "K4":
-            return ck.cyl_coef_plain(x, m, prms[key])
-        f = forces[key][0]
-        return sk.sphere_coef_plain(x, m, f._radial_table(), f.Mp,
-                                    prms[key])
-
     def work(key, x, m):
         p = prms[key]
-        if key != "K4":
+        if key in ("K1", "K1hat"):
             rs = (x.norm(dim=1) + 1e-10) / p.scale
             n_in = int(((rs >= p.rmin) & (rs <= p.rmax) & (m > 0)).sum())
             return k1_work(x.shape[0], n_in, p.lmax, p.nmax, p.rows,
                            p.interp)
+        if key in ("K2", "K2hat"):
+            return k2_work(x.shape[0], p.lmax, p.rows, p.interp)
+        kx = 3 if p.interp == "spline" else 2
+        if key == "K5":
+            return k5_work(x.shape[0], p.mmax, p.xrows, p.ncy, kx)
         n_in = int(((x.norm(dim=1) <= p.rmax_grid) & (m > 0)).sum())
-        return k4_work(x.shape[0], n_in, p.mmax, p.xrows, p.ncy,
-                       3 if p.interp == "spline" else 2)
+        return k4_work(x.shape[0], n_in, p.mmax, p.xrows, p.ncy, kx)
+
+    def agrees(key, out, ref):
+        if key in ("K1", "K1hat", "K4"):
+            rtol = CYL_COEF_RTOL if key == "K4" else COEF_RTOL
+            return float((out - ref).abs().max()) <= \
+                rtol * float(ref.abs().max())
+        (a, p), (a0, p0) = out, ref
+        if key == "K5":     # atol relative to the field's largest value
+            aa = CYL_ACC_ATOL_REL * float(a0.abs().max())
+            pa = CYL_POT_ATOL_REL * float(p0.abs().max())
+            ar, pr = CYL_ACC_RTOL, CYL_POT_RTOL
+        else:
+            aa, pa, ar, pr = ACC_ATOL, POT_ATOL, ACC_RTOL, POT_RTOL
+        return (bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
+                and bool(((a - a0).abs() <= aa + ar * a0.abs()).all())
+                and bool(((p - p0).abs() <= pa + pr * p0.abs()).all()))
+
+    def same(key, out, padded, n):
+        if key in ("K1", "K1hat", "K4"):
+            return key == "K4" or torch.equal(out, padded)
+        return (torch.equal(out[0], padded[0][:n])
+                and torch.equal(out[1], padded[1][:n]))
 
     bad, bounds = [], {}
-    for key in fns:
+    for key, (fn, plain) in fns.items():
         _, x, m = forces[key]
         for n in bk.SWEEP_SIZES:
             xb, mb = bk.bucket(x, m, n)
-            out, ref = fns[key](xb, mb), plain(key, xb, mb)
+            out, ref = fn(xb, mb), plain(xb, mb)
             torch.cuda.synchronize()
-            rtol = CYL_COEF_RTOL if key == "K4" else COEF_RTOL
-            ok = float((out - ref).abs().max()) <= \
-                rtol * float(ref.abs().max())
-            if key != "K4":
-                xp, mp = bk.bucket(x, m, n, cap=2 * n + 64)
-                ok = ok and torch.equal(out, fns[key](xp, mp))
-            if not ok:
+            xp, mp = bk.bucket(x, m, n, cap=2 * n + 64)
+            if not (agrees(key, out, ref) and same(key, out, fn(xp, mp), n)):
                 bad.append(f"{key} n={n}")
             bounds[key, n] = bound_ms(*work(key, xb, mb))
     res = bk.sweep(forces, reps=KS_REPS)
@@ -1700,10 +1709,11 @@ def sweep_path(dev, sphere_tables, disk_tables, rows):
               f"{f['ms_per_row'] * 1e6:.4f} us a 1,000 rows", flush=True)
     if bad:
         raise AssertionError(f"KS: kernels disagree with their plain versions"
-                             f" or K1 changed under padding: {bad}")
+                             f" or change under padding: {bad}")
     for row in rows:
         key = {"sphere_coef": "K1", "sphere_coef[hat]": "K1hat",
-               "cyl_coef": "K4"}.get(row["name"])
+               "sphere_accel": "K2", "sphere_accel[hat]": "K2hat",
+               "cyl_coef": "K4", "cyl_accel": "K5"}.get(row["name"])
         if key:
             row["sweep"] = [{k: r[k] for k in ("n", "device_ms", "event_ms",
                                                "bound_ms")}
@@ -1869,8 +1879,7 @@ def main():
     if not k1_rel <= COEF_RTOL:
         raise AssertionError(f"K1 disagrees with its plain version: {k1_rel}")
 
-    twT = sk.contract_coef_table2(c0, force.tabc_s, force.tabd_s,
-                                  force.prows)
+    twT = force.accel_table(c0)
     a, p = sk.sphere_accel(x, twT, force.fac32, prm)
     a0, p0 = sk.sphere_accel_plain(x, twT, force.fac32, prm)
     torch.cuda.synchronize()

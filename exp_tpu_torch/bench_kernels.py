@@ -1,26 +1,36 @@
-"""K1 (sphere coefficients, 'spline' and 'hat') and K4 (cylinder
-coefficients) over the sizes of the composite's buckets.
+"""K1 (sphere coefficients, 'spline' and 'hat'), K2 (sphere force,
+'spline' and 'hat'), K4 (cylinder coefficients) and K5 (cylinder force)
+over the sizes of the composite's buckets.
 
-    python exp_tpu_torch/bench_kernels.py [--root DIR] [--profiler-check]
+    python exp_tpu_torch/bench_kernels.py [--root DIR] [--kernels K2,K5]
+                                          [--form small|large]
+                                          [--profiler-check | --composite]
 
 The sweep cuts the sphere bench's Hernquist sample (sphereSL lmax 4, nmax
-10, numr 2000, the benches' tables; K1 under pallas_interp 'spline' and
-'hat') and the disk bench's exponential disk (mmax 6, ncx 64 'spline' on
-the bench's 256 x 128 grid) to n = 224, 768, 5,120, 49,152, 196,608 and
+10, numr 2000, the benches' tables; K1 and K2 under pallas_interp 'spline'
+and 'hat') and the disk bench's exponential disk (mmax 6, ncx 64 'spline'
+on the bench's 256 x 128 grid) to n = 224, 768, 5,120, 49,152, 196,608 and
 1,048,576 rows, the last row of each a padding row (the origin, zero
 mass) as in a multistep bucket, and times each kernel at each n: device
 time a call by CUDA events around 20 calls queued behind a spin kernel
 (`queued_ms`) and, by CUDA events, the mean time a launch over launches in
-a row (at small n that is the host's enqueue).  It fits the device times
-to a fixed cost a launch plus a cost a row, and prints one JSON line.
-The kernels' time in the composite's big step is chip_smoke.py's phase
-CM3.
+a row (at small n that is the host's enqueue).  The force kernels read the
+tables of the whole sample's coefficients.  It fits the device times to a
+fixed cost a launch plus a cost a row, and prints one JSON line.
 
 `--root DIR` imports exp_tpu_torch from the checkout at DIR instead of
 this one, so one command can time another commit's kernels on the same
-card (run this file by its path).  `--profiler-check` prints, in place of
-the sweep, queued_ms beside torch.profiler's device time at four sizes,
-and how many profiles of a single call recorded no device op.
+card (run this file by its path).  `--kernels` times only the named
+kernels (of K1, K1hat, K2, K2hat, K4, K5, and K2L10, K2 on lmax 10 tables,
+and K5halo, K5 on the sphere's sample: rows beyond the table sphere, as
+the composite's halo under the disk's force).  `--form small` or `large`
+launches K2 and K5 in their small- or large-bucket form at every n (the
+plans' choice otherwise).  `--profiler-check` prints, in place of the
+sweep, queued_ms beside torch.profiler's device time at four sizes, and
+how many profiles of a single call recorded no device op.  `--composite`
+runs, in place of the sweep, the checkout's `chip_smoke.py` phases
+CM1-CM3 (the composite's big steps, each kernel's device time a big step
+and a launch on each level's bucket).
 """
 
 from __future__ import annotations
@@ -123,52 +133,127 @@ def fit(ns, ms):
     return float(icpt), float(slope)
 
 
-def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1]):
+KERNELS = ("K1", "K1hat", "K2", "K2hat", "K4", "K5")
+# timed only when named: K2 on the lmax 10 tables, K5 on the halo's sample
+# (the composite's halo under the disk's force: rows beyond the table
+# sphere, whose nodes are few)
+EXTRA = ("K2L10", "K5halo")
+# the csrc sources each kernel's timing builds (the force kernels' tables
+# come from the coefficient kernels)
+SOURCES = {"K1": ("sphere_coef",), "K1hat": ("sphere_coef",),
+           "K2": ("sphere_coef", "sphere_accel"),
+           "K2hat": ("sphere_coef", "sphere_accel"),
+           "K2L10": ("sphere_coef_rec", "sphere_accel"),
+           "K4": ("cyl_coef",), "K5": ("cyl_coef", "cyl_accel"),
+           "K5halo": ("cyl_coef", "cyl_accel")}
+SPHERE_KEYS = {"K1", "K1hat", "K2", "K2hat", "K2L10", "K5halo"}
+
+
+def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1],
+            keys=KERNELS, tables10=None):
     """The sphere forces under 'spline' and 'hat' and the disk force
-    (backend='pallas' on `dev`, on the benches' tables) and their benches'
-    samples of n_max rows on the card: {"K1": (force, x, m), "K1hat": ...,
-    "K4": ...}."""
+    (backend='pallas' on `dev`, on the benches' tables; K2L10's on the
+    lmax 10 `tables10`) and their benches' samples of n_max rows on the
+    card, for the kernels `keys`: {"K1": (force, x, m), "K1hat": ...,
+    "K2": the same as "K1", ..., "K5halo": the disk's force on the
+    sphere's sample}."""
     import torch
 
     from exp_tpu_torch.bench_disk import disk_force, disk_sample
     from exp_tpu_torch.bench_sphere import hernquist_sample_np, sphere_force
 
     out = {}
-    xs, _, ms = hernquist_sample_np(n_max, seed=0)
-    xd, _, md = disk_sample(n_max)
-    for key, f, x, m in (
-            ("K1", sphere_force(sphere_tables, dev), xs, ms),
-            ("K1hat", sphere_force(sphere_tables, dev, interp="hat"), xs, ms),
-            ("K4", disk_force(disk_tables, dev), xd, md)):
-        out[key] = (f, torch.tensor(x, dtype=torch.float32, device=dev),
-                    torch.tensor(m, dtype=torch.float32, device=dev))
+    if SPHERE_KEYS & set(keys):
+        xs, _, ms = hernquist_sample_np(n_max, seed=0)
+        xs, ms = (torch.tensor(a, dtype=torch.float32, device=dev)
+                  for a in (xs, ms))
+        for interp, ks in (("spline", ("K1", "K2")), ("hat", ("K1hat", "K2hat"))):
+            if set(ks) & set(keys):
+                f = sphere_force(sphere_tables, dev, interp=interp)
+                out.update({k: (f, xs, ms) for k in ks if k in keys})
+        if "K2L10" in keys:
+            out["K2L10"] = (sphere_force(tables10, dev), xs, ms)
+    if {"K4", "K5", "K5halo"} & set(keys):
+        xd, _, md = disk_sample(n_max)
+        f = disk_force(disk_tables, dev)
+        xd, md = (torch.tensor(a, dtype=torch.float32, device=dev)
+                  for a in (xd, md))
+        out.update({k: (f, xd, md) for k in ("K4", "K5") if k in keys})
+        if "K5halo" in keys:
+            out["K5halo"] = (f, xs, ms)
     return out
 
 
-def kernel_fns(forces):
-    """{key: fn(x, m)}: the wrappers on `forces`'s tables (samples'
-    layout)."""
+def kernel_fns(forces, form="default"):
+    """{key: (fn(x, m), plain(x, m))}: each kernel's wrapper and its plain
+    version on `forces`'s tables (samples' layout); the force kernels read
+    the table of the coefficients of the whole sample.  `form` 'small' or
+    'large' launches K2 and K5 in their small- or large-bucket form at any
+    n ('default': the plan's choice)."""
+    import torch
+
     from exp_tpu_torch.ops import cyl_kernels as ck
     from exp_tpu_torch.ops import sphere_kernels as sk
 
-    def k1(f):
-        hp = f._kernel_params()
-        return lambda x, m: sk.sphere_coef(x, m, f._radial_table(), f.Mp,
-                                          hp)
+    def dev_args(x):
+        props = torch.cuda.get_device_properties(x.device)
+        return props.multi_processor_count, props.shared_memory_per_block_optin
 
-    dp = forces["K4"][0]._kernel_params()
-    return {"K1": k1(forces["K1"][0]), "K1hat": k1(forces["K1hat"][0]),
-            "K4": lambda x, m: ck.cyl_coef(x, m, dp)}
+    def k2(x, p):       # the wrapper's keywords (none: the plan's choice)
+        if form == "default":
+            return {}
+        lanes = sk.k2_lanes(p.lmax) if form == "small" else 1
+        return {"plan": sk.k2_plan(x.shape[0], p, *dev_args(x),
+                                   threads=lanes)}
+
+    def k5(x, p):
+        if form == "default":
+            return {}
+        return {"plan": ck.accel_plan(x.shape[0], p, *dev_args(x),
+                                      broadcast=form == "large")}
+
+    out = {}
+    for key, (f, x, m) in forces.items():
+        p = f._kernel_params()
+        if key in ("K1", "K1hat"):
+            tab = f._radial_table()
+            out[key] = (
+                lambda x, m, f=f, p=p, tab=tab: sk.sphere_coef(x, m, tab, f.Mp, p),
+                lambda x, m, f=f, p=p, tab=tab: sk.sphere_coef_plain(
+                    x, m, tab, f.Mp, p))
+        elif key in ("K2", "K2hat", "K2L10"):
+            # the contraction as SphereSL.acceleration makes it, spelled out
+            # so that --root can time a checkout that predates accel_table
+            c = f.coefficients(x, m)
+            twT = (sk.contract_coef_table2(c, f.tabc_s, f.tabd_s, f.prows)
+                   if p.interp == "spline"
+                   else sk.contract_coef_table(c, f.tabc32, f.prows))
+            out[key] = (
+                lambda x, m, f=f, p=p, t=twT: sk.sphere_accel(
+                    x, t, f.fac32, p, **k2(x, p)),
+                lambda x, m, f=f, p=p, t=twT: sk.sphere_accel_plain(
+                    x, t, f.fac32, p))
+        elif key == "K4":
+            out[key] = (lambda x, m, p=p: ck.cyl_coef(x, m, p),
+                        lambda x, m, p=p: ck.cyl_coef_plain(x, m, p))
+        else:
+            Ct = ck.contract_coef_tables(f.coefficients(x, m), f.tab3,
+                                         p.xrows, p.ncy)
+            out[key] = (lambda x, m, p=p, C=Ct: ck.cyl_accel(x, C, p,
+                                                             **k5(x, p)),
+                        lambda x, m, p=p, C=Ct: ck.cyl_accel_plain(x, C, p))
+    return out
 
 
-def sweep(forces, sizes=SWEEP_SIZES, reps=20):
+def sweep(forces, sizes=SWEEP_SIZES, reps=20, form="default"):
     """Each kernel at each size: {"rows": [{kernel, n, device_ms,
     event_ms, event_reps}], "fit": {kernel: {fixed_ms, ms_per_row}}}.
     device_ms by queued_ms over `reps` calls; event_ms over `reps` launches
-    in a row (5 x reps below 2^16 rows, where a launch is short)."""
-    fns = kernel_fns(forces)
+    in a row (5 x reps below 2^16 rows, where a launch is short); `form`
+    as kernel_fns takes it."""
+    fns = kernel_fns(forces, form)
     rows, fits = [], {}
-    for key, fn in fns.items():
+    for key, (fn, _) in fns.items():
         _, x, m = forces[key]
         ts = []
         for n in sizes:
@@ -193,7 +278,7 @@ def profiler_check(forces, sizes=(224, 5_120, 196_608, 1_048_576),
     from exp_tpu_torch.bench_composite import profile_call
 
     out = []
-    for key, fn in kernel_fns(forces).items():
+    for key, (fn, _) in kernel_fns(forces).items():
         _, x, m = forces[key]
         for n in sizes:
             xb, mb = bucket(x, m, n)
@@ -208,11 +293,39 @@ def profiler_check(forces, sizes=(224, 5_120, 196_608, 1_048_576),
     return out
 
 
+def composite(root, dev):
+    """chip_smoke.py's composite phases CM1-CM3 of the checkout at `root`
+    (its DiskHalo ICs, 10 big steps, each kernel against its plain version
+    on every bucket and its device time a big step): {kernel row name:
+    {launches, ms, bound_ms}}, the composite's kernel rows.  CM3 prints
+    the big step and each kernel's lines as it goes."""
+    import importlib.util
+
+    from exp_tpu_torch.bench_disk import disk_tables
+    from exp_tpu_torch.bench_sphere import sphere_tables
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_at_root", Path(root) / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    rows = cs.composite_path(dev, sphere_tables(lmax=4, nmax=10),
+                             disk_tables())
+    return {r["name"]: {k: r[k] for k in ("launches", "ms", "bound_ms")}
+            for r in rows}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None)
+    ap.add_argument("--kernels", default=",".join(KERNELS))
+    ap.add_argument("--form", default="default",
+                    choices=("default", "small", "large"))
     ap.add_argument("--profiler-check", action="store_true")
+    ap.add_argument("--composite", action="store_true")
     a = ap.parse_args(argv)
+    keys = tuple(a.kernels.split(","))
+    if not set(keys) <= set(KERNELS + EXTRA):
+        ap.error(f"--kernels: choose from {','.join(KERNELS + EXTRA)}")
     root = Path(a.root or Path(__file__).resolve().parent.parent).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -223,16 +336,25 @@ def main(argv=None):
         return 1
     from exp_tpu_torch.bench_disk import disk_tables
     from exp_tpu_torch.bench_sphere import sphere_tables
+    from exp_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    tables = sphere_tables(lmax=4, nmax=10), disk_tables()
-    forces = samples(dev, *tables)
     out = {"root": str(root), "device": torch.cuda.get_device_name(dev)}
-    if a.profiler_check:
-        out["profiler_check"] = profiler_check(forces)
+    if a.composite:
+        _build.build_all()
+        out["composite"] = composite(root, dev)
     else:
-        out["sweep"] = sweep(forces)
+        _build.build_all(sorted({s for k in keys for s in SOURCES[k]}))
+        sph = sphere_tables(lmax=4, nmax=10) if SPHERE_KEYS & set(keys) \
+            else None
+        t10 = sphere_tables(lmax=10, nmax=10) if "K2L10" in keys else None
+        disk = disk_tables() if {"K4", "K5", "K5halo"} & set(keys) else None
+        forces = samples(dev, sph, disk, keys=keys, tables10=t10)
+        if a.profiler_check:
+            out["profiler_check"] = profiler_check(forces)
+        else:
+            out["sweep"] = sweep(forces, form=a.form)
     out["sec"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
     return 0

@@ -363,11 +363,7 @@ class SphereSL(nn.Module):
         n = x.shape[0]
         ch = self.chunk
         if self.backend == "pallas":
-            if self._interp_eff == "spline":
-                twT = sk.contract_coef_table2(coef, self.tabc_s, self.tabd_s,
-                                              self.prows)
-            else:
-                twT = sk.contract_coef_table(coef, self.tabc32, self.prows)
+            twT = self.accel_table(coef)
             x32 = x.to(torch.float32).contiguous()
             prm = self._kernel_params()
             if self._harmonics_eff("accel") == "poly":
@@ -381,6 +377,15 @@ class SphereSL(nn.Module):
             return (torch.cat([a for a, _ in parts]),
                     torch.cat([p for _, p in parts]))
         return self._accel_chunk(coef, x, deriv)
+
+    def accel_table(self, coef):
+        """The pallas force kernels' table twT of coefficients (2, L+1,
+        L+1, nmax): the pot and d(pot)/dxi spline tables contracted
+        ('spline') or the pot table ('hat')."""
+        if self._interp_eff == "spline":
+            return sk.contract_coef_table2(coef, self.tabc_s, self.tabd_s,
+                                           self.prows)
+        return sk.contract_coef_table(coef, self.tabc32, self.prows)
 
     def _accel_chunk(self, coef, x, deriv="stencil3"):
         lmax = self.lmax

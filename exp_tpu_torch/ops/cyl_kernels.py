@@ -18,8 +18,10 @@ dense weight matrices.
 Layouts: G keeps the JAX layout (xrows, 2(M+1), ncy), without the TPU's
 padding of the trig rows to 16; the coefficients are (2, M+1, nmax).  The
 force kernel's contracted table is the port's own, Ct (xrows, ncy, SP):
-one contiguous row of SP = 6(M+1) rounded up to 4 floats per node, so K5
-reads a node as SP/4 16-byte loads (the TPU's was (ncx * Sp, ncyp)).
+one contiguous row of SP = 6(M+1) rounded up to 4 floats per node, in
+float4 columns of one or two m each (table_columns), so a group of K5's
+lanes reads a node as SP/4 consecutive 16-byte loads (the TPU's was
+(ncx * Sp, ncyp)).
 
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  `launch_counts` counts kernel
@@ -87,11 +89,24 @@ def table_row_width(mmax):
     return (6 * (mmax + 1) + 3) // 4 * 4
 
 
+def table_columns(mmax) -> np.ndarray:
+    """(6(M+1),) int64: the column of a contracted-table node row that
+    holds value q (M+1) + m of the JAX order (q over pot.c, pot.s,
+    dUdR.c, dUdR.s, dUdz.c, dUdz.s).  Float4 column m <= M holds (pot.c,
+    pot.s, dUdR.c, dUdR.s) of m, float4 column M+1+j (dUdz.c, dUdz.s) of
+    m = 2j and 2j+1: each column's values share one or two trig pairs,
+    which K5's lanes multiply.  The other columns are zero."""
+    M1 = mmax + 1
+    q = np.arange(6)[:, None]
+    m = np.arange(M1)[None, :]
+    return np.where(q < 4, 4 * m + q, 4 * M1 + 2 * m + (q - 4)).reshape(-1)
+
+
 def contract_coef_tables(coef, tab3, xrows, ncy):
     """coef (2, M+1, nmax) x the stacked coarse tables (coarse_table_stack)
     -> Ct (xrows, ncy, SP) f32 for the force kernel, node (jx, jy) holding
-    v[q * (M+1) + m] for q in [pot.bc, pot.bs, dUdR.bc, dUdR.bs, dUdz.bc,
-    dUdz.bs] (the order of the JAX table's rows) and zeros after 6(M+1).
+    the values of pot, dUdR and dUdz x cos, sin at the columns of
+    table_columns and zeros elsewhere.
 
     One FP32 matmul of the (3 * nodes, (M+1) nmax) tables with the
     block-diagonal (M+1) nmax x 2(M+1) coefficient matrix, the JAX xla
@@ -106,7 +121,10 @@ def contract_coef_tables(coef, tab3, xrows, ncy):
     C = tab3.reshape(3 * G, M1 * nn) @ B.reshape(M1 * nn, 2 * M1)
     C = C.reshape(3, G, 2 * M1).permute(1, 0, 2).reshape(G, 6 * M1)
     SP = table_row_width(M1 - 1)
-    return torch.nn.functional.pad(C, (0, SP - 6 * M1)).reshape(xrows, ncy, SP)
+    src = np.full(SP, 6 * M1)                 # the zero column past C's
+    src[table_columns(M1 - 1)] = np.arange(6 * M1)
+    C = torch.nn.functional.pad(C, (0, 1))
+    return C[:, torch.as_tensor(src, device=C.device)].reshape(xrows, ncy, SP)
 
 
 def contract_coef_output(G, tab3):
@@ -250,7 +268,8 @@ def cyl_accel_plain(x, Ct, prm: CylKernelParams, chunk: int = 65536):
 def _accel_chunk_plain(xs, Ct, prm):
     M1 = prm.mmax + 1
     ncy = prm.ncy
-    flat = Ct.reshape(prm.xrows * ncy, -1)[:, :6 * M1]
+    cols = torch.as_tensor(table_columns(prm.mmax), device=Ct.device)
+    flat = Ct.reshape(prm.xrows * ncy, -1)[:, cols]          # JAX order
     x, y, z = xs[:, 0], xs[:, 1], xs[:, 2]
     R, r, cphi, sphi = _cyl_maps(x, y, z)
     outside = r > prm.rmax_grid
@@ -407,11 +426,49 @@ def cyl_coef(x, mass, prm: CylKernelParams):
     return G
 
 
-def cyl_accel(x, Ct, prm: CylKernelParams):
+#: K5's lanes (threads) a particle and threads a block (csrc/cyl_accel.cu
+#: kLanes, kThreads), and the lanes a SM up to which each lane sets its
+#: particle up itself; past it, one thread a particle sets it up and
+#: broadcasts it to the particle's lanes
+K5_LANES = 4
+K5_THREADS = 256
+K5_LANES_PER_SM = 2048
+
+
+@dataclass(frozen=True)
+class CylAccelPlan:
+    """K5's launch: `lanes` threads a particle's column work, `broadcast`
+    (one thread a particle's set-up, shared with its lanes by shuffles)
+    or not (each lane sets the particle up), `blocks` blocks of K5_THREADS
+    threads and `smem` bytes of shared memory a block (0: the table is
+    read through L1, all of which stays free to cache it)."""
+
+    lanes: int
+    broadcast: bool
+    blocks: int
+    smem: int
+
+
+def accel_plan(n, prm: CylKernelParams, sm_count, smem_optin,
+               broadcast=None) -> CylAccelPlan:
+    """K5's launch plan for n particles on a device of `sm_count` SMs:
+    K5_LANES threads a particle's column work at every size; the set-up
+    broadcast once the n particles' lanes pass K5_LANES_PER_SM a SM
+    (`broadcast` sets it instead); the blocks that cover the rows, no
+    more.  Both forms give the same bits.  K5 takes no shared memory
+    (`prm` and `smem_optin` change nothing)."""
+    if broadcast is None:
+        broadcast = n * K5_LANES > K5_LANES_PER_SM * sm_count
+    per_block = K5_THREADS if broadcast else K5_THREADS // K5_LANES
+    return CylAccelPlan(K5_LANES, bool(broadcast), -(-n // per_block), 0)
+
+
+def cyl_accel(x, Ct, prm: CylKernelParams, plan=None):
     """K5: cylinder force (acc (N, 3), pot (N,)) f32.
 
     x (N, 3), Ct (xrows, ncy, SP) from contract_coef_tables; f32.  CPU
-    tensors take cyl_accel_plain; CUDA tensors launch csrc/cyl_accel.cu."""
+    tensors take cyl_accel_plain; CUDA tensors launch csrc/cyl_accel.cu
+    with `plan`, by default accel_plan's."""
     _check_prm(prm)
     if x.device.type == "cpu":
         return cyl_accel_plain(x, Ct, prm)
@@ -424,13 +481,19 @@ def cyl_accel(x, Ct, prm: CylKernelParams):
     if Ct.data_ptr() % 16:
         raise ValueError("Ct must be 16-byte aligned")
     fn, err = _build.bind("cyl_accel", [_P, _LL, _P, _P, _P, _I, _I, _I, _I,
-                                        _F, _F, _F, _F, _F, _F, _F, _P])
+                                        _I, _I, _F, _F, _F, _F, _F, _F, _F,
+                                        _P])
+    if plan is None:
+        props = torch.cuda.get_device_properties(dev)
+        plan = accel_plan(n, prm, props.multi_processor_count,
+                          props.shared_memory_per_block_optin)
     acc = torch.empty((n, 3), dtype=torch.float32, device=dev)
     pot = torch.empty((n,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(x.data_ptr(), n, Ct.data_ptr(), acc.data_ptr(),
-                  pot.data_ptr(), *_geometry_args(prm), stream)
+                  pot.data_ptr(), int(plan.broadcast), plan.blocks,
+                  *_geometry_args(prm), stream)
     _build.raise_on(code, err, "cyl_accel")
     launch_counts["cyl_accel"] += 1
     return acc, pot

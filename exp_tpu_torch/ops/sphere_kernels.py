@@ -783,6 +783,64 @@ def _accel_launch(name, x, twT, mat, prm):
     return acc, pot
 
 
+#: K2's threads a block, and the threads a SM up to which a bucket runs a
+#: particle on a group of lanes (csrc/sphere_accel.cu); past it, a thread
+#: a particle
+K2_THREADS = 256
+K2_THREADS_PER_SM = 768
+
+
+def k2_lanes(lmax):
+    """K2's lanes a particle: the power of 2 >= 1 + ceil(lmax / 2), lane 0
+    holding column m = 0 of the (l, m) triangle and lane k >= 1 the
+    columns k and lmax + 1 - k (lmax + 1 entries each)."""
+    lanes = 1
+    while lanes < 1 + (lmax + 1) // 2:
+        lanes *= 2
+    return lanes
+
+
+def k2_columns(lmax):
+    """The columns m of each of K2's lanes (k2_lanes), in the order the
+    lane sums them: [[0], [1, lmax], [2, lmax - 1], ..., [], ...]."""
+    h = (lmax + 1) // 2
+    out = [[0]] + [sorted({k, lmax + 1 - k}) for k in range(1, h + 1)]
+    return out + [[] for _ in range(k2_lanes(lmax) - len(out))]
+
+
+@dataclass(frozen=True)
+class SphereAccelPlan:
+    """K2's launch: `threads` threads a particle (1, or its k2_lanes lanes
+    each on a thread), `blocks` blocks of K2_THREADS threads and `smem`
+    bytes of shared memory a block (fac and the reciprocals 1/d; the table
+    is read through L1)."""
+
+    threads: int
+    blocks: int
+    smem: int
+
+
+def k2_plan(n, prm: SphereKernelParams, sm_count, smem_optin,
+            threads=None) -> SphereAccelPlan:
+    """K2's launch plan for n rows on a device of `sm_count` SMs and
+    `smem_optin` bytes of shared memory a block: a particle on its
+    k2_lanes lanes while the n particles' lanes fit K2_THREADS_PER_SM
+    threads a SM, else a thread a particle (`threads` sets it instead: 1
+    or the lanes).  Both give the same bits.  The blocks cover the rows."""
+    lanes = k2_lanes(prm.lmax)
+    if threads is None:
+        threads = lanes if n * lanes <= K2_THREADS_PER_SM * sm_count else 1
+    if threads not in (1, lanes):
+        raise ValueError(f"sphere_accel: 1 or {lanes} threads a particle at "
+                         f"lmax {prm.lmax}, not {threads}")
+    L1 = prm.lmax + 1
+    smem = 4 * (L1 * L1 + L1)
+    if smem > smem_optin:
+        raise ValueError(f"sphere_accel: {smem} bytes of shared memory "
+                         f"exceed a block's {smem_optin}")
+    return SphereAccelPlan(threads, -(-n * threads // K2_THREADS), smem)
+
+
 def _accel_inputs(x, twT, prm, name):
     check_params(prm, name)
     n, dev = x.shape[0], x.device
@@ -791,20 +849,33 @@ def _accel_inputs(x, twT, prm, name):
     return dev
 
 
-def sphere_accel(x, twT, fac, prm: SphereKernelParams):
+def sphere_accel(x, twT, fac, prm: SphereKernelParams, plan=None):
     """K2: sphere force (acc (N, 3), pot (N,)) f32 from the recurrences.
 
     x (N, 3), twT ((2P, nc + 2) from contract_coef_table2 for 'spline',
     (P, nc) from contract_coef_table for 'hat'), fac (L+1, L+1); all f32.
     CPU tensors take sphere_accel_plain; CUDA tensors launch
-    csrc/sphere_accel.cu."""
+    csrc/sphere_accel.cu with `plan`, by default k2_plan's."""
     if x.device.type == "cpu":
         return sphere_accel_plain(x, twT, fac, prm)
     if x.device.type != "cuda":
         raise ValueError(f"sphere_accel: unsupported device {x.device}")
     dev = _accel_inputs(x, twT, prm, "sphere_accel")
     _build.check_tensor(fac, "fac", (prm.lmax + 1, prm.lmax + 1), dev)
-    return _accel_launch("sphere_accel", x, twT, fac, prm)
+    n = x.shape[0]
+    if plan is None:
+        props = torch.cuda.get_device_properties(dev)
+        plan = k2_plan(n, prm, props.multi_processor_count,
+                       props.shared_memory_per_block_optin)
+    acc = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    pot = torch.empty((n,), dtype=torch.float32, device=dev)
+    _launch("sphere_accel",
+            [_P, _LL, _P, _P, _P, _P, _I, _I, _I, *_GEOM, _F, _I, _P],
+            (x.data_ptr(), n, twT.data_ptr(), fac.data_ptr(), acc.data_ptr(),
+             pot.data_ptr(), plan.threads, plan.blocks, plan.smem,
+             *_geometry_args(prm), prm.rmax * prm.scale,
+             int(prm.interp == "hat")), dev)
+    return acc, pot
 
 
 def sphere_accel_poly(x, twT, Ms, prm: SphereKernelParams):

@@ -104,7 +104,7 @@ def main():
     out = {"device": torch.cuda.get_device_name(0), "runs": []}
     for name in ("full", "no_adds", "no_geometry", "neither", "full"):
         res = subprocess.run([sys.executable, str(PORT / "bench_kernels.py"),
-                              "--root", str(roots[name])],
+                              "--root", str(roots[name]), "--kernels", "K4"],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"probe_k4_split {name}: bench_kernels.py "

@@ -487,9 +487,7 @@ def _variant(cuda, lmax, interp, harmonics="auto"):
 
 
 def _twt(f, c):
-    if f._interp_eff == "spline":
-        return sk.contract_coef_table2(c, f.tabc_s, f.tabd_s, f.prows)
-    return sk.contract_coef_table(c, f.tabc32, f.prows)
+    return f.accel_table(c)
 
 
 def _check_coef(fn, plain, x, m, key):
@@ -939,3 +937,149 @@ def test_k4_all_rows_on_one_node(cuda, cyl_tables, interp, n):
              + (2 * plan.chunks + 2) * 2.0 ** -24 * gmax)
     assert bound < gmax / n
     assert float((G - want).abs().max()) <= bound
+
+
+# ---------------------------------------------------------------------------
+# K2 and K5 under their launch plans (ops/sphere_kernels.k2_plan,
+# ops/cyl_kernels.accel_plan): a particle across a group of lanes on a
+# small bucket, on one thread on a large one
+# ---------------------------------------------------------------------------
+
+def _props():
+    props = torch.cuda.get_device_properties(0)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def _check_cyl_accel(a, p, a0, p0):
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
+    torch.testing.assert_close(a, a0, rtol=1e-4,
+                               atol=1e-6 * float(a0.abs().max()))
+    torch.testing.assert_close(p, p0, rtol=1e-5,
+                               atol=1e-7 * float(p0.abs().max()))
+
+
+def _same_rows(out, padded, n):
+    return (torch.equal(out[0], padded[0][:n])
+            and torch.equal(out[1], padded[1][:n]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["spline", "hat"])
+def test_k2_sweep_sizes_padding_and_repeat(cuda, interp):
+    """K2 on the sweep's buckets (224 ... 1,048,576 rows of a Hernquist
+    sample, the last a padding row at the origin): against its plain
+    version at K2's gates, bit for bit the same on the same rows padded to
+    2n + 64 (a particle's output depends on its row alone, whatever the
+    plan the rows give), and on a second call."""
+    from exp_tpu_torch.bench_kernels import SWEEP_SIZES, bucket
+
+    f, prm, _, _ = _variant(cuda, 4, interp)
+    xs, _, ms = hernquist_sample_np(SWEEP_SIZES[-1], seed=6)
+    x = torch.tensor(xs, dtype=torch.float32, device=cuda)
+    m = torch.tensor(ms, dtype=torch.float32, device=cuda)
+    twT = _twt(f, sk.sphere_coef(x, m, f._radial_table(), f.Mp, prm))
+    for n in SWEEP_SIZES:
+        xb, mb = bucket(x, m, n)
+        out = sk.sphere_accel(xb, twT, f.fac32, prm)
+        _check_accel(*out, *sk.sphere_accel_plain(xb, twT, f.fac32, prm))
+        xp, _ = bucket(x, m, n, cap=2 * n + 64)
+        assert _same_rows(out, sk.sphere_accel(xp, twT, f.fac32, prm), n), n
+        assert _same_rows(out, sk.sphere_accel(xb, twT, f.fac32, prm), n), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["spline", "hat"])
+@pytest.mark.parametrize("lmax", [0, 4, 6, 8, 10])
+def test_k2_every_plan_gives_the_same_bits(cuda, lmax, interp):
+    """K2 at lmax 0 ... 10 with a particle on its lanes and on one thread,
+    on the sample with edge rows and rows on hat nodes: each at K2's gates
+    against the plain version, one launch a call, both bit for bit the
+    same (the columns' sums add in the order of m either way)."""
+    f, prm, x, m = _variant(cuda, lmax, interp, "recurrence")
+    c0 = sk.sphere_coef_rec_plain(x, m, f._radial_table(), f.fac32, prm)
+    twT = _twt(f, c0)
+    a0, p0 = sk.sphere_accel_plain(x, twT, f.fac32, prm)
+    outs = []
+    for threads in sorted({1, sk.k2_lanes(lmax)}):
+        plan = sk.k2_plan(x.shape[0], prm, *_props(), threads=threads)
+        before = sk.launch_counts["sphere_accel"]
+        out = sk.sphere_accel(x, twT, f.fac32, prm, plan=plan)
+        assert sk.launch_counts["sphere_accel"] == before + 1
+        _check_accel(*out, a0, p0)
+        outs.append(out)
+    for out in outs[1:]:
+        assert _same_rows(out, outs[0], x.shape[0])
+
+
+_CYL_TABLES = {}
+
+
+def _cyl_tables_mmax(mmax):
+    from exp_tpu_torch.basis.empcyl import build_empcyl_tables
+
+    if mmax not in _CYL_TABLES:
+        _CYL_TABLES[mmax] = build_empcyl_tables(
+            mmax=mmax, nmax=8, lmaxfid=16, nmaxfid=12, acyl=0.01, hcyl=0.002,
+            numx=128, numy=64, rnum=100, tnum=40)
+    return _CYL_TABLES[mmax]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["spline", "linear"])
+def test_k5_sweep_sizes_padding_and_repeat(cuda, cyl_tables, interp):
+    """K5 on the sweep's buckets of a disk sample (the last row a padding
+    row at the origin): against its plain version at K5's gates, bit for
+    bit the same on the same rows padded to 2n + 64 and on a second
+    call."""
+    from exp_tpu_torch.bench_disk import disk_sample
+    from exp_tpu_torch.bench_kernels import SWEEP_SIZES, bucket
+    from exp_tpu_torch.forces.cylinder import CylinderForce
+    from exp_tpu_torch.ops import cyl_kernels as ck
+
+    f = CylinderForce.from_tables(cyl_tables, backend="pallas",
+                                  pallas_interp=interp, device=cuda)
+    prm = f._kernel_params()
+    xs, _, ms = disk_sample(SWEEP_SIZES[-1], seed=6)
+    x = torch.tensor(xs, dtype=torch.float32, device=cuda)
+    m = torch.tensor(ms, dtype=torch.float32, device=cuda)
+    Ct = ck.contract_coef_tables(f.coefficients(x, m), f.tab3, prm.xrows,
+                                 prm.ncy)
+    for n in SWEEP_SIZES:
+        xb, _ = bucket(x, m, n)
+        out = ck.cyl_accel(xb, Ct, prm)
+        _check_cyl_accel(*out, *ck.cyl_accel_plain(xb, Ct, prm))
+        xp, _ = bucket(x, m, n, cap=2 * n + 64)
+        assert _same_rows(out, ck.cyl_accel(xp, Ct, prm), n), n
+        assert _same_rows(out, ck.cyl_accel(xb, Ct, prm), n), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp", ["spline", "linear"])
+@pytest.mark.parametrize("mmax", [0, 6, 7])
+def test_k5_mmax_and_plans_match_plain_version(cuda, mmax, interp):
+    """K5 at mmax 0, 6 and 7 on the disk sample with edge rows, with each
+    lane setting its particle up and with the set-up broadcast: each at
+    K5's gates against the plain version, one launch a call, both bit for
+    bit the same, and a second call too."""
+    from exp_tpu_torch.forces.cylinder import CylinderForce
+    from exp_tpu_torch.ops import cyl_kernels as ck
+
+    f = CylinderForce.from_tables(_cyl_tables_mmax(mmax), backend="pallas",
+                                  pallas_interp=interp, device=cuda)
+    prm = f._kernel_params()
+    x, m = _cyl_inputs(cuda)
+    Ct = ck.contract_coef_tables(f.coefficients(x, m), f.tab3, prm.xrows,
+                                 prm.ncy)
+    a0, p0 = ck.cyl_accel_plain(x, Ct, prm)
+    outs = []
+    for broadcast in (False, True):
+        plan = ck.accel_plan(x.shape[0], prm, *_props(), broadcast=broadcast)
+        before = ck.launch_counts["cyl_accel"]
+        out = ck.cyl_accel(x, Ct, prm, plan=plan)
+        assert ck.launch_counts["cyl_accel"] == before + 1
+        _check_cyl_accel(*out, a0, p0)
+        assert _same_rows(out, ck.cyl_accel(x, Ct, prm, plan=plan),
+                          x.shape[0])
+        outs.append(out)
+    assert _same_rows(outs[0], outs[1], x.shape[0])

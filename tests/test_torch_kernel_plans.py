@@ -240,3 +240,142 @@ def test_k4_split_probe_patches_the_kernel(tmp_path):
     assert "cyl::cyl_maps" in texts["no_adds"]
     with pytest.raises(ValueError):
         pk.patched_source(texts["neither"], pk.VARIANTS["neither"])
+
+
+# ------------------------------------------------------------- K2 and K5
+
+# the composite's bucket sizes (halo L0-L4, disk L0-L4) and the sweep's
+BUCKETS = [224, 640, 768, 1_792, 5_120, 10_240, 49_152, 131_072, 196_608,
+           786_432, 1_048_576]
+
+
+@pytest.mark.parametrize("device", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("interp,nc", [("spline", 256), ("hat", 512)])
+@pytest.mark.parametrize("lmax", list(sk.REC_LMAX))
+def test_k2_plan_covers_the_triangle_and_the_rows(lmax, interp, nc, device):
+    """k2_plan at every lmax K2 takes: the lanes (the power of 2 >= 1 +
+    ceil(lmax/2)) and their columns depend on lmax alone and deal every
+    column m to exactly one lane, no lane holding more than column 0's
+    lmax + 1 entries; a particle runs on its lanes while the rows' lanes
+    fit K2_THREADS_PER_SM threads a SM, on one thread above; the blocks
+    cover the n rows with none to spare; the shared memory (fac and the
+    reciprocals) fits, the table going through L1."""
+    sms, optin, _ = device
+    prm = _sphere(lmax=lmax, interp=interp, nc=nc)
+    lanes = sk.k2_lanes(lmax)
+    assert lanes in (1, 2, 4, 8) and lanes // 2 < 1 + (lmax + 1) // 2 <= lanes
+    cols = sk.k2_columns(lmax)
+    assert len(cols) == lanes
+    assert sorted(m for c in cols for m in c) == list(range(lmax + 1))
+    assert max(sum(lmax + 1 - m for m in c) for c in cols) == lmax + 1
+    plans = [sk.k2_plan(n, prm, sms, optin) for n in BUCKETS]
+    for n, p in zip(BUCKETS, plans):
+        small = n * lanes <= sk.K2_THREADS_PER_SM * sms
+        assert p.threads == (lanes if small else 1)
+        cover = sk.K2_THREADS // p.threads
+        assert p.blocks * cover >= n > (p.blocks - 1) * cover
+        assert p.smem == 4 * ((lmax + 1) ** 2 + lmax + 1) <= optin
+    assert plans[0].threads == lanes and plans[-1].threads == 1
+
+
+def test_k2_plan_at_the_benches_shapes():
+    """lmax 4: 4 lanes (columns 0 | 1, 4 | 2, 3 | none), a particle on them
+    up to 25,344 rows (28 blocks at 1,792), a thread a particle above;
+    lmax 10: 8 lanes (6 of them holding columns); only 1 or the lanes
+    threads a particle."""
+    p = sk.k2_plan(1_792, SPHERE, *H100[:2])
+    assert (p.threads, p.blocks) == (4, 28)
+    assert sk.k2_columns(4) == [[0], [1, 4], [2, 3], []]
+    assert sk.k2_plan(25_344, SPHERE, *H100[:2]).threads == 4
+    assert sk.k2_plan(25_345, SPHERE, *H100[:2]).threads == 1
+    assert sk.k2_plan(1_048_576, SPHERE, *H100[:2]).threads == 1
+    assert sk.k2_lanes(10) == 8
+    assert sk.k2_columns(10)[5:] == [[5, 6], [], []]
+    assert sk.k2_plan(224, _sphere(lmax=10), *H100[:2]).threads == 8
+    assert sk.k2_plan(224, _sphere(lmax=0), *H100[:2]).threads == 1
+    with pytest.raises(ValueError, match="threads a particle"):
+        sk.k2_plan(224, SPHERE, *H100[:2], threads=2)
+    with pytest.raises(ValueError, match="threads a particle"):
+        sk.k2_plan(224, _sphere(lmax=10), *H100[:2], threads=4)
+
+
+@pytest.mark.parametrize("device", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("interp", ["spline", "linear"])
+@pytest.mark.parametrize("mmax", list(ck.KERNEL_MMAX))
+def test_k5_plan_covers_the_rows(mmax, interp, device):
+    """accel_plan at every mmax K5 takes and the composite's bucket sizes:
+    K5_LANES threads a particle's column work, the set-up broadcast once
+    the rows' lanes pass K5_LANES_PER_SM a SM, blocks that cover the rows
+    with none to spare, no shared memory."""
+    sms, optin, _ = device
+    prm = _disk(mmax=mmax, interp=interp)
+    for n in BUCKETS:
+        p = ck.accel_plan(n, prm, sms, optin)
+        assert (p.lanes, p.smem) == (ck.K5_LANES, 0)
+        assert p.broadcast == (n * ck.K5_LANES > ck.K5_LANES_PER_SM * sms)
+        cover = ck.K5_THREADS // (1 if p.broadcast else ck.K5_LANES)
+        assert p.blocks * cover >= n > (p.blocks - 1) * cover
+    assert ck.accel_plan(224, prm, sms, optin).blocks == 4
+    assert not ck.accel_plan(224, prm, sms, optin).broadcast
+    assert ck.accel_plan(1_048_576, prm, sms, optin).blocks == 4_096
+    assert not ck.accel_plan(1_048_576, prm, sms, optin,
+                             broadcast=False).broadcast
+
+
+@pytest.mark.parametrize("mmax", list(ck.KERNEL_MMAX))
+def test_k5_table_columns(mmax):
+    """table_columns places the 6(M+1) values in the SP-wide node row once
+    each; float4 column m <= M holds (pot.c, pot.s, dUdR.c, dUdR.s) of m,
+    float4 column M+1+j (dUdz.c, dUdz.s) of m = 2j, 2j+1."""
+    M1 = mmax + 1
+    cols = ck.table_columns(mmax)
+    SP = ck.table_row_width(mmax)
+    assert len(set(cols.tolist())) == 6 * M1 and cols.max() < SP
+    for q in range(6):
+        for m in range(M1):
+            c = int(cols[q * M1 + m])
+            if q < 4:
+                assert (c // 4, c % 4) == (m, q)
+            else:
+                assert (c // 4, c % 4) == (M1 + m // 2, 2 * (m % 2) + q - 4)
+
+
+@pytest.mark.parametrize("mmax", [0, 3, 6, 7])
+def test_k5_table_is_the_old_layout_permuted(mmax):
+    """contract_coef_tables' node rows hold bit for bit the values of the
+    first layout (the JAX order, then zeros), at table_columns."""
+    import torch
+
+    rng = np.random.default_rng(mmax)
+    M1, nn, xrows, ncy = mmax + 1, 5, 6, 7
+    tab3 = torch.tensor(rng.normal(size=(3, xrows * ncy, M1, nn)),
+                        dtype=torch.float32)
+    coef = torch.tensor(rng.normal(size=(2, M1, nn)), dtype=torch.float32)
+    Ct = ck.contract_coef_tables(coef, tab3, xrows, ncy)
+    eye = torch.eye(M1)
+    B = coef.permute(1, 2, 0)[:, :, :, None] * eye[:, None, None, :]
+    C = tab3.reshape(3 * xrows * ncy, M1 * nn) @ B.reshape(M1 * nn, 2 * M1)
+    old = C.reshape(3, xrows * ncy, 2 * M1).permute(1, 0, 2).reshape(
+        xrows, ncy, 6 * M1)
+    cols = ck.table_columns(mmax)
+    assert torch.equal(Ct[..., cols], old)
+    pad = np.setdiff1d(np.arange(Ct.shape[-1]), cols)
+    assert torch.count_nonzero(Ct[..., pad]) == 0
+
+
+def test_accel_split_probe_patches_the_kernels(tmp_path):
+    """probe_accel_split's variants: each patch matches its kernel source
+    once (so the probe times the kernels as they are), the variants'
+    sources differ from the kernels', and a patch that no longer matches
+    raises."""
+    from exp_tpu_torch import probe_accel_split as pa
+
+    roots = pa.make_variants(tmp_path)
+    for name, root in roots.items():
+        for src in ("sphere_accel.cu", "cyl_accel.cu"):
+            text = (root / "exp_tpu_torch" / "csrc" / src).read_text()
+            patched = any(s == src for s, _, _ in pa.VARIANTS[name][1])
+            assert (text != (pa.PORT / "csrc" / src).read_text()) == patched
+    src, old, new = pa.VARIANTS["no_gather"][1][0]
+    with pytest.raises(ValueError):
+        pa.patched_sources([(src, new + "x", old)])
