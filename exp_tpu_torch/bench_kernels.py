@@ -1,8 +1,10 @@
 """K1 (sphere coefficients, 'spline' and 'hat'), K2 (sphere force,
 'spline' and 'hat'), K4 (cylinder coefficients) and K5 (cylinder force)
-over the sizes of the composite's buckets.
+over the sizes of the composite's buckets; K3 (recurrence coefficients)
+and P1 (the slab phase-stream probe) when named.
 
     python exp_tpu_torch/bench_kernels.py [--root DIR] [--kernels K2,K5]
+                                          [--sizes 224,1048576]
                                           [--form small|large]
                                           [--profiler-check | --composite]
 
@@ -23,7 +25,13 @@ this one, so one command can time another commit's kernels on the same
 card (run this file by its path).  `--kernels` times only the named
 kernels (of K1, K1hat, K2, K2hat, K4, K5, and K2L10, K2 on lmax 10 tables,
 and K5halo, K5 on the sphere's sample: rows beyond the table sphere, as
-the composite's halo under the disk's force).  `--form small` or `large`
+the composite's halo under the disk's force; K3 and K3hat, K3 on the
+sphere's sample under 'spline' and 'hat', K3L10, K3 on the lmax 10
+tables; P1s1 and P1s2, P1 stream1 and stream2 on the phase-stream probe's
+sample cut to each size, its phase table made outside the timing).
+`--sizes` replaces the sweep's sizes.  Each row carries a digest of the
+kernel's output at that size (sha256 of its bytes), so that two
+checkouts' bits can be compared.  `--form small` or `large`
 launches K2 and K5 in their small- or large-bucket form at every n (the
 plans' choice otherwise).  `--profiler-check` prints, in place of the
 sweep, queued_ms beside torch.profiler's device time at four sizes, and
@@ -36,6 +44,7 @@ and a launch on each level's bucket).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 import time
@@ -136,8 +145,9 @@ def fit(ns, ms):
 KERNELS = ("K1", "K1hat", "K2", "K2hat", "K4", "K5")
 # timed only when named: K2 on the lmax 10 tables, K5 on the halo's sample
 # (the composite's halo under the disk's force: rows beyond the table
-# sphere, whose nodes are few)
-EXTRA = ("K2L10", "K5halo")
+# sphere, whose nodes are few), K3 off the main path ('spline', 'hat',
+# lmax 10) and P1 (stream1, stream2)
+EXTRA = ("K2L10", "K5halo", "K3", "K3hat", "K3L10", "P1s1", "P1s2")
 # the csrc sources each kernel's timing builds (the force kernels' tables
 # come from the coefficient kernels)
 SOURCES = {"K1": ("sphere_coef",), "K1hat": ("sphere_coef",),
@@ -145,18 +155,25 @@ SOURCES = {"K1": ("sphere_coef",), "K1hat": ("sphere_coef",),
            "K2hat": ("sphere_coef", "sphere_accel"),
            "K2L10": ("sphere_coef_rec", "sphere_accel"),
            "K4": ("cyl_coef",), "K5": ("cyl_coef", "cyl_accel"),
-           "K5halo": ("cyl_coef", "cyl_accel")}
-SPHERE_KEYS = {"K1", "K1hat", "K2", "K2hat", "K2L10", "K5halo"}
+           "K5halo": ("cyl_coef", "cyl_accel"),
+           "K3": ("sphere_coef_rec",), "K3hat": ("sphere_coef_rec",),
+           "K3L10": ("sphere_coef_rec",),
+           "P1s1": ("slab_phasestream",), "P1s2": ("slab_phasestream",)}
+SPHERE_KEYS = {"K1", "K1hat", "K2", "K2hat", "K2L10", "K5halo", "K3",
+               "K3hat", "K3L10"}
+LMAX10_KEYS = {"K2L10", "K3L10"}
+P1_KEYS = {"P1s1": False, "P1s2": True}        # key: split table
 
 
 def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1],
             keys=KERNELS, tables10=None):
     """The sphere forces under 'spline' and 'hat' and the disk force
-    (backend='pallas' on `dev`, on the benches' tables; K2L10's on the
-    lmax 10 `tables10`) and their benches' samples of n_max rows on the
-    card, for the kernels `keys`: {"K1": (force, x, m), "K1hat": ...,
-    "K2": the same as "K1", ..., "K5halo": the disk's force on the
-    sphere's sample}."""
+    (backend='pallas' on `dev`, on the benches' tables; K2L10's and
+    K3L10's on the lmax 10 `tables10`) and their benches' samples of n_max
+    rows on the card, for the kernels `keys`: {"K1": (force, x, m),
+    "K1hat": ..., "K2": the same as "K1", ..., "K5halo": the disk's force
+    on the sphere's sample, "K3": the 'recurrence' force, ..., "P1s1":
+    (the probe's SlabKernelParams, its sample)}."""
     import torch
 
     from exp_tpu_torch.bench_disk import disk_force, disk_sample
@@ -171,8 +188,19 @@ def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1],
             if set(ks) & set(keys):
                 f = sphere_force(sphere_tables, dev, interp=interp)
                 out.update({k: (f, xs, ms) for k in ks if k in keys})
-        if "K2L10" in keys:
-            out["K2L10"] = (sphere_force(tables10, dev), xs, ms)
+        for key, interp in (("K3", "spline"), ("K3hat", "hat")):
+            if key in keys:
+                out[key] = (sphere_force(sphere_tables, dev, "recurrence",
+                                         interp), xs, ms)
+        for key in sorted(LMAX10_KEYS & set(keys)):
+            out[key] = (sphere_force(tables10, dev), xs, ms)
+    if set(P1_KEYS) & set(keys):
+        from exp_tpu_torch import probe_slab_phasestream as probe
+
+        xp, mp = (torch.tensor(a, device=dev)
+                  for a in probe.probe_sample(n_max))
+        out.update({k: (probe.probe_params(), xp, mp) for k in P1_KEYS
+                    if k in keys})
     if {"K4", "K5", "K5halo"} & set(keys):
         xd, _, md = disk_sample(n_max)
         f = disk_force(disk_tables, dev)
@@ -193,6 +221,7 @@ def kernel_fns(forces, form="default"):
     import torch
 
     from exp_tpu_torch.ops import cyl_kernels as ck
+    from exp_tpu_torch.ops import slab_kernels as lk
     from exp_tpu_torch.ops import sphere_kernels as sk
 
     def dev_args(x):
@@ -212,10 +241,32 @@ def kernel_fns(forces, form="default"):
         return {"plan": ck.accel_plan(x.shape[0], p, *dev_args(x),
                                       broadcast=form == "large")}
 
+    def phase_table(p, split):    # the table of the last x it was given
+        last = {}
+
+        def table(x):
+            if last.get("x") is not x:
+                last.update(x=x, ph=lk.phase_table(x, p, split))
+            return last["ph"]
+        return table
+
     out = {}
     for key, (f, x, m) in forces.items():
+        if key in P1_KEYS:
+            t = phase_table(f, P1_KEYS[key])
+            out[key] = (
+                lambda x, m, p=f, t=t: lk.stream_coef(t(x), x, m, p),
+                lambda x, m, p=f, t=t: lk.stream_coef_plain(t(x), x, m, p))
+            continue
         p = f._kernel_params()
-        if key in ("K1", "K1hat"):
+        if key in ("K3", "K3hat", "K3L10"):
+            tab = f._radial_table()
+            out[key] = (
+                lambda x, m, f=f, p=p, tab=tab: sk.sphere_coef_rec(
+                    x, m, tab, f.fac32, p),
+                lambda x, m, f=f, p=p, tab=tab: sk.sphere_coef_rec_plain(
+                    x, m, tab, f.fac32, p))
+        elif key in ("K1", "K1hat"):
             tab = f._radial_table()
             out[key] = (
                 lambda x, m, f=f, p=p, tab=tab: sk.sphere_coef(x, m, tab, f.Mp, p),
@@ -245,12 +296,25 @@ def kernel_fns(forces, form="default"):
     return out
 
 
+def digest(out):
+    """sha256 (first 16 hex digits) of the bytes of a kernel's output: a
+    tensor, or a tuple of them."""
+    import torch
+
+    outs = out if isinstance(out, tuple) else (out,)
+    h = hashlib.sha256()
+    for t in outs:
+        t = torch.view_as_real(t) if t.is_complex() else t
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def sweep(forces, sizes=SWEEP_SIZES, reps=20, form="default"):
     """Each kernel at each size: {"rows": [{kernel, n, device_ms,
-    event_ms, event_reps}], "fit": {kernel: {fixed_ms, ms_per_row}}}.
-    device_ms by queued_ms over `reps` calls; event_ms over `reps` launches
-    in a row (5 x reps below 2^16 rows, where a launch is short); `form`
-    as kernel_fns takes it."""
+    event_ms, event_reps, digest}], "fit": {kernel: {fixed_ms,
+    ms_per_row}}}.  device_ms by queued_ms over `reps` calls; event_ms over
+    `reps` launches in a row (5 x reps below 2^16 rows, where a launch is
+    short); digest of one call's output; `form` as kernel_fns takes it."""
     fns = kernel_fns(forces, form)
     rows, fits = [], {}
     for key, (fn, _) in fns.items():
@@ -262,7 +326,8 @@ def sweep(forces, sizes=SWEEP_SIZES, reps=20, form="default"):
             dms = queued_ms(call, reps)
             er = reps * (5 if n < 65_536 else 1)
             rows.append({"kernel": key, "n": n, "device_ms": dms,
-                         "event_ms": event_ms(call, er), "event_reps": er})
+                         "event_ms": event_ms(call, er), "event_reps": er,
+                         "digest": digest(call())})
             ts.append(dms)
         icpt, slope = fit(sizes, ts)
         fits[key] = {"fixed_ms": icpt, "ms_per_row": slope}
@@ -318,6 +383,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None)
     ap.add_argument("--kernels", default=",".join(KERNELS))
+    ap.add_argument("--sizes", default=",".join(map(str, SWEEP_SIZES)))
     ap.add_argument("--form", default="default",
                     choices=("default", "small", "large"))
     ap.add_argument("--profiler-check", action="store_true")
@@ -326,6 +392,7 @@ def main(argv=None):
     keys = tuple(a.kernels.split(","))
     if not set(keys) <= set(KERNELS + EXTRA):
         ap.error(f"--kernels: choose from {','.join(KERNELS + EXTRA)}")
+    sizes = tuple(int(v) for v in a.sizes.split(","))
     root = Path(a.root or Path(__file__).resolve().parent.parent).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -348,13 +415,15 @@ def main(argv=None):
         _build.build_all(sorted({s for k in keys for s in SOURCES[k]}))
         sph = sphere_tables(lmax=4, nmax=10) if SPHERE_KEYS & set(keys) \
             else None
-        t10 = sphere_tables(lmax=10, nmax=10) if "K2L10" in keys else None
+        t10 = (sphere_tables(lmax=10, nmax=10) if LMAX10_KEYS & set(keys)
+               else None)
         disk = disk_tables() if {"K4", "K5", "K5halo"} & set(keys) else None
-        forces = samples(dev, sph, disk, keys=keys, tables10=t10)
+        forces = samples(dev, sph, disk, n_max=max(sizes), keys=keys,
+                         tables10=t10)
         if a.profiler_check:
             out["profiler_check"] = profiler_check(forces)
         else:
-            out["sweep"] = sweep(forces, form=a.form)
+            out["sweep"] = sweep(forces, sizes=sizes, form=a.form)
     out["sec"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
     return 0

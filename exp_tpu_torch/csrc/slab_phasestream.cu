@@ -24,20 +24,39 @@
 // table, so producer + kernel cannot beat twice the read.  K9
 // (slab_coef.cu) does the same job with the phases made in the kernel.
 //
-// Design: Wz has only KZ nonzeros a particle, so G is a scatter in z, not
-// the TPU's dense (2 Cr, B) x (B, 128) product.  Thread a of a block owns
-// output row a (re of c = a for a < C, im of c = a - C) and keeps its zrows
-// z-columns in shared memory, (zrows, 2C) f32 with a the fastest index, so
-// a warp's read-modify-writes hit 32 banks; no atomics.  A block stages a
-// tile of kTile particles: the table rows it reads, with 16-byte coalesced
-// loads, all issued before any is stored, at a row stride of kStride words
-// (one spare) so that a warp reading one word of 32 rows hits 32 banks; and
-// each particle's w Wz with j0.  Each thread then walks the tile's
-// particles, two to a 32-bit word of its row.  Blocks take tiles in a grid
-// stride; each writes its accumulator as a partial, and a second kernel
-// adds the partials in block order: the pass is deterministic.  A zero mass
-// or |z| > zmax makes w Wz = 0, and rows past N are staged as 0, so such a
-// particle adds exactly 0.
+// Why not the TPU's dense (2 Cr, B) x (B, 128) product on tensor cores: Wz
+// has KZ nonzeros in its 128 columns, so a dense product does 43x the
+// FMAs, and it would round w Wz to bf16, far outside the plain version's
+// 1e-5.  The first port scattered instead: thread a owned output row a in
+// a shared (zrows, 2C) f32 accumulator and made 3 dependent shared
+// read-modify-writes a particle, on tiles of 64 particles loaded between
+// two barriers; that chain was half its time and the synchronous staging
+// most of the rest (exp_tpu_torch/probe_rec_split.py).
+//
+// Design: no shared accumulator.  Thread a keeps row a's zrows sums in
+// registers, s[j] for j < kMaxZ, and walks each tile's particles grouped
+// by their first z node j0, so that every s index is known at compile
+// time: the walk is unrolled over j0 and loops over the particles of each
+// j0 that occurs.  A tile of TILE particles is sorted by j0 in shared
+// memory by a stable counting sort (each warp's counts by __match_any_sync,
+// one warp's scan over the bins), only particles of nonzero weight w;
+// each sorted record holds w Wz and the particle's place in the tile.
+// The table rows of the next tile stream into a second buffer by 4-byte
+// cp.async while the current tile is walked, at a row stride of TILE/2 + 1
+// words, so that a warp reading one particle of 32 rows hits 32 banks; z
+// and mass of the next tile wait in registers.  Blocks take tiles in a
+// grid stride; each writes its sums as a partial, and a second kernel adds
+// the partials in block order: the pass is deterministic (the sort is
+// stable, every sum is taken in one order).  A zero mass or |z| > zmax
+// gives w = 0, and such particles are not walked: they add exactly 0.
+//
+// Measured (exp_tpu_torch/bench_kernels.py, the probe's sample at 2^20,
+// NVIDIA H100 80GB HBM3 at 700 W, the first port in the same call):
+// stream1 0.40 ms (0.90), stream2 0.64 (0.98); torch.matmul of the table
+// with a dense bf16 Wz^T takes 0.25 and 0.36 (chip_smoke.py PS2).  168
+// registers, two blocks of 6 warps an SM.  The walk, about 10
+// instructions for a particle and a row, is most of the time: without it
+// the pass takes 0.15 and 0.27 (exp_tpu_torch/probe_rec_split.py).
 #include <cstdint>
 
 #include "slab_common.cuh"
@@ -46,14 +65,12 @@ namespace {
 
 using slab::Params;
 
-// kTile, kStride and kMaxThreads are mirrored in ops/slab_kernels.py
-// (P1_TILE, P1_STRIDE, P1_MAX_THREADS, stream_smem_bytes), which plans the
-// grid
-constexpr int kTile = 64;               // particles a staged tile
-constexpr int kChunks = kTile / 8;      // 16-byte chunks of a staged row
-constexpr int kStride = kTile / 2 + 1;  // 32-bit words a staged row
+// kMaxZ, kMaxThreads and the tiles are mirrored in ops/slab_kernels.py
+// (KERNEL_ZROWS_MAX, P1_MAX_THREADS, P1_TILES, stream_smem_bytes), which
+// plans the grid
+constexpr int kWarp = 32;
+constexpr int kMaxZ = 128;             // z rows a thread sums in registers
 constexpr int kMaxThreads = 256;       // 2C rows: nmax 0..5 on each axis
-constexpr int kMaxTasks = 2 * kChunks + 1;   // staging loads a thread, at most
 constexpr int kReduceThreads = 256;
 
 struct Geo {
@@ -73,104 +90,196 @@ __device__ __forceinline__ long long table_row(int s, const Geo& g) {
   return lo ? 2 * g.Cr + r : r;
 }
 
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-template <int KZ>
-__device__ __forceinline__ void scatter(float* acc, int A, float4 r, float v) {
-  float* dst = acc + __float_as_int(r.w) * A;
-  dst[0] += v * r.x;
-  dst[A] += v * r.y;
-  if (KZ == 3) dst[2 * A] += v * r.z;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <int KZ>
-__global__ void __launch_bounds__(kMaxThreads)
+// shared bytes of a block: sorted records, each sorting warp's counts and
+// offsets by bin, the bins' starts and occupancy, the staged rows' table
+// offsets and two buffers of nst staged rows of TILE/2 + 1 words
+template <int TILE>
+constexpr size_t stream_smem(int nst) {
+  return sizeof(float4) * TILE + sizeof(int) * (2 * (TILE / kWarp) * kMaxZ + kMaxZ + 4) +
+         sizeof(uint32_t) * (kMaxZ / kWarp) + sizeof(long long) * nst +
+         sizeof(uint32_t) * 2 * (size_t)nst * (TILE / 2 + 1);
+}
+
+// The table rows of the particles [base, base + TILE) into a buffer: row s
+// at dst + s W, particle p in half-word p.  Asynchronous (4-byte cp.async,
+// waited for by cp_async_wait) for a whole tile of an even n from a 4-byte
+// aligned table; otherwise loaded here, the pairs past n as 0.
+template <int TILE>
+__device__ __forceinline__ void stage_tile(const uint16_t* __restrict__ ph, long long n,
+                                           long long base, int nst, const long long* rowoff,
+                                           bool async, uint32_t* dst) {
+  constexpr int H = TILE / 2, W = H + 1;
+  if (async) {
+    for (int t = threadIdx.x; t < nst * H; t += blockDim.x) {
+      const int s = t / H, w = t % H;
+      cp_async4(dst + s * W + w, ph + rowoff[s] + base + 2 * w);
+    }
+    return;
+  }
+  const long long left = n - base;
+  for (int t = threadIdx.x; t < nst * H; t += blockDim.x) {
+    const int s = t / H, w = t % H;
+    const uint16_t* src = ph + rowoff[s] + base + 2 * w;
+    const uint32_t lo = 2 * w < left ? src[0] : 0u;
+    const uint32_t hi = 2 * w + 1 < left ? src[1] : 0u;
+    dst[s * W + w] = lo | (hi << 16);
+  }
+}
+
+// One warp: the bins' counts of the SW sorting warps (cnt, zeroed here) to
+// each warp's first place in the sorted order (off, bin-major then warp),
+// the bins' starts (bstart, kMaxZ + 1) and their occupancy bits (occ).
+template <int SW>
+__device__ __forceinline__ void scan_bins(int* cnt, int* off, int* bstart, uint32_t* occ,
+                                          int lane) {
+  int carry = 0;
+#pragma unroll
+  for (int b = 0; b < kMaxZ / kWarp; ++b) {
+    const int bin = b * kWarp + lane;
+    int c[SW], tot = 0;
+#pragma unroll
+    for (int w = 0; w < SW; ++w) {
+      c[w] = cnt[w * kMaxZ + bin];
+      cnt[w * kMaxZ + bin] = 0;
+      tot += c[w];
+    }
+    int incl = tot;
+#pragma unroll
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    int run = carry + incl - tot;
+    bstart[bin] = run;
+#pragma unroll
+    for (int w = 0; w < SW; ++w) {
+      off[w * kMaxZ + bin] = run;
+      run += c[w];
+    }
+    const uint32_t m = __ballot_sync(0xffffffffu, tot > 0);
+    if (lane == 0) occ[b] = m;
+    carry += __shfl_sync(0xffffffffu, incl, kWarp - 1);
+  }
+  if (lane == 0) bstart[kMaxZ] = carry;
+}
+
+// The particles [k0, k1) of one bin into a row's sums of its KZ z rows
+template <int KZ, bool SPLIT>
+__device__ __forceinline__ void walk_bin(float& s0, float& s1, float& s2,
+                                         const float4* __restrict__ srt, int k0, int k1,
+                                         const uint16_t* hrow, const uint16_t* lrow) {
+#pragma unroll 1
+  for (int k = k0; k < k1; ++k) {
+    const float4 r = srt[k];
+    const int p = __float_as_int(r.w);
+    float v = __uint_as_float((uint32_t)hrow[p] << 16);
+    if (SPLIT) v += __uint_as_float((uint32_t)lrow[p] << 16);
+    s0 = __fmaf_rn(v, r.x, s0);
+    s1 = __fmaf_rn(v, r.y, s1);
+    if (KZ == 3) s2 = __fmaf_rn(v, r.z, s2);
+  }
+}
+
+template <int KZ, int TILE, bool SPLIT>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 stream_accumulate(const uint16_t* __restrict__ ph, const float* __restrict__ x,
                   const float* __restrict__ mass, long long n, Geo g, int vec,
                   float* __restrict__ partial) {
+  constexpr int W = TILE / 2 + 1, SW = TILE / kWarp;
   extern __shared__ float4 sh4[];
-  float4* zrec = sh4;                                                // (kTile)
-  uint32_t* stage = reinterpret_cast<uint32_t*>(sh4 + kTile);        // (nst, kStride)
-  float* acc = reinterpret_cast<float*>(stage + g.nst * kStride);    // (zrows, A)
-  const int accn = g.q.zrows * g.A;
-  for (int e = threadIdx.x; e < accn; e += blockDim.x) acc[e] = 0.0f;
+  float4* srt = sh4;                                                  // (TILE)
+  int* cnt = reinterpret_cast<int*>(srt + TILE);                      // (SW, kMaxZ)
+  int* off = cnt + SW * kMaxZ;                                        // (SW, kMaxZ)
+  int* bstart = off + SW * kMaxZ;                                     // kMaxZ + 1
+  uint32_t* occ = reinterpret_cast<uint32_t*>(bstart + kMaxZ + 4);    // kMaxZ / 32
+  long long* rowoff = reinterpret_cast<long long*>(occ + kMaxZ / kWarp);   // nst
+  uint32_t* stage = reinterpret_cast<uint32_t*>(rowoff + g.nst);      // 2 x (nst, W)
+  const uint16_t* sh16 = reinterpret_cast<const uint16_t*>(stage);
 
-  const int ntask = g.nst * kChunks;
-  for (long long base = (long long)blockIdx.x * kTile; base < n;
-       base += (long long)gridDim.x * kTile) {
-    __syncthreads();                              // the last tile is consumed
-    uint4 in[kMaxTasks];
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  for (int e = tid; e < SW * kMaxZ; e += blockDim.x) cnt[e] = 0;
+  for (int s = tid; s < g.nst; s += blockDim.x) rowoff[s] = table_row(s, g) * n;
+  __syncthreads();
+  float s[kMaxZ];
 #pragma unroll
-    for (int t = 0; t < kMaxTasks; ++t) {
-      const int task = threadIdx.x + t * blockDim.x;
-      in[t] = make_uint4(0u, 0u, 0u, 0u);
-      if (task >= ntask) continue;
-      const long long p0 = base + (task % kChunks) * 8;
-      const uint16_t* src = ph + table_row(task / kChunks, g) * n + p0;
-      if (vec && p0 + 8 <= n) {
-        in[t] = *reinterpret_cast<const uint4*>(src);
-      } else {
-        uint32_t w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint32_t a = p0 + 2 * i < n ? src[2 * i] : 0u;
-          const uint32_t b = p0 + 2 * i + 1 < n ? src[2 * i + 1] : 0u;
-          w[i] = a | (b << 16);
-        }
-        in[t] = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-    }
-    for (int p = threadIdx.x; p < kTile; p += blockDim.x) {
-      const long long i = base + p;
-      float4 r = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(0));
-      if (i < n) {
-        const float z = x[3 * i + 2];
-        const float w = fabsf(z) <= g.q.zmax ? mass[i] : 0.0f;
+  for (int j = 0; j < kMaxZ; ++j) s[j] = 0.0f;
+
+  const long long step = (long long)gridDim.x * TILE;
+  long long base = (long long)blockIdx.x * TILE;
+  float pz = 0.0f, pm = 0.0f;                       // this thread's particle of the tile
+  if (tid < TILE && base + tid < n) pz = x[3 * (base + tid) + 2], pm = mass[base + tid];
+  if (base < n) stage_tile<TILE>(ph, n, base, g.nst, rowoff, vec && base + TILE <= n, stage);
+  cp_async_commit();
+  for (int buf = 0; base < n; base += step, buf ^= 1) {
+    // the tile's records; each sorting warp's count of a bin and a
+    // particle's rank among its warp's particles of that bin
+    int bin = -1, rank = 0;
+    float4 rec = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (tid < TILE) {
+      const float w = base + tid < n && fabsf(pz) <= g.q.zmax ? pm : 0.0f;
+      if (w != 0.0f) {
         float wz[KZ];
-        const int j0 = slab::z_nodes<KZ>(slab::z_grid(z, g.q), g.q.nzc, wz);
-        r = make_float4(w * wz[0], w * wz[1], KZ == 3 ? w * wz[KZ - 1] : 0.0f,
-                        __int_as_float(j0));
+        bin = slab::z_nodes<KZ>(slab::z_grid(pz, g.q), g.q.nzc, wz);
+        rec = make_float4(w * wz[0], w * wz[1], KZ == 3 ? w * wz[KZ - 1] : 0.0f,
+                          __int_as_float(tid));
       }
-      zrec[p] = r;
-    }
-#pragma unroll
-    for (int t = 0; t < kMaxTasks; ++t) {
-      const int task = threadIdx.x + t * blockDim.x;
-      if (task >= ntask) continue;
-      uint32_t* dst = stage + (task / kChunks) * kStride + (task % kChunks) * 4;
-      dst[0] = in[t].x;
-      dst[1] = in[t].y;
-      dst[2] = in[t].z;
-      dst[3] = in[t].w;
+      const unsigned peers = __match_any_sync(0xffffffffu, bin);
+      rank = __popc(peers & ((1u << lane) - 1u));
+      if (bin >= 0 && rank == 0) cnt[warp * kMaxZ + bin] = __popc(peers);
+      const long long nx = base + step + tid;
+      if (nx < n) pz = x[3 * nx + 2], pm = mass[nx];
     }
     __syncthreads();
+    // every thread is past the walk that last read the other buffer
+    if (base + step < n)
+      stage_tile<TILE>(ph, n, base + step, g.nst, rowoff, vec && base + step + TILE <= n,
+                       stage + (buf ^ 1) * g.nst * W);
+    cp_async_commit();
+    if (warp == 0) scan_bins<SW>(cnt, off, bstart, occ, lane);
+    __syncthreads();
+    if (bin >= 0) srt[off[warp * kMaxZ + bin] + rank] = rec;
+    cp_async_wait<1>();                              // this tile's rows are in
+    __syncthreads();
 
-    const long long left = n - base;
-    const int cnt = left >= kTile ? kTile : (int)left;
-    const int a = threadIdx.x;
+    // the walk: thread a, row a, over the tile's bins in order
+    const int a = tid;
     if (a >= g.A) continue;
-    const uint32_t* hrow = stage + a * kStride;
-    const uint32_t* lrow = stage + (g.A + a) * kStride;
-    for (int p = 0; p < cnt; p += 2) {
-      const uint32_t wh = hrow[p >> 1];
-      float v0 = bf16_lo(wh), v1 = bf16_hi(wh);
-      if (g.split) {
-        const uint32_t wl = lrow[p >> 1];
-        v0 += bf16_lo(wl);
-        v1 += bf16_hi(wl);
-      }
-      scatter<KZ>(acc + a, g.A, zrec[p], v0);
-      if (p + 1 < cnt) scatter<KZ>(acc + a, g.A, zrec[p + 1], v1);
+    const uint16_t* hrow = sh16 + (buf * g.nst + a) * (2 * W);
+    const uint16_t* lrow = hrow + g.A * (2 * W);
+    const uint32_t o0 = occ[0], o1 = occ[1], o2 = occ[2], o3 = occ[3];
+    int k0 = 0;                                      // the next bin's first record
+#pragma unroll
+    for (int j = 0; j <= kMaxZ - KZ; ++j) {
+      const uint32_t ow = j < 32 ? o0 : j < 64 ? o1 : j < 96 ? o2 : o3;
+      if (!((ow >> (j % 32)) & 1u)) continue;
+      const int k1 = bstart[j + 1];
+      walk_bin<KZ, SPLIT>(s[j], s[j + 1], s[j + KZ - 1], srt, k0, k1, hrow, lrow);
+      k0 = k1;
     }
   }
-  __syncthreads();
-  float* out = partial + (long long)blockIdx.x * accn;
-  for (int e = threadIdx.x; e < accn; e += blockDim.x) out[e] = acc[e];
+  cp_async_wait<0>();
+  if (tid < g.A) {
+    float* out = partial + (long long)blockIdx.x * g.q.zrows * g.A + tid;
+#pragma unroll
+    for (int j = 0; j < kMaxZ; ++j)
+      if (j < g.q.zrows) out[(long long)j * g.A] = s[j];
+  }
 }
 
 // Sum the block partials in block order; element e = j A + a of the
-// (zrows, A) accumulator goes to G[c, j] (re for a < C, im otherwise).
+// (zrows, A) sums goes to G[c, j] (re for a < C, im otherwise).
 __global__ void __launch_bounds__(kReduceThreads)
 stream_reduce(const float* __restrict__ partial, int nblocks, Geo g,
               float* __restrict__ out) {
@@ -184,24 +293,33 @@ stream_reduce(const float* __restrict__ partial, int nblocks, Geo g,
   out[((long long)c * g.q.zrows + j) * 2 + (a < g.C ? 0 : 1)] = s;
 }
 
-template <int KZ>
+template <int KZ, int TILE, bool SPLIT>
 cudaError_t launch(const uint16_t* ph, const float* x, const float* mass, long long n,
-                   float* partial, float* out, int nblocks, int vec, const Geo& g,
-                   cudaStream_t stream) {
-  const int threads = (g.A + 31) / 32 * 32;
-  const size_t smem = sizeof(float4) * kTile + sizeof(uint32_t) * (size_t)g.nst * kStride +
-                      sizeof(float) * (size_t)g.q.zrows * g.A;
+                   float* partial, float* out, int nblocks, int threads, int vec,
+                   const Geo& g, cudaStream_t stream) {
+  const size_t smem = stream_smem<TILE>(g.nst);
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(stream_accumulate<KZ>,
+  if ((err = cudaFuncSetAttribute(stream_accumulate<KZ, TILE, SPLIT>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
       cudaSuccess)
     return err;
-  stream_accumulate<KZ><<<nblocks, threads, smem, stream>>>(ph, x, mass, n, g, vec, partial);
+  stream_accumulate<KZ, TILE, SPLIT><<<nblocks, threads, smem, stream>>>(ph, x, mass, n, g,
+                                                                          vec, partial);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int accn = g.q.zrows * g.A;
   stream_reduce<<<(accn + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, stream>>>(
       partial, nblocks, g, out);
   return cudaGetLastError();
+}
+
+template <int KZ, int TILE>
+cudaError_t launch_split(const uint16_t* ph, const float* x, const float* mass, long long n,
+                         float* partial, float* out, int nblocks, int threads, int vec,
+                         const Geo& g, cudaStream_t stream) {
+  return g.split ? launch<KZ, TILE, true>(ph, x, mass, n, partial, out, nblocks, threads, vec,
+                                          g, stream)
+                 : launch<KZ, TILE, false>(ph, x, mass, n, partial, out, nblocks, threads,
+                                           vec, g, stream);
 }
 
 }  // namespace
@@ -210,24 +328,27 @@ extern "C" {
 
 // ph (2 Cr or 4 Cr, n) bf16 (split: 4 Cr), x (n, 3), mass (n,), partial
 // (nblocks, zrows, 2C) scratch, out (C, zrows, 2); f32 but ph, contiguous,
-// on the current device; vec: n % 8 == 0 and ph 16-byte aligned (16-byte
-// loads).  nmax 0..8 on each axis with 2C <= 256 threads, nzc >= 2, zrows =
-// nzc + 2 ('spline') or nzc ('linear') at most 128; the shared memory must
-// fit a block (ops/slab_kernels.stream_plan checks it).  Returns a
-// cudaError_t.
+// on the current device; vec: n even and ph 4-byte aligned (asynchronous
+// 4-byte loads).  The plan (ops/slab_kernels.stream_plan): tiles of `tile`
+// particles (64 or 128), `threads` threads a block (a multiple of 32, at
+// least 2C and the tile, at most 256).  nmax 0..8 on each axis, nzc >= 2,
+// zrows = nzc + 2 ('spline') or nzc ('linear') at most 128; the shared
+// memory must fit a block.  Returns a cudaError_t.
 int slab_phasestream_launch(const void* ph, const void* x, const void* mass, long long n,
-                            void* partial, void* out, int nblocks, int split, int vec,
-                            int nmaxx, int nmaxy, int nzc, int spline, float zmax, float dz,
-                            void* stream) {
-  if (nblocks < 1 || nmaxx < 0 || nmaxx > 8 || nmaxy < 0 || nmaxy > 8 || nzc < 2)
+                            void* partial, void* out, int nblocks, int tile, int threads,
+                            int split, int vec, int nmaxx, int nmaxy, int nzc, int spline,
+                            float zmax, float dz, void* stream) {
+  if (nblocks < 1 || nmaxx < 0 || nmaxx > 8 || nmaxy < 0 || nmaxy > 8 || nzc < 2 ||
+      (tile != 64 && tile != 128))
     return cudaErrorInvalidValue;
   Geo g;
   g.q = Params{nmaxx, nmaxy, nzc, spline ? nzc + 2 : nzc, zmax, dz};
-  if (g.q.zrows > 128) return cudaErrorInvalidValue;
+  if (g.q.zrows > kMaxZ) return cudaErrorInvalidValue;
   g.C = (2 * nmaxx + 1) * (2 * nmaxy + 1);
   g.Cr = (g.C + 7) / 8 * 8;
   g.A = 2 * g.C;
-  if ((g.A + 31) / 32 * 32 > kMaxThreads) return cudaErrorInvalidValue;
+  if (threads % kWarp || threads < g.A || threads < tile || threads > kMaxThreads)
+    return cudaErrorInvalidValue;
   g.split = split ? 1 : 0;
   g.nst = split ? 2 * g.A : g.A;
   auto s = static_cast<cudaStream_t>(stream);
@@ -236,8 +357,11 @@ int slab_phasestream_launch(const void* ph, const void* x, const void* mass, lon
   auto mf = static_cast<const float*>(mass);
   auto pf = static_cast<float*>(partial);
   auto of = static_cast<float*>(out);
-  return spline ? launch<3>(pp, xf, mf, n, pf, of, nblocks, vec, g, s)
-                : launch<2>(pp, xf, mf, n, pf, of, nblocks, vec, g, s);
+  if (spline)
+    return tile == 128 ? launch_split<3, 128>(pp, xf, mf, n, pf, of, nblocks, threads, vec, g, s)
+                       : launch_split<3, 64>(pp, xf, mf, n, pf, of, nblocks, threads, vec, g, s);
+  return tile == 128 ? launch_split<2, 128>(pp, xf, mf, n, pf, of, nblocks, threads, vec, g, s)
+                     : launch_split<2, 64>(pp, xf, mf, n, pf, of, nblocks, threads, vec, g, s);
 }
 
 const char* slab_phasestream_error_string(int err) {

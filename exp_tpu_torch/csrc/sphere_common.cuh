@@ -1,9 +1,8 @@
 // Device helpers shared by the sphere kernels (sphere_coef.cu K1,
 // sphere_accel.cu K2, sphere_coef_rec.cu K3, sphere_accel_poly.cu K6): the
 // radial map, the quadratic-B-spline and hat weights, the packed
-// harmonic-row order, the monomials of the poly harmonics and the ordered
-// reduction of the coefficient passes.  Arithmetic follows
-// exp_tpu/ops/pallas_sphere.py (_geometry, _ximap, _spline_rows, _hat_rows)
+// harmonic-row order and the monomials of the poly harmonics.  Arithmetic
+// follows exp_tpu/ops/pallas_sphere.py (_geometry, _ximap, _spline_rows, _hat_rows)
 // operation by operation in f32, so the kernels and their plain PyTorch
 // versions round alike.
 #pragma once
@@ -181,49 +180,6 @@ __device__ __forceinline__ void monomials_seq(float* mono, float ux, float uy, f
 template <int L>
 __device__ __forceinline__ void monomials(float* mono, float ux, float uy, float uz) {
   monomials_seq(mono, ux, uy, uz, std::make_integer_sequence<int, nmono(L) - 1>{});
-}
-
-// ---------------------------------------------------------------------------
-// Second pass of the coefficient kernels (K1, K3): one block per (cs, l, m)
-// slot of the output reduces the block partials (nblocks, P, rows) of its
-// packed row in block order, then contracts them with the radial table
-// tab (rows, (L+1)*nmax) and scales by -4 pi.  Deterministic.
-
-__global__ void coef_reduce(const float* __restrict__ partial, int nblocks,
-                            const float* __restrict__ tab, Params q,
-                            float* __restrict__ coef) {
-  const int L = q.lmax, nmax = q.nmax, rows = table_rows(q);
-  const int P = npacked(L), F = (L + 1) * nmax;
-  const int slot = blockIdx.x;
-  const int m = slot % (L + 1), l = (slot / (L + 1)) % (L + 1);
-  const int cs = slot / ((L + 1) * (L + 1));
-  float* out = coef + (long long)slot * nmax;
-  const bool valid = m <= l && (cs == 0 || m >= 1);
-  if (!valid) {
-    for (int k = threadIdx.x; k < nmax; k += blockDim.x) out[k] = 0.0f;
-    return;
-  }
-  const int p = cs == 0 ? cos_row(l, m) : sin_row(l, m, L);
-
-  extern __shared__ float S[];                      // rows
-  for (int j = threadIdx.x; j < rows; j += blockDim.x) {
-    float s = 0.0f;
-    for (int b = 0; b < nblocks; ++b)
-      s += partial[(long long)b * P * rows + p * rows + j];
-    S[j] = s;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nw = blockDim.x / 32;
-  const float m4pi = (float)(-4.0 * 3.14159265358979323846);
-  for (int k = warp; k < nmax; k += nw) {
-    float s = 0.0f;
-    for (int j = lane; j < rows; j += 32) s += S[j] * tab[j * F + l * nmax + k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) out[k] = m4pi * s;
-  }
 }
 
 }  // namespace sphere

@@ -62,11 +62,10 @@ KERNEL_ZROWS_MAX = 128
 K9_TILE = 64
 K9_MAX_GROUPS = 8
 
-#: P1's particles a staged tile, its 32-bit words a staged table row and
-#: its most threads a block (kTile, kStride, kMaxThreads of
-#: csrc/slab_phasestream.cu)
-P1_TILE = 64
-P1_STRIDE = P1_TILE // 2 + 1
+#: P1's tiles of particles, in the order its plan tries them, and its most
+#: threads a block (the TILE instantiations and kMaxThreads of
+#: csrc/slab_phasestream.cu; its kMaxZ is KERNEL_ZROWS_MAX)
+P1_TILES = (128, 64)
 P1_MAX_THREADS = 256
 
 INTERPS = ("spline", "linear")
@@ -513,32 +512,55 @@ def slab_coef(x, mass, prm: SlabKernelParams):
     return torch.view_as_complex(out)
 
 
-def stream_smem_bytes(prm: SlabKernelParams, split: bool) -> int:
-    """P1's shared memory a block, as csrc/slab_phasestream.cu lays it
-    out: each particle's z record (16 B), the staged tile of the 2C (or
-    4C, split) table rows it reads, and the (zrows, 2C) f32 accumulator."""
+def stream_smem_bytes(prm: SlabKernelParams, split: bool, tile: int) -> int:
+    """P1's shared memory a block with tiles of `tile` particles, as
+    csrc/slab_phasestream.cu lays it out: the tile's sorted records (16 B
+    each), each sorting warp's counts and offsets by z bin, the bins'
+    starts and occupancy, a table offset for each staged row, and two
+    buffers of the 2C (or 4C, split) staged rows of tile / 2 + 1 words."""
     A = 2 * prm.C
     nst = 2 * A if split else A
-    return 16 * P1_TILE + 4 * nst * P1_STRIDE + 4 * prm.zrows * A
+    zb = KERNEL_ZROWS_MAX
+    return (16 * tile + 4 * (2 * (tile // 32) * zb + zb + 4) + 4 * (zb // 32)
+            + 8 * nst + 8 * nst * (tile // 2 + 1))
 
 
-def stream_plan(prm: SlabKernelParams, split: bool, props, n):
-    """P1's blocks on a device with properties `props`: two an SM where
-    their shared memory fits, else one; no more than tiles of particles.
-    Raises ValueError when a block's 2C threads (rounded up to 32) or its
-    shared memory do not fit (nmax above 5)."""
-    if -(-2 * prm.C // 32) * 32 > P1_MAX_THREADS:
-        raise ValueError(f"slab_phasestream: {2 * prm.C} output rows exceed "
+@dataclass(frozen=True)
+class StreamPlan:
+    """P1's launch: tiles of `tile` particles, blocks of `threads` threads
+    and `smem` bytes of shared memory, `nblocks` blocks."""
+
+    tile: int
+    threads: int
+    nblocks: int
+    smem: int
+
+
+def stream_plan(prm: SlabKernelParams, split: bool, props, n) -> StreamPlan:
+    """P1's launch plan on a device with properties `props`: the largest
+    tile (P1_TILES) with which two blocks fit an SM's shared memory, else
+    the largest with which one fits; threads enough for the 2C output rows
+    and the tile's particles (rounded up to 32); two or one blocks an SM,
+    no more than tiles of particles.  Raises ValueError when the 2C rows
+    exceed P1_MAX_THREADS or no tile fits (nmax above 5)."""
+    A = 2 * prm.C
+    if -(-A // 32) * 32 > P1_MAX_THREADS:
+        raise ValueError(f"slab_phasestream: {A} output rows exceed "
                          f"a block's {P1_MAX_THREADS} threads")
-    smem = stream_smem_bytes(prm, split)
-    if smem > props.shared_memory_per_block_optin:
-        raise ValueError(f"slab_phasestream: {smem} B of shared memory a "
-                         "block exceeds the device's "
-                         f"{props.shared_memory_per_block_optin}")
-    per_sm = 2 if 2 * (smem + 1024) <= props.shared_memory_per_multiprocessor \
-        else 1
-    tiles = -(-n // P1_TILE)
-    return max(1, min(per_sm * props.multi_processor_count, tiles))
+    for per_sm in (2, 1):
+        for tile in P1_TILES:
+            smem = stream_smem_bytes(prm, split, tile)
+            if smem <= props.shared_memory_per_block_optin and \
+                    per_sm * (smem + 1024) <= \
+                    props.shared_memory_per_multiprocessor:
+                threads = max(-(-A // 32) * 32, tile)
+                tiles = -(-n // tile)
+                nblocks = max(1, min(per_sm * props.multi_processor_count,
+                                     tiles))
+                return StreamPlan(tile, threads, nblocks, smem)
+    raise ValueError(f"slab_phasestream: {stream_smem_bytes(prm, split, 64)}"
+                     " B of shared memory a block exceeds the device's "
+                     f"{props.shared_memory_per_block_optin}")
 
 
 def stream_coef(ph, x, mass, prm: SlabKernelParams):
@@ -562,18 +584,17 @@ def stream_coef(ph, x, mass, prm: SlabKernelParams):
                          f"tensor on {dev}")
     fn, err = _build.bind("slab_phasestream",
                           [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _F, _F, _P])
-    nblocks = stream_plan(prm, split, torch.cuda.get_device_properties(dev),
-                          n)
-    partial = torch.empty((nblocks, prm.zrows, 2 * prm.C),
+                           _I, _I, _I, _F, _F, _P])
+    plan = stream_plan(prm, split, torch.cuda.get_device_properties(dev), n)
+    partial = torch.empty((plan.nblocks, prm.zrows, 2 * prm.C),
                           dtype=torch.float32, device=dev)
     out = torch.empty((prm.C, prm.zrows, 2), dtype=torch.float32, device=dev)
-    vec = int(n % 8 == 0 and ph.data_ptr() % 16 == 0)
+    vec = int(n % 2 == 0 and ph.data_ptr() % 4 == 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(ph.data_ptr(), x.data_ptr(), mass.data_ptr(), n,
-                  partial.data_ptr(), out.data_ptr(), nblocks, int(split),
-                  vec, *_geometry_args(prm), stream)
+                  partial.data_ptr(), out.data_ptr(), plan.nblocks, plan.tile,
+                  plan.threads, int(split), vec, *_geometry_args(prm), stream)
     _build.raise_on(code, err, "slab_phasestream")
     launch_counts["slab_phasestream"] += 1
     return torch.view_as_complex(out)

@@ -25,6 +25,7 @@ the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import weakref
 from dataclasses import dataclass
@@ -664,10 +665,25 @@ def k1_row_bounds(Mh, lmax) -> np.ndarray:
     return out.astype(np.float32)
 
 
-#: host copies of the M given to sphere_coef: id -> (weak reference, the
-#: tensor's version, the f32 array of M and its row bounds), so each M is
-#: read back once
+def _on_host(cache, t, build):
+    """build(t as a contiguous f32 host array), computed once per tensor and
+    version: `cache` maps id(t) to (a weak reference to t, its version, the
+    result), and drops the entries of tensors that are gone."""
+    hit = cache.get(id(t))
+    if hit is not None and hit[0]() is t and hit[1] == t._version:
+        return hit[2]
+    out = build(np.ascontiguousarray(t.detach().cpu().numpy(),
+                                     dtype=np.float32))
+    for k in [k for k, v in cache.items() if v[0]() is None]:
+        del cache[k]
+    cache[id(t)] = (weakref.ref(t), t._version, out)
+    return out
+
+
+#: host copies of the M given to sphere_coef and the fac given to
+#: sphere_coef_rec (_on_host's caches)
 _host_m: dict = {}
+_host_fac: dict = {}
 
 
 def _m_on_host(M, lmax):
@@ -675,19 +691,14 @@ def _m_on_host(M, lmax):
     for K1's launch parameters, read from the device once per tensor and
     version; raises ValueError when M has nonzero entries outside
     k1_support."""
-    hit = _host_m.get(id(M))
-    if hit is not None and hit[0]() is M and hit[1] == M._version:
-        return hit[2]
-    Mh = np.ascontiguousarray(M.detach().cpu().numpy(), dtype=np.float32)
-    outside = np.count_nonzero(Mh[~k1_support(lmax)])
-    if outside:
-        raise ValueError(f"sphere_coef: M has {outside} nonzero entries "
-                         "outside the support K1 multiplies")
-    packed = np.concatenate([Mh.ravel(), k1_row_bounds(Mh, lmax)])
-    for k in [k for k, v in _host_m.items() if v[0]() is None]:
-        del _host_m[k]
-    _host_m[id(M)] = (weakref.ref(M), M._version, packed)
-    return packed
+    def build(Mh):
+        outside = np.count_nonzero(Mh[~k1_support(lmax)])
+        if outside:
+            raise ValueError(f"sphere_coef: M has {outside} nonzero entries "
+                             "outside the support K1 multiplies")
+        return np.concatenate([Mh.ravel(), k1_row_bounds(Mh, lmax)])
+
+    return _on_host(_host_m, M, build)
 
 
 def sphere_coef(x, mass, tab, M, prm: SphereKernelParams):
@@ -727,23 +738,118 @@ def sphere_coef(x, mass, tab, M, prm: SphereKernelParams):
     return coef
 
 
-def coef_rec_plan(prm: SphereKernelParams, props):
-    """K3's launch plan on a device with properties `props`: (rows a group
-    G, warps a block, blocks nbx along the particles).  A block holds fac
-    and, for each warp, a (G, rows) accumulator and a stage of 32
-    particles x G rows, as csrc/sphere_coef_rec.cu lays them out; G = 32 (a
-    lane a row) unless not even one warp's share fits, then halved.  nbx
-    fills the SMs once."""
+#: K3's most warps a block (kMaxThreads of csrc/sphere_coef_rec.cu)
+K3_WARPS = 16
+
+
+def k3_smem(prm: SphereKernelParams, nw: int, R: int) -> int:
+    """K3's shared memory a block of nw warps whose group has R rows, as
+    csrc/sphere_coef_rec.cu lays it out: each warp's 32 weight records
+    (float4) and its stage of 32 particles x (min(32, R) | 1) rows (a
+    chunk of up to 32 rows, odd stride), the group's (R, rows | 1) i32
+    sums, and a packed row and scale exponent a group row."""
+    return 4 * (nw * 32 * 4 + nw * 32 * (min(32, R) | 1)
+                + R * (prm.rows | 1) + R)
+
+
+def k3_groups(prm: SphereKernelParams, smem_optin) -> tuple:
+    """K3's groups of rows, as their boundaries (0, ..., P) in the order
+    the rows are made (m outer, l inner, cos then sin): one group wherever
+    the (P, rows) accumulator and one warp's stage fit a block, else the
+    fewest groups that fit, of balanced sizes.  Raises ValueError when not
+    even one row fits."""
     P = (prm.lmax + 1) ** 2
-    G = min(32, P)
-    while G >= 1:
-        for nw in range(8, 0, -1):
-            smem = 4 * (P + nw * G * (prm.rows | 1) + nw * 32 * ((G | 1) + 4))
-            if smem <= props.shared_memory_per_block_optin:
-                return G, nw, props.multi_processor_count
-        G //= 2
-    raise ValueError(f"sphere_coef_rec: a {prm.rows}-row table does not fit "
-                     "a block's shared memory")
+    if k3_smem(prm, 1, P) <= smem_optin:
+        return (0, P)
+    rmax = max((R for R in range(1, P)
+                if k3_smem(prm, 1, R) <= smem_optin), default=0)
+    if not rmax:
+        raise ValueError(f"sphere_coef_rec: a {prm.rows}-row table does not "
+                         "fit a block's shared memory")
+    ng = -(-P // rmax)
+    return tuple(g * P // ng for g in range(ng + 1))
+
+
+@dataclass(frozen=True)
+class SphereCoefRecPlan:
+    """K3's launch: a grid of `nblocks` x len(qstart) - 1 blocks of `nw`
+    warps and `smem` bytes of shared memory, group g of blocks owning the
+    rows [qstart[g], qstart[g + 1]); one block writes the coefficients
+    itself, several write partials that a second kernel of
+    `finish_threads` threads sums, its table slice staged in shared memory
+    when `finish_staged`."""
+
+    qstart: tuple
+    nw: int
+    nblocks: int
+    smem: int
+    finish_threads: int
+    finish_staged: bool
+
+
+def k3_finish(prm: SphereKernelParams, smem_optin):
+    """(threads, staged) of K3's second kernel (coef_reduce_slots,
+    csrc/sphere_coef_rec.cu): K1_FINISH_THREADS threads with the table's
+    (rows, nmax) slice staged in shared memory where that fits, else the
+    slice read from device memory, with the most threads (1024, 512, 256,
+    128) whose sums fit.  Raises ValueError when none fits."""
+    for staged in (True, False):
+        for t in (K1_FINISH_THREADS, 512, 256, 128):
+            if 4 * (prm.rows * (1 + (prm.nmax if staged else 0)) + t
+                    + 4 * prm.nmax) <= smem_optin:
+                return t, staged
+    raise ValueError(f"sphere_coef_rec: the second kernel's {prm.rows} "
+                     "table rows exceed a block's shared memory")
+
+
+@functools.lru_cache(maxsize=1024)
+def k3_plan(n, prm: SphereKernelParams, sm_count, smem_optin,
+            smem_per_sm) -> SphereCoefRecPlan:
+    """K3's launch plan for n rows: the groups of k3_groups; blocks of nw
+    <= K3_WARPS warps whose shared memory fits smem_optin, as many a SM as
+    smem_per_sm holds (at most 2), nw the most warps an SM (the larger nw
+    of a tie); warp tiles of 32 rows go to blocks by the row index alone,
+    tile t to block (t // nw) mod (blocks a SM x sm_count), so the grid is
+    the blocks that rows reach, at most that, and rows after the live ones
+    move no live tile (k1_plan's rule); the second kernel of k3_finish.
+    Cached: each launch asks for it."""
+    qstart = k3_groups(prm, smem_optin)
+    R = max(b - a for a, b in zip(qstart, qstart[1:]))
+
+    best = (0, 0, 0)                 # (warps an SM, warps, blocks an SM)
+    for w in range(1, K3_WARPS + 1):
+        smem = k3_smem(prm, w, R)
+        if smem <= smem_optin:
+            per_sm = max(1, min(2, smem_per_sm // (smem + 1024)))
+            best = max(best, (per_sm * w, w, per_sm))
+    _, nw, per_sm = best
+    tiles = -(-n // 32)
+    nblocks = max(1, min(-(-tiles // nw), per_sm * sm_count))
+    return SphereCoefRecPlan(qstart, nw, nblocks, k3_smem(prm, nw, R),
+                             *k3_finish(prm, smem_optin))
+
+
+def k3_row_bounds(fac, lmax) -> np.ndarray:
+    """(P,) f32 bounds of |Y_p| / w = |fac[l,m] P_lm(cos th) {cos, sin}(m
+    phi)| on the sphere, packed rows, which set K3's fixed-point scales:
+    |P_lm| <= sqrt((l+m)!/(l-m)!), over sqrt 2 for m > 0 (the addition
+    theorem: sum_m |Y_l^m|^2 = (2l+1)/4 pi), times |fac[l,m]|, with 1% to
+    spare for the f32 recurrences."""
+    fac = np.asarray(fac, dtype=np.float64)
+    out = []
+    for cs, l, m in packed_rows(lmax):
+        pb = math.sqrt(math.factorial(l + m) / math.factorial(l - m)
+                       / (2.0 if m else 1.0))
+        out.append(1.01 * abs(fac[l, m]) * pb)
+    return np.asarray(out, dtype=np.float32)
+
+
+def _fac_on_host(fac, lmax):
+    """fac ((lmax+1)^2) and its k3_row_bounds (P) as one contiguous f32
+    host array for K3's launch parameters, read from the device once per
+    tensor and version."""
+    return _on_host(_host_fac, fac, lambda fh: np.concatenate(
+        [fh.ravel(), k3_row_bounds(fh, lmax)]))
 
 
 def sphere_coef_rec(x, mass, tab, fac, prm: SphereKernelParams):
@@ -751,7 +857,8 @@ def sphere_coef_rec(x, mass, tab, fac, prm: SphereKernelParams):
 
     x (N, 3), mass (N,), tab (rows, F) as for sphere_coef, fac (L+1, L+1);
     all f32.  CPU tensors take sphere_coef_rec_plain; CUDA tensors launch
-    csrc/sphere_coef_rec.cu."""
+    csrc/sphere_coef_rec.cu with the plan of k3_plan (fac is read back to
+    the host once, for the launch parameters)."""
     if x.device.type == "cpu":
         return sphere_coef_rec_plain(x, mass, tab, fac, prm)
     if x.device.type != "cuda":
@@ -759,15 +866,27 @@ def sphere_coef_rec(x, mass, tab, fac, prm: SphereKernelParams):
     n, dev = _coef_inputs(x, mass, tab, prm, "sphere_coef_rec")
     lmax, nmax = prm.lmax, prm.nmax
     _build.check_tensor(fac, "fac", (lmax + 1, lmax + 1), dev)
-    G, nw, nbx = coef_rec_plan(prm, torch.cuda.get_device_properties(dev))
-    partial = torch.empty((nbx, (lmax + 1) ** 2, prm.rows),
-                          dtype=torch.float32, device=dev)
+    props = torch.cuda.get_device_properties(dev)
+    plan = k3_plan(n, prm, props.multi_processor_count,
+                   props.shared_memory_per_block_optin,
+                   props.shared_memory_per_multiprocessor)
+    consts = _fac_on_host(fac, lmax)
+    qstart = np.asarray(plan.qstart, dtype=np.int32)
+    ngroups = len(plan.qstart) - 1
+    partial = None
+    if plan.nblocks > 1 or ngroups > 1:
+        partial = torch.empty((plan.nblocks, (lmax + 1) ** 2, prm.rows),
+                              dtype=torch.float32, device=dev)
     coef = torch.empty((2, lmax + 1, lmax + 1, nmax), dtype=torch.float32,
                        device=dev)
     _launch("sphere_coef_rec",
-            [_P, _P, _LL, _P, _P, _P, _I, _I, _I, _P, *_GEOM, _I, _P],
-            (x.data_ptr(), mass.data_ptr(), n, fac.data_ptr(), tab.data_ptr(),
-             partial.data_ptr(), nbx, G, nw, coef.data_ptr(),
+            [_P, _P, _LL, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, *_GEOM, _I,
+             _P],
+            (x.data_ptr(), mass.data_ptr(), n, consts.ctypes.data,
+             qstart.ctypes.data, ngroups, tab.data_ptr(),
+             None if partial is None else partial.data_ptr(),
+             plan.nblocks, plan.nw, plan.finish_threads,
+             int(plan.finish_staged), coef.data_ptr(),
              *_geometry_args(prm), int(prm.interp == "hat")), dev)
     return coef
 

@@ -117,16 +117,22 @@ VARIANTS = {
 ORDER = ("full", "no_table", "no_recurrence", "no_gather", "full")
 
 
+def _source(src):
+    """A patch's file in the package: under csrc/ unless it names a
+    directory."""
+    return src if "/" in src else f"csrc/{src}"
+
+
 def patched_sources(patches, port=PORT):
-    """{source: text} of the csrc files of the package at `port` that
-    `patches` touch, each (source, old, new) patch applied once; raises
-    when a patch no longer matches its source."""
+    """{source: text} of the files of the package at `port` that `patches`
+    touch, each (source, old, new) patch applied once; raises when a patch
+    no longer matches its source."""
     out = {}
     for src, old, new in patches:
-        text = out.get(src, (Path(port) / "csrc" / src).read_text())
+        text = out.get(src, (Path(port) / _source(src)).read_text())
         if text.count(old) != 1:
             raise ValueError(f"probe_accel_split: a patch no longer matches "
-                             f"csrc/{src}; update it with the kernel")
+                             f"{_source(src)}; update it with the kernel")
         out[src] = text.replace(old, new)
     return out
 
@@ -142,7 +148,7 @@ def make_variants(dest, variants=VARIANTS, port=PORT):
         shutil.copytree(port, root / "exp_tpu_torch",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         for src, text in patched_sources(patches, port).items():
-            (root / "exp_tpu_torch" / "csrc" / src).write_text(text)
+            (root / "exp_tpu_torch" / _source(src)).write_text(text)
         roots[name] = root
     return roots
 

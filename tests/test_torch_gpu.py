@@ -514,13 +514,62 @@ def _check_accel(a, p, a0, p0):
 @pytest.mark.parametrize("lmax", [0, 2, 4, 6, 8, 10])
 def test_k3_matches_plain_version(cuda, lmax, interp):
     """K3 against sphere_coef_rec_plain: max|dc|/max|c| < 1e-5 (f32 sums in
-    another order), masked rows 0, one launch a call."""
+    another order), masked rows 0, one launch a call; two launches agree
+    bit for bit, and zero-mass rows after the live ones change no bit (one
+    block, several, more rows than the SMs' blocks take at once), on a
+    few hundred live rows and on all of them.  lmax 10 'hat' (numr_c 512)
+    is the table whose rows K3 splits into two groups."""
     f, prm, x, m = _variant(cuda, lmax, interp, "recurrence")
-    _check_coef(lambda a, b: sk.sphere_coef_rec(a, b, f._radial_table(),
-                                                f.fac32, prm),
-                lambda a, b: sk.sphere_coef_rec_plain(a, b, f._radial_table(),
-                                                      f.fac32, prm),
+    tab = f._radial_table()
+
+    def fn(a, b):
+        return sk.sphere_coef_rec(a, b, tab, f.fac32, prm)
+
+    _check_coef(fn, lambda a, b: sk.sphere_coef_rec_plain(a, b, tab,
+                                                          f.fac32, prm),
                 x, m, "sphere_coef_rec")
+    props = torch.cuda.get_device_properties(0)
+    plan = sk.k3_plan(x.shape[0], prm, props.multi_processor_count,
+                      props.shared_memory_per_block_optin,
+                      props.shared_memory_per_multiprocessor)
+    assert len(plan.qstart) == (3 if (lmax, interp) == (10, "hat") else 2)
+    for live in (200, x.shape[0]):
+        ref = fn(x[:live].contiguous(), m[:live].contiguous())
+        assert torch.equal(ref, fn(x[:live].contiguous(),
+                                   m[:live].contiguous()))
+        for cap in (live + 1, 2 * live + 64,
+                    32 * sk.K3_WARPS * 2 * props.multi_processor_count * 3):
+            assert torch.equal(fn(*_padded(x, m, live, cap)), ref), \
+                (live, cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lmax,nc", [(4, 5000), (10, 5000), (4, 9000)])
+def test_k3_long_hat_tables(cuda, lmax, nc):
+    """K3 on 'hat' tables of many nodes (random values; the kernel does not
+    care where a table comes from): the rows split into several groups,
+    and at 9,000 nodes the second kernel reads its table slice from device
+    memory; against the plain version at 1e-5 of max|c|, bit for bit
+    under a second launch and under zero-mass padding."""
+    f, prm, x, m = _variant(cuda, lmax, "hat", "recurrence")
+    prm = dataclasses.replace(prm, nc=nc)
+    rng = np.random.default_rng(nc + lmax)
+    tab = torch.tensor(rng.normal(size=(prm.rows, (lmax + 1) * prm.nmax)),
+                       dtype=torch.float32, device=cuda)
+    x, m = x[:3000].contiguous(), m[:3000].contiguous()
+    props = torch.cuda.get_device_properties(0)
+    plan = sk.k3_plan(x.shape[0], prm, props.multi_processor_count,
+                      props.shared_memory_per_block_optin,
+                      props.shared_memory_per_multiprocessor)
+    assert len(plan.qstart) > 2
+    assert plan.finish_staged == (nc < 9000)
+    c = sk.sphere_coef_rec(x, m, tab, f.fac32, prm)
+    c0 = sk.sphere_coef_rec_plain(x, m, tab, f.fac32, prm)
+    torch.cuda.synchronize()
+    assert float((c - c0).abs().max()) <= 1e-5 * float(c0.abs().max())
+    assert torch.equal(c, sk.sphere_coef_rec(x, m, tab, f.fac32, prm))
+    xp, mp = _padded(x, m, x.shape[0], 4 * x.shape[0])
+    assert torch.equal(c, sk.sphere_coef_rec(xp, mp, tab, f.fac32, prm))
 
 
 @pytest.mark.gpu
@@ -736,7 +785,7 @@ def _p1_inputs(device, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [20_000, 20_003])
+@pytest.mark.parametrize("n", [20_000, 20_003, 2 ** 20 - 3])
 @pytest.mark.parametrize("interp", ["spline", "linear"])
 @pytest.mark.parametrize("split", [False, True], ids=["stream1", "stream2"])
 def test_p1_matches_plain_version(cuda, split, interp, n):
@@ -744,8 +793,8 @@ def test_p1_matches_plain_version(cuda, split, interp, n):
     max|G| and its k != 0 rows within 1e-4 of their own largest value (f32
     sums in another order; the k != 0 rows are shot noise); two launches
     agree bit for bit; the zero-mass and |z| > zmax rows add exactly 0 and
-    the rows at +-zmax count; one launch a call.  n = 20,003 takes the
-    unvectorised loads."""
+    the rows at +-zmax count; one launch a call.  n = 20,003 and
+    2^20 - 3 (odd) take the synchronous loads."""
     from exp_tpu_torch import probe_slab_phasestream as probe
     from exp_tpu_torch.ops import slab_kernels as lk
 

@@ -1,7 +1,9 @@
-"""The launch plans of K1 (ops/sphere_kernels.k1_plan) and K4
-(ops/cyl_kernels.coef_plan): pure arithmetic on the device's SM count and
-shared memory, checked here on the CPU at the H100's figures (132 SMs,
-232,448 bytes of shared memory a block) and at a smaller device's."""
+"""The launch plans of K1 (ops/sphere_kernels.k1_plan), K2 (k2_plan), K3
+(k3_plan), K4 (ops/cyl_kernels.coef_plan), K5 (accel_plan) and P1
+(ops/slab_kernels.stream_plan): pure arithmetic on the device's SM count
+and shared memory, checked here on the CPU at the H100's figures (132 SMs,
+232,448 bytes of shared memory a block) and at a smaller device's; and the
+split probes' patches against the kernels' sources."""
 
 import dataclasses
 
@@ -379,3 +381,242 @@ def test_accel_split_probe_patches_the_kernels(tmp_path):
     src, old, new = pa.VARIANTS["no_gather"][1][0]
     with pytest.raises(ValueError):
         pa.patched_sources([(src, new + "x", old)])
+
+
+# --------------------------------------------------------------------- K3
+
+@pytest.mark.parametrize("device", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("lmax", list(sk.REC_LMAX))
+@pytest.mark.parametrize("interp,nc", [("spline", 64), ("spline", 256),
+                                       ("hat", 128), ("hat", 512),
+                                       ("hat", 5000)])
+def test_k3_plan_uses_the_fewest_groups(device, lmax, interp, nc):
+    """One group of rows wherever the (P, rows) i32 accumulator and one
+    warp's stage fit a block; otherwise the fewest groups that fit,
+    ceil(P / the most rows that fit), of sizes within one row of each
+    other; the boundaries cover 0..P in order."""
+    sms, optin, per_sm_bytes = device
+    prm = _sphere(lmax=lmax, interp=interp, nc=nc)
+    P = (lmax + 1) ** 2
+    p = sk.k3_plan(1_048_576, prm, sms, optin, per_sm_bytes)
+    q = p.qstart
+    assert q[0] == 0 and q[-1] == P and list(q) == sorted(set(q))
+    sizes = [b - a for a, b in zip(q, q[1:])]
+    rmax = max(R for R in range(1, P + 1) if sk.k3_smem(prm, 1, R) <= optin)
+    assert (len(sizes) == 1) == (rmax == P)
+    assert len(sizes) == -(-P // rmax)
+    assert max(sizes) <= rmax and max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("lmax", list(sk.REC_LMAX))
+@pytest.mark.parametrize("nc", [64, 512, 2000, 5000, 20_000, 50_000])
+@pytest.mark.parametrize("interp", ["spline", "hat"])
+def test_k3_accepts_every_table_the_first_kernel_did(lmax, nc, interp):
+    """The first K3 (groups of G <= 32 rows, a private (G, rows) f32
+    accumulator a warp) ran any table with 4 (P + (rows | 1) + 160) bytes
+    <= a block's shared memory (G = 1, one warp); k3_plan plans each of
+    them, its blocks and its second kernel within a block's shared
+    memory."""
+    prm = _sphere(lmax=lmax, interp=interp, nc=nc)
+    P = (lmax + 1) ** 2
+    for sms, optin, per_sm_bytes in (H100, SMALL):
+        if 4 * (P + (prm.rows | 1) + 160) > optin:
+            continue
+        p = sk.k3_plan(1_048_576, prm, sms, optin, per_sm_bytes)
+        assert p.smem <= optin
+        assert 4 * (prm.rows * (1 + (prm.nmax if p.finish_staged else 0))
+                    + p.finish_threads + 4 * prm.nmax) <= optin
+        assert p.finish_threads % 128 == 0 and p.finish_threads >= 4 * prm.nmax
+
+
+@pytest.mark.parametrize("device", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("lmax,interp,nc", [(4, "spline", 256),
+                                            (4, "hat", 512),
+                                            (10, "spline", 256),
+                                            (10, "hat", 512), (0, "hat", 64)])
+def test_k3_row_to_block_assignment_is_independent_of_n(device, lmax, interp,
+                                                        nc):
+    """Tile t (rows 32 t .. 32 t + 31) runs on block (t // nw) mod nblocks
+    of each group (csrc/sphere_coef_rec.cu); the plan's nblocks makes that
+    (t // nw) mod V for every tile of every n, V the blocks a SM the shared
+    memory allows (at most 2) times the SMs; the groups, the warps and the
+    shared memory do not depend on n, and the grid grows with n up to V."""
+    sms, optin, per_sm_bytes = device
+    prm = _sphere(lmax=lmax, interp=interp, nc=nc)
+    big = sk.k3_plan(1 << 30, prm, sms, optin, per_sm_bytes)
+    V = big.nblocks
+    assert V in (sms, 2 * sms)
+    assert (V == 2 * sms) == (2 * (big.smem + 1024) <= per_sm_bytes)
+    prev = 0
+    for n in SIZES:
+        p = sk.k3_plan(n, prm, sms, optin, per_sm_bytes)
+        assert (p.qstart, p.nw, p.smem) == (big.qstart, big.nw, big.smem)
+        tiles = np.arange(-(-n // 32))
+        assert np.array_equal((tiles // p.nw) % p.nblocks,
+                              (tiles // p.nw) % V)
+        assert 1 <= p.nblocks <= V and p.nblocks >= prev
+        assert p.nblocks == min(-(-len(tiles) // p.nw), V)
+        prev = p.nblocks
+
+
+@pytest.mark.parametrize("lmax", list(sk.REC_LMAX))
+@pytest.mark.parametrize("interp", ["spline", "hat"])
+@pytest.mark.parametrize("nc", [64, 128, 256, 512])
+def test_k3_layout_fits_and_matches_the_kernel(lmax, interp, nc):
+    """The plan's shared memory is what csrc/sphere_coef_rec.cu allocates
+    for its largest group of R rows: each warp's 32 weight records
+    (float4) and its stage of 32 particles x (min(32, R) | 1) words, the
+    group's (R, rows | 1) i32 accumulator and a word a group row (its
+    packed row and scale exponent); it fits; the warps an SM are the most
+    that fit (the larger block of a tie); the second kernel stages its
+    table slice, 1024 threads."""
+    prm = _sphere(lmax=lmax, interp=interp, nc=nc)
+    p = sk.k3_plan(1_048_576, prm, *H100)
+    R = max(b - a for a, b in zip(p.qstart, p.qstart[1:]))
+
+    def smem(nw):
+        return 4 * (nw * 32 * (4 + (min(32, R) | 1)) + R * (prm.rows | 1)
+                    + R)
+
+    def per_sm(nw):
+        return max(1, min(2, H100[2] // (smem(nw) + 1024)))
+
+    assert p.smem == sk.k3_smem(prm, p.nw, R) == smem(p.nw)
+    assert p.smem <= H100[1] and 1 <= p.nw <= sk.K3_WARPS
+    for w in range(1, sk.K3_WARPS + 1):
+        if smem(w) <= H100[1]:
+            assert (per_sm(w) * w, w) <= (per_sm(p.nw) * p.nw, p.nw)
+    assert (p.finish_threads, p.finish_staged) == (sk.K1_FINISH_THREADS,
+                                                   True)
+
+
+def test_k3_plan_at_the_benches_shapes():
+    """lmax 4 'spline' on 258 rows: one group, 16 warps, two blocks an SM,
+    264 blocks at 2^20 rows and one for a 224-row bucket; lmax 10 'spline'
+    one group of 121 rows, one block an SM; lmax 10 'hat' on 512 nodes two
+    groups of 60 and 61 rows."""
+    p = sk.k3_plan(1_048_576, SPHERE, *H100)
+    assert (p.qstart, p.nw, p.nblocks) == ((0, 25), 16, 264)
+    assert sk.k3_plan(224, SPHERE, *H100).nblocks == 1
+    p10 = sk.k3_plan(1_048_576, _sphere(lmax=10), *H100)
+    assert (p10.qstart, p10.nblocks) == ((0, 121), 132)
+    ph = sk.k3_plan(1_048_576, _sphere(lmax=10, interp="hat", nc=512), *H100)
+    assert ph.qstart == (0, 60, 121)
+
+
+@pytest.mark.parametrize("lmax", list(sk.REC_LMAX))
+@pytest.mark.parametrize("custom", [False, True], ids=["fac", "custom_fac"])
+def test_k3_row_bounds_hold_every_row_on_the_sphere(lmax, custom):
+    """K3's fixed-point scales rest on bound_p >= |Y_p| / w = |fac[l,m]
+    P_lm(cos th) {cos, sin}(m phi)|: held against the plain version's rows
+    (f32 recurrences, sphere_coef_rec_plain's) at 20,000 random directions
+    and at the poles and the equator, for the benches' fac and a custom
+    one; each bound is the addition theorem's times |fac| and 1.01."""
+    import math
+
+    import torch
+
+    from exp_tpu_torch.ops.special import _legendre_lists, real_ylm_norm
+    from exp_tpu_torch.ops.sphere_kernels import _trig_lists
+
+    fac = real_ylm_norm(lmax).numpy()
+    if custom:
+        fac = np.random.default_rng(lmax).uniform(0.1, 5.0, fac.shape)
+    u = np.random.default_rng(7).normal(size=(20_000, 3))
+    u = np.concatenate([u, [[0, 0, 1], [0, 0, -1], [1, 0, 0], [0, 1, 0],
+                            [1, 1, 0], [1e-7, 0, 1]]])
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    x = torch.tensor(u, dtype=torch.float32)
+    r = torch.sqrt((x * x).sum(dim=1)) + 1e-10
+    R = torch.sqrt(x[:, 0] ** 2 + x[:, 1] ** 2) + 1e-10
+    Pl = _legendre_lists(lmax, x[:, 2] / r)
+    cm, sm = _trig_lists(lmax, x[:, 0] / R, x[:, 1] / R)
+    bound = sk.k3_row_bounds(fac, lmax)
+    f32 = torch.tensor(fac, dtype=torch.float32)
+    for p, (cs, l, m) in enumerate(sk.packed_rows(lmax)):
+        y = (f32[l, m] * Pl[l][m] * (cm[m] if cs == 0 else sm[m])).abs()
+        assert float(y.max()) <= bound[p], (l, m, cs)
+        theorem = math.sqrt(math.factorial(l + m) / math.factorial(l - m)
+                            / (2.0 if m else 1.0))
+        assert bound[p] == np.float32(1.01 * abs(fac[l, m]) * theorem)
+
+
+# --------------------------------------------------------------------- P1
+
+@pytest.mark.parametrize("device", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("nmax", range(0, 6))
+@pytest.mark.parametrize("split", [False, True], ids=["stream1", "stream2"])
+@pytest.mark.parametrize("interp,nzc", [("spline", 126), ("linear", 128),
+                                        ("spline", 20)])
+def test_p1_plan_fits(device, nmax, split, interp, nzc):
+    """P1's plan: its shared memory is csrc/slab_phasestream.cu's layout
+    for the tile and fits a block and, with its blocks, an SM; the threads
+    cover the 2C output rows and the tile's particles, a multiple of 32,
+    at most P1_MAX_THREADS; the tile is the largest that fits two blocks
+    an SM where one does; no more blocks than tiles."""
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    sms, optin, per_sm_bytes = device
+    props = type("P", (), {"shared_memory_per_block_optin": optin,
+                           "shared_memory_per_multiprocessor": per_sm_bytes,
+                           "multi_processor_count": sms})
+    prm = lk.SlabKernelParams(nmaxx=nmax, nmaxy=nmax, nzc=nzc, zmax=0.1,
+                              interp=interp)
+    assert prm.zrows <= lk.KERNEL_ZROWS_MAX
+    A = 2 * prm.C
+    nst = 2 * A if split else A
+    if lk.stream_smem_bytes(prm, split, min(lk.P1_TILES)) > optin:
+        with pytest.raises(ValueError, match="shared memory"):
+            lk.stream_plan(prm, split, props, 1000)
+        return
+    for n in (1, 1000, 2 ** 20):
+        p = lk.stream_plan(prm, split, props, n)
+        assert p.tile in lk.P1_TILES
+        assert p.smem == lk.stream_smem_bytes(prm, split, p.tile) == (
+            16 * p.tile + 4 * (2 * (p.tile // 32) * 128 + 132) + 16
+            + 8 * nst + 8 * nst * (p.tile // 2 + 1))
+        assert p.smem <= optin
+        per_sm = -(-p.nblocks // sms) if n == 2 ** 20 else 1
+        assert per_sm * (p.smem + 1024) <= per_sm_bytes
+        assert p.threads % 32 == 0 and p.threads <= lk.P1_MAX_THREADS
+        assert p.threads >= max(A, p.tile)
+        assert 1 <= p.nblocks <= -(-n // p.tile)
+        two = [t for t in lk.P1_TILES
+               if 2 * (lk.stream_smem_bytes(prm, split, t) + 1024)
+               <= per_sm_bytes]
+        if two:
+            assert p.tile == two[0]
+
+
+def test_p1_plan_refuses_nmax_6():
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    props = type("P", (), {"shared_memory_per_block_optin": H100[1],
+                           "shared_memory_per_multiprocessor": H100[2],
+                           "multi_processor_count": H100[0]})
+    prm = lk.SlabKernelParams(nmaxx=6, nmaxy=6, nzc=126, zmax=0.1,
+                              interp="spline")
+    with pytest.raises(ValueError, match="threads"):
+        lk.stream_plan(prm, False, props, 100)
+
+
+def test_rec_split_probe_patches_the_kernels(tmp_path):
+    """probe_rec_split's variants: each patch matches its source once (so
+    the probe times the kernels as they are), every variant's patched
+    sources differ from the kernels', and a patch that no longer matches
+    raises."""
+    from exp_tpu_torch import probe_rec_split as pr
+    from exp_tpu_torch.probe_accel_split import make_variants, patched_sources
+
+    roots = make_variants(tmp_path, pr.VARIANTS)
+    assert set(roots) == set(pr.VARIANTS)
+    for name, root in roots.items():
+        srcs = {s for s, _, _ in pr.VARIANTS[name][1]}
+        assert bool(srcs) == (name != "full")
+        for src in srcs:
+            path = src if "/" in src else f"csrc/{src}"
+            text = (root / "exp_tpu_torch" / path).read_text()
+            assert text != (pr.PORT / path).read_text()
+    src, old, new = pr.VARIANTS["no_rows"][1][0]
+    with pytest.raises(ValueError):
+        patched_sources([(src, new + "x", old)])

@@ -174,9 +174,10 @@ def test_probe_check_and_refusals():
     props = type("P", (), {"shared_memory_per_block_optin": 232448,
                            "shared_memory_per_multiprocessor": 233472,
                            "multi_processor_count": 132})
-    assert sk.stream_plan(prm, False, props, 2 ** 20) == 264
-    assert sk.stream_plan(prm, True, props, 2 ** 20) == 132
-    assert sk.stream_plan(prm, True, props, 1) == 1
+    for split, tile in ((False, 128), (True, 64)):
+        p = sk.stream_plan(prm, split, props, 2 ** 20)
+        assert (p.tile, p.threads, p.nblocks) == (tile, 192, 264)
+    assert sk.stream_plan(prm, True, props, 1).nblocks == 1
     with pytest.raises(ValueError, match="threads"):
         sk.stream_plan(probe.probe_params(nmax=6), False, props, 100)
     with pytest.raises(RuntimeError, match="times the card"):
