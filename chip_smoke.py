@@ -125,10 +125,13 @@ import sys
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
-# outside the tensor cores.  A bound is the larger of bytes / HBM rate and
-# operations / FP32 rate.
+# outside the tensor cores, dense TF32 FLOP/s on the tensor cores.  A bound
+# is the larger of bytes / HBM rate and operations / FP32 rate; the cube
+# kernels, whose products run as three TF32 passes, also carry the bound of
+# that route (tc_bound_ms).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 N = 1_048_576
 STEPS = 50
@@ -511,43 +514,75 @@ def _cube_phase_ops(nmaxx, nmaxy, nmaxz):
     return 3 + 6 + 6 * (nmaxx + nmaxy + nmaxz)
 
 
+def _cube_half_pairs(nmaxx, nmaxy):
+    """(pairs, pairs with kx > 0) of the half (kx, ky) lattice: kx = 0 with
+    ky >= 0, then kx > 0 with every ky ((kx ky + 1) / 2 in all)."""
+    ky = 2 * nmaxy + 1
+    return (nmaxy + 1) + nmaxx * ky, nmaxx * ky
+
+
 def k7_work(n, nmaxx, nmaxy, nmaxz):
-    """Bytes and FP32 operations the function of K7 needs at least (an FMA
-    counts 2), not the kernel's own arithmetic.  A real mass gives S(-k) =
-    conj S(k), so only (K + 1) / 2 of the K lattice points need a sum: per
-    particle the phase rows (_cube_phase_ops), m e_z (2 per kz), e_x e_y for
-    the half of the (kx, ky) pairs (a complex product, 6, each) and one
-    complex multiply-add (4 FMAs) into each of the (K + 1) / 2 sums.
-    Bytes: x and mass in, the complex f32 lattice out."""
-    kx, ky, kz = 2 * nmaxx + 1, 2 * nmaxy + 1, 2 * nmaxz + 1
-    K = kx * ky * kz
-    per = (_cube_phase_ops(nmaxx, nmaxy, nmaxz) + 2 * kz
-           + 6 * (kx * ky + 1) // 2 + 8 * (K + 1) // 2)
-    return n * 16 + K * 8, n * per
+    """(bytes, FP32 operations, the operations of the folded product among
+    them) that the function of K7 needs at least (an FMA counts 2).
+
+    A real mass gives S(-k) = conj S(k), so only the half (kx, ky) lattice
+    (_cube_half_pairs) needs sums, and the kz axis folds into cosines and
+    sines: with XY = e_x^a e_y^b, U = sum m c_q XY and V = sum m s_q XY give
+    S(a, b, +-q) = U -+ i V.  So per particle: the phase rows
+    (_cube_phase_ops), m c_q and m s_q (2 nmaxz products), XY for the pairs
+    with kx > 0 (a complex product, 6, each) and the folded product, a real
+    times a complex multiply-add (4) for each pair and each of the 2 nmaxz +
+    1 columns; per lattice point, once, the combine U -+ i V (2).  The
+    einsum path's count, a complex multiply-add at each of the (K + 1) / 2
+    points, overstates this by ~2x.  Bytes: x and mass in, the complex f32
+    lattice out."""
+    kz = 2 * nmaxz + 1
+    K = (2 * nmaxx + 1) * (2 * nmaxy + 1) * kz
+    pairs, outer = _cube_half_pairs(nmaxx, nmaxy)
+    gemm = 4 * pairs * kz
+    per = _cube_phase_ops(nmaxx, nmaxy, nmaxz) + 2 * nmaxz + 6 * outer + gemm
+    return n * 16 + K * 8, n * per + 2 * K, n * gemm
 
 
 def k8_work(n, nmaxx, nmaxy, nmaxz):
-    """Bytes and FP32 operations the function of K8 needs at least (an FMA
-    counts 2), not the kernel's own arithmetic.  The outputs are real, so
-    the terms k and -k fold into one (Re and Im of conj z are Re z and
-    -Im z): (K + 1) / 2 lattice points and (kx ky + 1) / 2 (kx, ky) rows.
-    Per particle: the phase rows (_cube_phase_ops) and 2 pi kz e_z (2 per
-    kz); factored as the einsum path, two complex multiply-adds (8 FMAs)
-    at each point for t = sum b e_z and t_z = sum 2 pi kz b e_z; per row
-    e = e_x e_y and t e (6 each), pot, a_x and a_y from Re and Im t e (3
-    FMAs) and a_z from Im t_z e (2 FMAs).  Bytes: x and b in, acc and pot
-    out."""
-    kx, ky, kz = 2 * nmaxx + 1, 2 * nmaxy + 1, 2 * nmaxz + 1
-    K = kx * ky * kz
-    rows = (kx * ky + 1) // 2
-    per = (_cube_phase_ops(nmaxx, nmaxy, nmaxz) + 2 * kz
-           + 16 * (K + 1) // 2 + rows * (6 + 6 + 6 + 4))
-    return n * (12 + 16) + K * 8, n * per
+    """(bytes, FP32 operations, the operations of the folded product among
+    them) that the function of K8 needs at least (an FMA counts 2).
+
+    The outputs are real, so the terms k and -k fold into one, and the kz
+    axis folds into cosines and sines: per (kx, ky) row of the half lattice
+    (_cube_half_pairs), t = sum_q T_q e^{2 pi i q uz} and t_z (2 pi q T_q
+    inside) are real combinations of the 2 nmaxz + 1 phases [c_0..c_nz,
+    s_1..s_nz], whose coefficients fold from the table once a launch (not
+    counted: a few thousand operations).  Per particle: the phase rows
+    (_cube_phase_ops); the folded product, an FMA for each of the 4 real
+    columns (Re, Im of t and t_z) of each row and each phase; per row t e
+    (6), pot (1), a_z from Im t_z e (3 + 1), and for rows with kx > 0, e =
+    e_x^a e_y^b (6) and a_x (2), for rows with ky != 0, a_y (2).  The
+    einsum path's count, two complex multiply-adds at each of the (K + 1) /
+    2 points, overstates this by ~2x.  Bytes: x and the table in, acc and
+    pot out."""
+    kz = 2 * nmaxz + 1
+    rows, outer = _cube_half_pairs(nmaxx, nmaxy)
+    gemm = 8 * rows * kz
+    epi = 11 * rows + 8 * outer + 2 * (rows - (nmaxx + 1))
+    per = _cube_phase_ops(nmaxx, nmaxy, nmaxz) + gemm + epi
+    tab = (nmaxx + 1) * (2 * nmaxy + 1) * kz * 8
+    return n * (12 + 16) + tab, n * per, n * gemm
 
 
 def bound_ms(byts, ops):
     t_b = byts / HBM_BYTES_PER_S
     t_o = ops / FP32_FLOP_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def tc_bound_ms(byts, ops, gemm):
+    """The bound of the split-TF32 route (K7, K8): the larger of the
+    product's `gemm` operations as three TF32 passes on the tensor cores,
+    the rest of the operations in FP32 on the CUDA cores, and bytes / HBM
+    rate.  The two units run at the same time, so the times are not added."""
+    t_b = byts / HBM_BYTES_PER_S
+    t_o = max(3 * gemm / TF32_FLOP_PER_S, (ops - gemm) / FP32_FLOP_PER_S)
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -854,7 +889,7 @@ def cube_path(dev):
     w7 = k7_work(n, NMAX, NMAX, NMAX)
     w8 = k8_work(n, NMAX, NMAX, NMAX)
     rows = []
-    for name, line, src, fn, plain, err, (byts, ops), cnt in (
+    for name, line, src, fn, plain, err, (byts, ops, gemm), cnt in (
             ("cube_coef", "exp_tpu/ops/pallas_cube.py:332", "cube_coef",
              lambda: ck.cube_coef(x, m, prm),
              lambda: ck.cube_coef_plain(x, m, prm), errs["cube_coef"], w7,
@@ -872,7 +907,8 @@ def cube_path(dev):
              lambda: ck.cube_accel_plain(
                  x, ck.cube_force_table(ck.v1_matrix_to_b(Rr, Ri, prm), prm),
                  prm), err_v1, w8, launches_v1["cube_accel"])):
-        bms, by = bound_ms(byts, ops)
+        fp32_ms, _ = bound_ms(byts, ops)
+        bms, by = tc_bound_ms(byts, ops, gemm)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"exp_tpu_torch/csrc/{src}.cu", "replaces": line,
@@ -881,7 +917,9 @@ def cube_path(dev):
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "library_note": "no single PyTorch call computes this "
                             "non-uniform Fourier sum from x and mass",
-            "bytes": byts, "operations": ops})
+            "bound_route": "split TF32 on the tensor cores (tc_bound_ms)",
+            "fp32_bound_ms": fp32_ms, "bytes": byts, "operations": ops,
+            "product_operations": gemm})
     return rows
 
 

@@ -1,7 +1,8 @@
 """K1 (sphere coefficients, 'spline' and 'hat'), K2 (sphere force,
 'spline' and 'hat'), K4 (cylinder coefficients) and K5 (cylinder force)
-over the sizes of the composite's buckets; K3 (recurrence coefficients)
-and P1 (the slab phase-stream probe) when named.
+over the sizes of the composite's buckets; K3 (recurrence coefficients),
+P1 (the slab phase-stream probe), K7 and K8 (cube coefficients and force)
+when named.
 
     python exp_tpu_torch/bench_kernels.py [--root DIR] [--kernels K2,K5]
                                           [--sizes 224,1048576]
@@ -28,7 +29,10 @@ and K5halo, K5 on the sphere's sample: rows beyond the table sphere, as
 the composite's halo under the disk's force; K3 and K3hat, K3 on the
 sphere's sample under 'spline' and 'hat', K3L10, K3 on the lmax 10
 tables; P1s1 and P1s2, P1 stream1 and stream2 on the phase-stream probe's
-sample cut to each size, its phase table made outside the timing).
+sample cut to each size, its phase table made outside the timing; K7 and
+K8, the cube kernels at nmax 6 on the cube bench's uniform sample, K8 on
+the table of the whole sample's coefficients: time them with `--sizes
+4194304`, the cube path's size).
 `--sizes` replaces the sweep's sizes.  Each row carries a digest of the
 kernel's output at that size (sha256 of its bytes), so that two
 checkouts' bits can be compared.  `--form small` or `large`
@@ -147,7 +151,8 @@ KERNELS = ("K1", "K1hat", "K2", "K2hat", "K4", "K5")
 # (the composite's halo under the disk's force: rows beyond the table
 # sphere, whose nodes are few), K3 off the main path ('spline', 'hat',
 # lmax 10) and P1 (stream1, stream2)
-EXTRA = ("K2L10", "K5halo", "K3", "K3hat", "K3L10", "P1s1", "P1s2")
+EXTRA = ("K2L10", "K5halo", "K3", "K3hat", "K3L10", "P1s1", "P1s2", "K7",
+         "K8")
 # the csrc sources each kernel's timing builds (the force kernels' tables
 # come from the coefficient kernels)
 SOURCES = {"K1": ("sphere_coef",), "K1hat": ("sphere_coef",),
@@ -158,11 +163,13 @@ SOURCES = {"K1": ("sphere_coef",), "K1hat": ("sphere_coef",),
            "K5halo": ("cyl_coef", "cyl_accel"),
            "K3": ("sphere_coef_rec",), "K3hat": ("sphere_coef_rec",),
            "K3L10": ("sphere_coef_rec",),
-           "P1s1": ("slab_phasestream",), "P1s2": ("slab_phasestream",)}
+           "P1s1": ("slab_phasestream",), "P1s2": ("slab_phasestream",),
+           "K7": ("cube_coef",), "K8": ("cube_coef", "cube_accel")}
 SPHERE_KEYS = {"K1", "K1hat", "K2", "K2hat", "K2L10", "K5halo", "K3",
                "K3hat", "K3L10"}
 LMAX10_KEYS = {"K2L10", "K3L10"}
 P1_KEYS = {"P1s1": False, "P1s2": True}        # key: split table
+CUBE_KEYS = {"K7", "K8"}
 
 
 def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1],
@@ -173,7 +180,8 @@ def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1],
     rows on the card, for the kernels `keys`: {"K1": (force, x, m),
     "K1hat": ..., "K2": the same as "K1", ..., "K5halo": the disk's force
     on the sphere's sample, "K3": the 'recurrence' force, ..., "P1s1":
-    (the probe's SlabKernelParams, its sample)}."""
+    (the probe's SlabKernelParams, its sample), "K7" and "K8": the cube
+    bench's force and uniform sample}."""
     import torch
 
     from exp_tpu_torch.bench_disk import disk_force, disk_sample
@@ -201,6 +209,14 @@ def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1],
                   for a in probe.probe_sample(n_max))
         out.update({k: (probe.probe_params(), xp, mp) for k in P1_KEYS
                     if k in keys})
+    if CUBE_KEYS & set(keys):
+        from exp_tpu_torch.bench_cube import cube_force, cube_sample
+
+        xc, _, mc = cube_sample(n_max)
+        xc, mc = (torch.tensor(a, dtype=torch.float32, device=dev)
+                  for a in (xc, mc))
+        f = cube_force(dev)
+        out.update({k: (f, xc, mc) for k in CUBE_KEYS if k in keys})
     if {"K4", "K5", "K5halo"} & set(keys):
         xd, _, md = disk_sample(n_max)
         f = disk_force(disk_tables, dev)
@@ -220,6 +236,7 @@ def kernel_fns(forces, form="default"):
     n ('default': the plan's choice)."""
     import torch
 
+    from exp_tpu_torch.ops import cube_kernels as qk
     from exp_tpu_torch.ops import cyl_kernels as ck
     from exp_tpu_torch.ops import slab_kernels as lk
     from exp_tpu_torch.ops import sphere_kernels as sk
@@ -259,7 +276,14 @@ def kernel_fns(forces, form="default"):
                 lambda x, m, p=f, t=t: lk.stream_coef_plain(t(x), x, m, p))
             continue
         p = f._kernel_params()
-        if key in ("K3", "K3hat", "K3L10"):
+        if key == "K7":
+            out[key] = (lambda x, m, p=p: qk.cube_coef(x, m, p),
+                        lambda x, m, p=p: qk.cube_coef_plain(x, m, p))
+        elif key == "K8":
+            tab = qk.cube_force_table(f.coefficients(x, m) * f.norm, p)
+            out[key] = (lambda x, m, p=p, t=tab: qk.cube_accel(x, t, p),
+                        lambda x, m, p=p, t=tab: qk.cube_accel_plain(x, t, p))
+        elif key in ("K3", "K3hat", "K3L10"):
             tab = f._radial_table()
             out[key] = (
                 lambda x, m, f=f, p=p, tab=tab: sk.sphere_coef_rec(

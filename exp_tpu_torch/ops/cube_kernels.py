@@ -23,6 +23,12 @@ coef * norm folded onto the planes kx >= 0 as f32 (re, im) pairs, which
 holds each value once where the TPU's M2 = [[Rr, -Ri], [Ri, Rr]] held it
 twice and tripled it into three contraction paths.
 
+Both kernels fold the kz axis into cosines and sines and run the folded
+products on the tensor cores as split-TF32 mma.sync (csrc/tf32_mma.cuh);
+their launch plans (`coef_plan`, `accel_plan`) are pure arithmetic on the
+lattice and the device's figures: the grid, and K8's warps a block, which
+depend on the device; each kernel lays out its block itself.
+
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  `launch_counts` counts kernel
 launches, one per wrapper call that reaches the card.
@@ -45,6 +51,19 @@ launch_counts = {"cube_coef": 0, "cube_accel": 0}
 KERNEL_NMAX = range(0, 9)
 
 _TWO_PI = 2.0 * math.pi
+
+#: K7: particles a staged tile (8 k-steps of m16n8k8), pair groups (8 (kx,
+#: ky) pairs) a warp owns (csrc/cube_coef.cu kTile, kGroupsPerWarp), and the
+#: warps an SM the grid aims at
+K7_TILE = 64
+K7_GROUPS_PER_WARP = 3
+K7_WARPS_PER_SM = 16
+#: K8: particles a warp stages at once (two m-tiles), float2 a staged
+#: element (8 mod 16: csrc/cube_accel.cu kPw) and the most warps a block
+#: (one block an SM holds the whole folded table)
+K8_WARP_TILE = 32
+K8_STRIDE = K8_WARP_TILE + 8
+K8_MAX_WARPS = 16
 
 
 def reset_launch_counts() -> None:
@@ -69,6 +88,71 @@ class CubeKernelParams:
     def half_shape(self):
         """The folded lattice: the planes kx = 0..nmaxx."""
         return (self.nmaxx + 1, 2 * self.nmaxy + 1, 2 * self.nmaxz + 1)
+
+
+@dataclass(frozen=True)
+class CoefPlan:
+    """K7's launch: the half (kx, ky) lattice in `pairs` (kx = 0 with ky >=
+    0, then kx > 0; they size the block partials), the `warps` a block that
+    the kernel runs (each owns up to K7_GROUPS_PER_WARP groups of 8 pairs)
+    and `nblocks`."""
+
+    pairs: int
+    warps: int
+    nblocks: int
+
+
+def coef_plan(n, prm: CubeKernelParams, sms) -> CoefPlan:
+    """K7's launch plan for n particles on a device of `sms` SMs: enough
+    blocks for about K7_WARPS_PER_SM warps an SM, or one tile each when n is
+    small.  The row-to-block map depends on n only through the count of
+    blocks."""
+    pairs = (prm.nmaxy + 1) + prm.nmaxx * (2 * prm.nmaxy + 1)
+    warps = -(-pairs // (8 * K7_GROUPS_PER_WARP))
+    per_sm = max(1, K7_WARPS_PER_SM // warps)
+    nblocks = max(1, min(-(-n // K7_TILE), per_sm * sms))
+    return CoefPlan(pairs, warps, nblocks)
+
+
+@dataclass(frozen=True)
+class AccelPlan:
+    """K8's launch: the folded (kx, ky) `rows` in `groups` of 4, `ks`
+    k-steps of 8 kz phases, `elems` staged float2 a particle (its e_x and
+    e_y powers and split kz phases), the folded table's `table_bytes` (B
+    fragments and row records), a warp's stage `warp_bytes`, `warps` a
+    block, `smem` bytes and `nblocks`."""
+
+    rows: int
+    groups: int
+    ks: int
+    elems: int
+    table_bytes: int
+    warp_bytes: int
+    warps: int
+    smem: int
+    nblocks: int
+
+
+def accel_plan(n, prm: CubeKernelParams, sms, smem_optin) -> AccelPlan:
+    """K8's launch plan for n particles: by the block's layout in
+    csrc/cube_accel.cu (geometry(), smem_bytes()), one block an SM with as many warps (up to
+    K8_MAX_WARPS) as the shared memory left by the table holds, fewer
+    blocks when n is small.  Raises when not even one warp fits."""
+    ax, ky, kz = prm.nmaxx + 1, 2 * prm.nmaxy + 1, 2 * prm.nmaxz + 1
+    rows = (prm.nmaxy + 1) + prm.nmaxx * ky
+    groups = -(-rows // 4)
+    ks = -(-kz // 8)
+    elems = ax + ky + 8 * ks
+    table = 4 * (4 * 32 * 2 * ks * groups + 16 * groups)
+    warp = 8 * K8_STRIDE * elems
+    warps = min(K8_MAX_WARPS, (smem_optin - table) // warp)
+    if warps < 1:
+        raise ValueError(f"nmax {(prm.nmaxx, prm.nmaxy, prm.nmaxz)}: K8's "
+                         f"table ({table} bytes) leaves no room for a warp in "
+                         f"{smem_optin} bytes of shared memory")
+    nblocks = max(1, min(sms, -(-n // (warps * K8_WARP_TILE))))
+    return AccelPlan(rows, groups, ks, elems, table, warp, warps,
+                     table + warps * warp, nblocks)
 
 
 def check_params(prm: CubeKernelParams) -> None:
@@ -260,18 +344,16 @@ def cube_coef(x, mass, prm: CubeKernelParams):
     _build.check_tensor(mass, "mass", (n,), dev)
     fn, err = _build.bind("cube_coef", [_P, _P, _LL, _P, _I, _P, _I, _I, _I,
                                         _P])
-    # two blocks an SM (each holds 256 threads at ~100 registers), fewer
-    # when there are too few particles to give each block a tile
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nblocks = max(1, min(2 * sms, -(-n // 128)))
-    partial = torch.empty((nblocks, *prm.half_shape, 2), dtype=torch.float32,
-                          device=dev)
+    plan = coef_plan(
+        n, prm, torch.cuda.get_device_properties(dev).multi_processor_count)
+    partial = torch.empty((plan.nblocks, plan.pairs, prm.nmaxz + 1, 4),
+                          dtype=torch.float32, device=dev)
     out = torch.empty((*prm.shape, 2), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(x.data_ptr(), mass.data_ptr(), n, partial.data_ptr(),
-                  nblocks, out.data_ptr(), prm.nmaxx, prm.nmaxy, prm.nmaxz,
-                  stream)
+                  plan.nblocks, out.data_ptr(), prm.nmaxx, prm.nmaxy,
+                  prm.nmaxz, stream)
     _build.raise_on(code, err, "cube_coef")
     launch_counts["cube_coef"] += 1
     return torch.view_as_complex(out)
@@ -291,13 +373,18 @@ def cube_accel(x, tab, prm: CubeKernelParams):
     dev = x.device
     _build.check_tensor(x, "x", (n, 3), dev)
     _build.check_tensor(tab, "tab", (*prm.half_shape, 2), dev)
-    fn, err = _build.bind("cube_accel", [_P, _LL, _P, _P, _P, _I, _I, _I, _P])
+    fn, err = _build.bind("cube_accel", [_P, _LL, _P, _P, _P, _I, _I, _I, _I,
+                                         _I, _P])
+    props = torch.cuda.get_device_properties(dev)
+    plan = accel_plan(n, prm, props.multi_processor_count,
+                      props.shared_memory_per_block_optin)
     acc = torch.empty((n, 3), dtype=torch.float32, device=dev)
     pot = torch.empty((n,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(x.data_ptr(), n, tab.data_ptr(), acc.data_ptr(),
-                  pot.data_ptr(), prm.nmaxx, prm.nmaxy, prm.nmaxz, stream)
+                  pot.data_ptr(), prm.nmaxx, prm.nmaxy, prm.nmaxz,
+                  plan.nblocks, plan.warps, stream)
     _build.raise_on(code, err, "cube_accel")
     launch_counts["cube_accel"] += 1
     return acc, pot

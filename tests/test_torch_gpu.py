@@ -229,7 +229,7 @@ def test_cyl_step_on_card_matches_cpu(cuda, cyl_tables):
 # the wrap's edges (x = 1.0, -1e-7, -2.75, 3.25, 1000.3) and a zero-mass row
 CUBE_EDGE_X = [[1.0, -1e-7, -2.75], [3.25, 1000.3, 0.5],
                [-1e-7, 1.0, 1000.3], [-2.75, 3.25, 1.0], [0.3, 0.2, 0.1]]
-CUBE_NMAX = [(3, 3, 3), (6, 6, 6), (4, 3, 2), (0, 8, 1)]
+CUBE_NMAX = [(3, 3, 3), (6, 6, 6), (4, 3, 2), (0, 8, 1), (8, 8, 8)]
 
 
 def _cube_inputs(device, perturbed):
@@ -282,6 +282,47 @@ def test_cube_kernels_match_plain_versions(cuda, nmax, perturbed):
     assert torch.equal(a1, a) and torch.equal(p1, p)
     assert ck.launch_counts["cube_coef"] == before["cube_coef"] + 3
     assert ck.launch_counts["cube_accel"] == before["cube_accel"] + 2
+
+
+# ragged particle counts around K7's 64-particle tiles and K8's 32-particle
+# warp tiles (the bulk sample is 20,005 rows)
+CUBE_RAGGED_N = [1, 31, 33, 63, 65, 127, 4_097]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", CUBE_RAGGED_N)
+@pytest.mark.parametrize("nmax", [(6, 6, 6), (8, 8, 8)],
+                         ids=lambda p: "nmax%d%d%d" % p)
+def test_cube_kernels_at_ragged_sizes(cuda, nmax, n):
+    """K7 on the first n rows of the perturbed sample and K8 there in the
+    whole sample's field: the tiles' ragged tails are zero-filled, so the
+    sums hold the C2 tolerances (K7's of the uniform sample, 1e-4 of
+    max|c|: a few particles have no dominant mode; K8's 2e-5 of the
+    field's largest values over the sample, as C2 takes them), S stays
+    Hermitian bit for bit, and K8 writes its n rows.  (The field of a few
+    particles is no test of K8: its self-terms cancel to rounding, below
+    the plain version's own phase error.)"""
+    from exp_tpu_torch.forces.cube import Cube
+    from exp_tpu_torch.ops import cube_kernels as ck
+
+    f = Cube.create(*nmax, backend="pallas", device=cuda)
+    prm = f._kernel_params()
+    xb, mb = _cube_inputs(cuda, True)
+    x, m = xb[:n].contiguous(), mb[:n].contiguous()
+    S = ck.cube_coef(x, m, prm)
+    S0 = ck.cube_coef_plain(x, m, prm)
+    torch.cuda.synchronize()
+    c, c0 = -S * f.norm, -S0 * f.norm
+    assert float((c - c0).abs().max() / c0.abs().max()) < 1e-4
+    assert torch.equal(S, S.flip(0, 1, 2).conj())
+    b = -ck.cube_coef_plain(xb, mb, prm) * f.norm * f.norm
+    tab = ck.cube_force_table(b, prm)
+    a, p = ck.cube_accel(x, tab, prm)
+    a0, p0 = ck.cube_accel_plain(xb, tab, prm)      # the plain rows are
+    torch.cuda.synchronize()                         # independent
+    assert a.shape == (n, 3) and p.shape == (n,)
+    assert float((a - a0[:n]).abs().max()) <= 2e-5 * float(a0.abs().max())
+    assert float((p - p0[:n]).abs().max()) <= 2e-5 * float(p0.abs().max())
 
 
 @pytest.mark.gpu
