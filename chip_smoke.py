@@ -429,8 +429,8 @@ def k6_work(n, lmax, rows, Ms, interp="spline"):
     1/r and u (4), the monomials (n_mono - 4 products); per packed row the
     interpolation of pc and dpc ('spline': 2 x 3 FMAs; 'hat': 6), dpc
     d xi/dr and g, dg (4) and an FMA into each of the 5 sums (10); an FMA
-    for each nonzero entry of the [M; Mx; My; Mz] stack Ms (the nonzeros of
-    these matrices, fewer than K6 multiplies); the projection and the
+    for each nonzero entry of the [M; Mx; My; Mz] stack Ms (the entries K6
+    multiplies); the projection and the
     Cartesian step (25).  Bytes: x in, acc and pot out, twT and Ms once."""
     P = (lmax + 1) ** 2
     n_mono = (lmax + 1) * (lmax + 2) * (lmax + 3) // 6

@@ -1,8 +1,8 @@
 """K1 (sphere coefficients, 'spline' and 'hat'), K2 (sphere force,
 'spline' and 'hat'), K4 (cylinder coefficients) and K5 (cylinder force)
 over the sizes of the composite's buckets; K3 (recurrence coefficients),
-P1 (the slab phase-stream probe), K7 and K8 (cube coefficients and force)
-when named.
+K6 (poly force), P1 (the slab phase-stream probe), K7 and K8 (cube
+coefficients and force) and K9 (slab coefficients) when named.
 
     python exp_tpu_torch/bench_kernels.py [--root DIR] [--kernels K2,K5]
                                           [--sizes 224,1048576]
@@ -32,7 +32,9 @@ tables; P1s1 and P1s2, P1 stream1 and stream2 on the phase-stream probe's
 sample cut to each size, its phase table made outside the timing; K7 and
 K8, the cube kernels at nmax 6 on the cube bench's uniform sample, K8 on
 the table of the whole sample's coefficients: time them with `--sizes
-4194304`, the cube path's size).
+4194304`, the cube path's size; K6 and K6hat, K6 on the sphere's sample
+and its lmax 4 tables under pallas_harmonics 'poly', 'spline' and 'hat',
+Ms from poly_matrix_stack; K9, K9 on the slab bench's sheet, 'spline').
 `--sizes` replaces the sweep's sizes.  Each row carries a digest of the
 kernel's output at that size (sha256 of its bytes), so that two
 checkouts' bits can be compared.  `--form small` or `large`
@@ -151,8 +153,8 @@ KERNELS = ("K1", "K1hat", "K2", "K2hat", "K4", "K5")
 # (the composite's halo under the disk's force: rows beyond the table
 # sphere, whose nodes are few), K3 off the main path ('spline', 'hat',
 # lmax 10) and P1 (stream1, stream2)
-EXTRA = ("K2L10", "K5halo", "K3", "K3hat", "K3L10", "P1s1", "P1s2", "K7",
-         "K8")
+EXTRA = ("K2L10", "K5halo", "K3", "K3hat", "K3L10", "K6", "K6hat", "P1s1",
+         "P1s2", "K7", "K8", "K9")
 # the csrc sources each kernel's timing builds (the force kernels' tables
 # come from the coefficient kernels)
 SOURCES = {"K1": ("sphere_coef",), "K1hat": ("sphere_coef",),
@@ -163,13 +165,18 @@ SOURCES = {"K1": ("sphere_coef",), "K1hat": ("sphere_coef",),
            "K5halo": ("cyl_coef", "cyl_accel"),
            "K3": ("sphere_coef_rec",), "K3hat": ("sphere_coef_rec",),
            "K3L10": ("sphere_coef_rec",),
+           "K6": ("sphere_coef", "sphere_accel_poly"),
+           "K6hat": ("sphere_coef", "sphere_accel_poly"),
            "P1s1": ("slab_phasestream",), "P1s2": ("slab_phasestream",),
-           "K7": ("cube_coef",), "K8": ("cube_coef", "cube_accel")}
+           "K7": ("cube_coef",), "K8": ("cube_coef", "cube_accel"),
+           "K9": ("slab_coef",)}
 SPHERE_KEYS = {"K1", "K1hat", "K2", "K2hat", "K2L10", "K5halo", "K3",
-               "K3hat", "K3L10"}
+               "K3hat", "K3L10", "K6", "K6hat"}
+POLY_KEYS = {"K6": "spline", "K6hat": "hat"}
 LMAX10_KEYS = {"K2L10", "K3L10"}
 P1_KEYS = {"P1s1": False, "P1s2": True}        # key: split table
 CUBE_KEYS = {"K7", "K8"}
+SLAB_KEYS = {"K9"}
 
 
 def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1],
@@ -179,9 +186,10 @@ def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1],
     K3L10's on the lmax 10 `tables10`) and their benches' samples of n_max
     rows on the card, for the kernels `keys`: {"K1": (force, x, m),
     "K1hat": ..., "K2": the same as "K1", ..., "K5halo": the disk's force
-    on the sphere's sample, "K3": the 'recurrence' force, ..., "P1s1":
-    (the probe's SlabKernelParams, its sample), "K7" and "K8": the cube
-    bench's force and uniform sample}."""
+    on the sphere's sample, "K3": the 'recurrence' force, ..., "K6": the
+    'poly' force, "P1s1": (the probe's SlabKernelParams, its sample), "K7"
+    and "K8": the cube bench's force and uniform sample, "K9": the slab
+    bench's force and sheet}."""
     import torch
 
     from exp_tpu_torch.bench_disk import disk_force, disk_sample
@@ -202,6 +210,10 @@ def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1],
                                          interp), xs, ms)
         for key in sorted(LMAX10_KEYS & set(keys)):
             out[key] = (sphere_force(tables10, dev), xs, ms)
+        for key, interp in POLY_KEYS.items():
+            if key in keys:
+                out[key] = (sphere_force(sphere_tables, dev, "poly", interp),
+                            xs, ms)
     if set(P1_KEYS) & set(keys):
         from exp_tpu_torch import probe_slab_phasestream as probe
 
@@ -217,6 +229,13 @@ def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1],
                   for a in (xc, mc))
         f = cube_force(dev)
         out.update({k: (f, xc, mc) for k in CUBE_KEYS if k in keys})
+    if SLAB_KEYS & set(keys):
+        from exp_tpu_torch.bench_slab import slab_force, slab_sample
+
+        xl, _, ml = slab_sample(n_max)
+        xl, ml = (torch.tensor(a, dtype=torch.float32, device=dev)
+                  for a in (xl, ml))
+        out["K9"] = (slab_force(device=dev), xl, ml)
     if {"K4", "K5", "K5halo"} & set(keys):
         xd, _, md = disk_sample(n_max)
         f = disk_force(disk_tables, dev)
@@ -296,13 +315,23 @@ def kernel_fns(forces, form="default"):
                 lambda x, m, f=f, p=p, tab=tab: sk.sphere_coef(x, m, tab, f.Mp, p),
                 lambda x, m, f=f, p=p, tab=tab: sk.sphere_coef_plain(
                     x, m, tab, f.Mp, p))
-        elif key in ("K2", "K2hat", "K2L10"):
+        elif key == "K9":
+            out[key] = (lambda x, m, p=p: lk.slab_coef(x, m, p),
+                        lambda x, m, p=p: lk.slab_coef_plain(x, m, p))
+        elif key in ("K2", "K2hat", "K2L10", "K6", "K6hat"):
             # the contraction as SphereSL.acceleration makes it, spelled out
             # so that --root can time a checkout that predates accel_table
             c = f.coefficients(x, m)
             twT = (sk.contract_coef_table2(c, f.tabc_s, f.tabd_s, f.prows)
                    if p.interp == "spline"
                    else sk.contract_coef_table(c, f.tabc32, f.prows))
+            if key in POLY_KEYS:
+                out[key] = (
+                    lambda x, m, f=f, p=p, t=twT: sk.sphere_accel_poly(
+                        x, t, f.Ms, p),
+                    lambda x, m, f=f, p=p, t=twT: sk.sphere_accel_poly_plain(
+                        x, t, f.Ms, p))
+                continue
             out[key] = (
                 lambda x, m, f=f, p=p, t=twT: sk.sphere_accel(
                     x, t, f.fac32, p, **k2(x, p)),

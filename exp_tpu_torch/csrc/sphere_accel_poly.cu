@@ -14,44 +14,74 @@
 //   acc = -(u R / scale^2 + (T - u (u . T)) / (r scale))
 // The tangential projection T - u(u.T) is regular at the poles: no clamp.
 //
-// What bounds it on an H100: the per-particle arithmetic (16 bytes of
-// particle memory against ~1,100 FMAs at lmax 4: the 4P polynomial rows,
-// the interpolation of 2P table rows, the sums), on the CUDA cores.
+// What bounds it on an H100: the per-particle arithmetic (28 bytes of
+// particle memory against ~600 FP32 operations at lmax 4: the 215 nonzero
+// products of the stack, the interpolation of 2P table rows, the sums),
+// on the CUDA cores.  The first version multiplied every entry that
+// degree and parity allow (886 at lmax 4, of which 215 are nonzero), each
+// with a shared-memory load of its Ms entry, and kept its monomials in
+// local memory (a 144-byte stack frame at lmax 4, 368 with spills at 6):
+// 0.24 ms at 2^20 rows, of which its split put only 13% in the Ms loads
+// (PERF.md §6).
 //
-// Design: one thread per particle, grid-stride over a grid that fills the
-// card once, a template on LMAX (0..6, where the f32 monomials hold) so the
-// monomials and every row index are compile-time constants and live in
-// registers.  A value row of degree l is fit on the monomials of degree <= l
-// and of l's parity, so its gradient rows M D_j have degree <= l - 1 and the
-// other parity: the products over the other monomials are skipped at compile
-// time, and ops/sphere_kernels.poly_matrix_stack checks on the matrices
-// themselves that every skipped entry is zero.  Ms (66 KB at lmax 6) is
-// staged in shared memory and read at constant offsets (a broadcast); each
-// packed row is interpolated from twT as it is assembled, the table read
-// through L1/L2 (2 x 49 x 258 floats at lmax 6 'spline').
+// Design: one thread a particle, a template on LMAX (0..6, where the f32
+// monomials hold) and on the interpolation, so the monomials and every
+// row index are compile-time constants and live in registers.  Only the
+// nonzeros of the stack are multiplied: their pattern
+// (csrc/sphere_poly_support.cuh, generated from
+// ops/sphere_kernels.k6_support, which the wrapper checks Ms against) is
+// unrolled at compile time, and their values reach the kernel as a
+// parameter (MsNz, 860 bytes at lmax 4, 3.8 KB at 6), so each product
+// reads its factor from the constant bank at a fixed offset, with no
+// load.  A row's terms are added in the monomials' order, as the first
+// version added them (the skipped products were exact zeros).  Each
+// packed row is interpolated from twT as it is assembled, K2's row-major
+// table read through L1/L2 (2 x 49 x 258 floats at lmax 6 'spline'); the
+// outside derivative multiplies by 1/rs.  The launch covers the rows
+// (ops/sphere_kernels.k6_plan), so the launcher queries nothing.  No
+// stack frame at any lmax.  Measured (PERF.md §6; NVIDIA H100 80GB
+// HBM3, 700 W, 2^20 rows, lmax 4): ~0.069 ms 'spline', ~0.045 'hat', 3.5x
+// and 5x the first version, and below K2's 0.095 on the same function.
 #include <utility>
 
 #include "sphere_common.cuh"
+#include "sphere_poly_support.cuh"
 
 namespace {
 
 using sphere::nmono;
 using sphere::Params;
+using sphere::PolySupport;
 
-constexpr int kThreads = 256;
+// the nonzero entries of the stack, in PolySupport's order
+template <int L>
+struct MsNz {
+  float v[PolySupport<L>::kNnz];
+};
 
-// sum of Mrow[k] mono[k] over the monomials of degree D, D - 2, ... >= 0
-template <int D>
-__device__ __forceinline__ float poly_row(const float* Mrow, const float* mono) {
+// entry E of the pattern: its monomial, and the first entry of row R
+template <int L, int E>
+struct Col {
+  static constexpr int value = PolySupport<L>::col[E];
+};
+template <int L, int R>
+struct RowStart {
+  static constexpr int value = PolySupport<L>::start[R];
+};
+
+// sum over the nonzeros E0 + e of one stack row of v[E0 + e] mono[col]
+template <int L, int E0, int... e>
+__device__ __forceinline__ float dot_row(const MsNz<L>& M, const float* mono,
+                                         std::integer_sequence<int, e...>) {
   float s = 0.0f;
-  if constexpr (D >= 0) {
-#pragma unroll
-    for (int d = D & 1; d <= D; d += 2) {
-#pragma unroll
-      for (int k = sphere::mono_start(d); k < nmono(d); ++k) s += Mrow[k] * mono[k];
-    }
-  }
+  ((s += M.v[E0 + e] * mono[Col<L, E0 + e>::value]), ...);
   return s;
+}
+
+template <int L, int R>
+__device__ __forceinline__ float stack_row(const MsNz<L>& M, const float* mono) {
+  constexpr int e0 = RowStart<L, R>::value, e1 = RowStart<L, R + 1>::value;
+  return dot_row<L, e0>(M, mono, std::make_integer_sequence<int, e1 - e0>{});
 }
 
 struct Point {
@@ -59,22 +89,22 @@ struct Point {
   const float* att;    // (r_b/r)^(l+1), l = 0..L
   const float* tw;     // twT at the first node
   int rows;
-  float w0, w1, w2, idx, dxidr, rs;
-  bool outside, hat;
+  float w0, w1, w2, idx, dxidr, rsinv;
+  bool outside;
 };
 
 struct Sums {
   float pot, tx, ty, tz, r;
 };
 
-template <int L, int Pr>
-__device__ __forceinline__ void add_row(const Point& a, const float* Ms, Sums& s) {
-  constexpr int P = sphere::npacked(L), NM = nmono(L);
+template <int L, bool HAT, int Pr>
+__device__ __forceinline__ void add_row(const Point& a, const MsNz<L>& M, Sums& s) {
+  constexpr int P = sphere::npacked(L);
   constexpr int l = sphere::row_l(Pr, L);
   const float* t = a.tw + Pr * a.rows;
   const float ta = __ldg(t), tb = __ldg(t + 1);
   float pc, dpc;
-  if (a.hat) {   // each product rounded on its own, as the plain version
+  if constexpr (HAT) {   // each product rounded on its own, as the plain version
     pc = __fadd_rn(__fmul_rn(a.w0, ta), __fmul_rn(a.w1, tb));
     dpc = __fadd_rn(__fmul_rn(ta, -a.idx), __fmul_rn(tb, a.idx));
   } else {
@@ -85,90 +115,74 @@ __device__ __forceinline__ void add_row(const Point& a, const float* Ms, Sums& s
   dpc = dpc * a.dxidr;
   const float at = a.att[l];
   const float g = pc * at;
-  const float dg = a.outside ? -pc * ((float)(l + 1) * at) / a.rs : dpc * at;
-  const float y = poly_row<l>(Ms + Pr * NM, a.mono);
+  const float dg = a.outside ? -pc * ((float)(l + 1) * at) * a.rsinv : dpc * at;
+  const float y = stack_row<L, Pr>(M, a.mono);
   s.pot += y * g;
   s.r += y * dg;
-  s.tx += poly_row<l - 1>(Ms + (P + Pr) * NM, a.mono) * g;
-  s.ty += poly_row<l - 1>(Ms + (2 * P + Pr) * NM, a.mono) * g;
-  s.tz += poly_row<l - 1>(Ms + (3 * P + Pr) * NM, a.mono) * g;
+  s.tx += stack_row<L, P + Pr>(M, a.mono) * g;
+  s.ty += stack_row<L, 2 * P + Pr>(M, a.mono) * g;
+  s.tz += stack_row<L, 3 * P + Pr>(M, a.mono) * g;
 }
 
-template <int L, int... Pr>
-__device__ __forceinline__ void add_rows(const Point& a, const float* Ms, Sums& s,
+template <int L, bool HAT, int... Pr>
+__device__ __forceinline__ void add_rows(const Point& a, const MsNz<L>& M, Sums& s,
                                          std::integer_sequence<int, Pr...>) {
-  (add_row<L, Pr>(a, Ms, s), ...);
+  (add_row<L, HAT, Pr>(a, M, s), ...);
 }
 
-template <int L>
-__global__ void __launch_bounds__(kThreads)
+// HAT: the 'hat' interpolation (q.hat = 1), else 'spline'
+template <int L, bool HAT>
+__global__ void __launch_bounds__(256)
 accel_poly_kernel(const float* __restrict__ x, long long n,
-                  const float* __restrict__ twT, const float* __restrict__ Mg,
+                  const float* __restrict__ twT, const __grid_constant__ MsNz<L> M,
                   Params q, float* __restrict__ acc, float* __restrict__ pot) {
   constexpr int P = sphere::npacked(L), NM = nmono(L);
-  extern __shared__ float Ms[];                   // 4P x NM
-  for (int e = threadIdx.x; e < 4 * P * NM; e += blockDim.x) Ms[e] = Mg[e];
-  __syncthreads();
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float px = x[3 * i], py = x[3 * i + 1], pz = x[3 * i + 2];
+  const float r = sphere::radius(px, py, pz);   // the hat cell needs its ulp
+  const float rs = r / q.scale;
+  const bool outside = r > q.rb;
+  const float xi = sphere::ximap(fminf(rs, q.rmax), q);
+  const float dxidr = q.cmap == 1 ? 0.5f * (1.0f - xi) * (1.0f - xi) / q.rmap : 1.0f;
+  float w[3];
+  const int j0 = sphere::radial_weights(xi, q, w);
 
-  const int rows = sphere::table_rows(q);
-  const float idx = 1.0f / q.dxc;
-  const float s2inv = 1.0f / (q.scale * q.scale);
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const float px = x[3 * i], py = x[3 * i + 1], pz = x[3 * i + 2];
-    const float r = sphere::radius(px, py, pz);   // the hat cell needs its ulp
-    const float rs = r / q.scale;
-    const bool outside = r > q.rb;
-    const float xi = sphere::ximap(fminf(rs, q.rmax), q);
-    const float dxidr = q.cmap == 1 ? 0.5f * (1.0f - xi) * (1.0f - xi) / q.rmap : 1.0f;
-    float w[3];
-    const int j0 = sphere::radial_weights(xi, q, w);
-
-    const float base = outside ? q.rb / r : 1.0f;
-    float att[L + 1];
-    att[0] = base;
+  const float base = outside ? q.rb / r : 1.0f;
+  float att[L + 1];
+  att[0] = base;
 #pragma unroll
-    for (int l = 1; l <= L; ++l) att[l] = att[l - 1] * base;
+  for (int l = 1; l <= L; ++l) att[l] = att[l - 1] * base;
 
-    const float rinv = 1.0f / r;
-    const float ux = px * rinv, uy = py * rinv, uz = pz * rinv;
-    float mono[NM];
-    sphere::monomials<L>(mono, ux, uy, uz);
+  const float rinv = 1.0f / r;
+  const float ux = px * rinv, uy = py * rinv, uz = pz * rinv;
+  float mono[NM];
+  sphere::monomials<L>(mono, ux, uy, uz);
 
-    const Point a{mono, att, twT + j0, rows, w[0], w[1], w[2], idx, dxidr, rs,
-                  outside, q.hat != 0};
-    Sums s{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    add_rows<L>(a, Ms, s, std::make_integer_sequence<int, P>{});
+  const Point a{mono, att, twT + j0, sphere::table_rows(q), w[0], w[1], w[2],
+                1.0f / q.dxc, dxidr, 1.0f / rs, outside};
+  Sums s{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  add_rows<L, HAT>(a, M, s, std::make_integer_sequence<int, P>{});
 
-    const float uT = ux * s.tx + uy * s.ty + uz * s.tz;
-    const float rsinv = rinv / q.scale;
-    acc[3 * i] = -(ux * s.r * s2inv + (s.tx - ux * uT) * rsinv);
-    acc[3 * i + 1] = -(uy * s.r * s2inv + (s.ty - uy * uT) * rsinv);
-    acc[3 * i + 2] = -(uz * s.r * s2inv + (s.tz - uz * uT) * rsinv);
-    pot[i] = s.pot / q.scale;
-  }
+  const float uT = ux * s.tx + uy * s.ty + uz * s.tz;
+  const float s2inv = 1.0f / (q.scale * q.scale);
+  const float rsinv = rinv / q.scale;
+  acc[3 * i] = -(ux * s.r * s2inv + (s.tx - ux * uT) * rsinv);
+  acc[3 * i + 1] = -(uy * s.r * s2inv + (s.ty - uy * uT) * rsinv);
+  acc[3 * i + 2] = -(uz * s.r * s2inv + (s.tz - uz * uT) * rsinv);
+  pot[i] = s.pot / q.scale;
 }
 
 template <int L>
-cudaError_t launch(const float* x, long long n, const float* twT, const float* Ms,
-                   const Params& q, float* acc, float* pot, cudaStream_t stream) {
-  if (n == 0) return cudaSuccess;
-  const size_t smem = sizeof(float) * 4 * sphere::npacked(L) * nmono(L);
-  cudaError_t err = cudaFuncSetAttribute(
-      accel_poly_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, nsm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, accel_poly_kernel<L>,
-                                                           kThreads, smem)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long need = (n + kThreads - 1) / kThreads;
-  const long long full = (long long)nsm * per_sm;
-  const int grid = (int)(need < full ? need : full);
-  accel_poly_kernel<L><<<grid, kThreads, smem, stream>>>(x, n, twT, Ms, q, acc, pot);
+cudaError_t launch(const float* x, long long n, const float* twT, const float* Mnz,
+                   const Params& q, float* acc, float* pot, int threads, int blocks,
+                   cudaStream_t stream) {
+  MsNz<L> M;
+  for (int e = 0; e < PolySupport<L>::kNnz; ++e) M.v[e] = Mnz[e];
+  if (q.hat)
+    accel_poly_kernel<L, true><<<blocks, threads, 0, stream>>>(x, n, twT, M, q, acc, pot);
+  else
+    accel_poly_kernel<L, false><<<blocks, threads, 0, stream>>>(x, n, twT, M, q, acc, pot);
   return cudaGetLastError();
 }
 
@@ -177,29 +191,36 @@ cudaError_t launch(const float* x, long long n, const float* twT, const float* M
 extern "C" {
 
 // x (n, 3), twT the coefficient-contracted table ((2P, nc + 2) 'spline',
-// (P, nc) with hat = 1), Ms (4P, n_mono) from poly_matrix_stack; outputs acc
-// (n, 3) and pot (n,).  All f32, contiguous, on the current device.  Returns
-// a cudaError_t.
+// (P, nc) with hat = 1); outputs acc (n, 3) and pot (n,): f32, contiguous,
+// on the current device.  Ms_nz the nonzeros of the stack Ms (4P, n_mono)
+// in row-major order (ops/sphere_kernels.k6_support), f32 in host memory,
+// copied into the launch's parameters.  The plan (ops/sphere_kernels.
+// k6_plan): `blocks` blocks of `threads` threads (a multiple of 32, at
+// most 256) covering the n rows.  Returns a cudaError_t.
 int sphere_accel_poly_launch(const void* x, long long n, const void* twT,
-                             const void* Ms, void* acc, void* pot, int lmax,
-                             int nmax, int nc, int cmap, float xmin, float dxc,
-                             float rmin, float rmax, float rmap, float scale,
+                             const void* Ms_nz, void* acc, void* pot, int threads,
+                             int blocks, int lmax, int nmax, int nc, int cmap, float xmin,
+                             float dxc, float rmin, float rmax, float rmap, float scale,
                              float rb, int hat, void* stream) {
+  if (threads < 32 || threads > 256 || threads % 32 || blocks < 0 ||
+      (long long)blocks * threads < n)
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
   Params q{lmax, nmax, nc, cmap, xmin, dxc, rmin, rmax, rmap, scale, rb, hat};
   auto s = static_cast<cudaStream_t>(stream);
   auto xf = static_cast<const float*>(x);
   auto tf = static_cast<const float*>(twT);
-  auto mf = static_cast<const float*>(Ms);
+  auto mf = static_cast<const float*>(Ms_nz);
   auto af = static_cast<float*>(acc);
   auto pf = static_cast<float*>(pot);
   switch (lmax) {
-    case 0: return launch<0>(xf, n, tf, mf, q, af, pf, s);
-    case 1: return launch<1>(xf, n, tf, mf, q, af, pf, s);
-    case 2: return launch<2>(xf, n, tf, mf, q, af, pf, s);
-    case 3: return launch<3>(xf, n, tf, mf, q, af, pf, s);
-    case 4: return launch<4>(xf, n, tf, mf, q, af, pf, s);
-    case 5: return launch<5>(xf, n, tf, mf, q, af, pf, s);
-    case 6: return launch<6>(xf, n, tf, mf, q, af, pf, s);
+    case 0: return launch<0>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
+    case 1: return launch<1>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
+    case 2: return launch<2>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
+    case 3: return launch<3>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
+    case 4: return launch<4>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
+    case 5: return launch<5>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
+    case 6: return launch<6>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -57,10 +57,12 @@ launch_counts = {"slab_coef": 0, "slab_accel": 0, "slab_phasestream": 0}
 KERNEL_NMAX = range(0, 9)
 KERNEL_ZROWS_MAX = 128
 
-#: K9's particles a group per staged tile and its most groups a block
-#: (kTile and kMaxGroups of csrc/slab_coef.cu)
-K9_TILE = 64
-K9_MAX_GROUPS = 8
+#: K9's most groups a block, its most particles a tile, and its most
+#: threads a block (kMaxThreads of csrc/slab_coef.cu, which two blocks an
+#: SM fit in registers)
+K9_MAX_GROUPS = 32
+K9_MAX_TILE = 1024
+K9_MAX_THREADS = 576
 
 #: P1's tiles of particles, in the order its plan tries them, and its most
 #: threads a block (the TILE instantiations and kMaxThreads of
@@ -459,36 +461,78 @@ def _geometry_args(prm):
             prm.zmax, prm.dz)
 
 
-def coef_plan(prm: SlabKernelParams, props, n):
-    """K9's launch plan on a device with properties `props`: (groups a
-    block, blocks).  Two blocks an SM where their shared memory fits (one
-    block's staging then overlaps the other's sums), else one; as many
-    groups of H threads (rounded up to 32) a block as its share holds; no
-    more blocks than tiles of particles.  A group's shared memory is its
-    staged tile (w Wz and j0, the x powers and the y row of each particle)
-    and its (zrows, H) complex accumulator, as csrc/slab_coef.cu lays it
-    out."""
-    gt = -(-prm.H // 32) * 32
+def _round32(v):
+    return -(-v // 32) * 32
+
+
+def k9_smem(prm: SlabKernelParams, ng: int, tile: int) -> int:
+    """K9's shared memory a block of ng groups with tiles of `tile`
+    particles, in the order csrc/slab_coef.cu carves it (its Smem): the
+    tile's sorted records (w Wz, j0; 16 B), the (zrows, H) complex
+    accumulator, the sorted phase rows (nmaxx + 1 + 2 nmaxy + 1 complex a
+    particle), the side buffer (KZ - 1 complex rows of H a group), each
+    particle's bin and rank, each 32-particle chunk's counts by bin (nzc
+    rounded up to 32 bins), the bins' totals and the tile's count, and the
+    groups' parts and next j0.  The launcher refuses a smaller `smem`."""
+    kz = 3 if prm.interp == "spline" else 2
     row = prm.nmaxx + 1 + 2 * prm.nmaxy + 1
-    group_bytes = 16 * K9_TILE + 8 * K9_TILE * row + 8 * prm.H * prm.zrows
+    nbins = _round32(prm.nzc)
+    return (16 * tile + 8 * prm.zrows * prm.H + 8 * tile * row
+            + 8 * ng * (kz - 1) * prm.H + 4 * tile
+            + 4 * (tile // 32 + 1) * nbins + 4 + 4 * (2 * ng + 1))
+
+
+@dataclass(frozen=True)
+class SlabCoefPlan:
+    """K9's launch: `nblocks` blocks of `ng` groups of H threads (packed,
+    `threads` = ng H rounded up to 32), tiles of `tile` particles, and
+    `smem` bytes of shared memory a block."""
+
+    ng: int
+    tile: int
+    threads: int
+    nblocks: int
+    smem: int
+
+
+def k9_groups(prm: SlabKernelParams) -> list:
+    """K9's groups a block in the order its plan tries them: the fewest
+    idle lanes for each live one first (ng H threads rounded up to 32, at
+    most K9_MAX_THREADS), then more groups."""
+    H = prm.H
+    ok = [g for g in range(1, K9_MAX_GROUPS + 1)
+          if _round32(g * H) <= K9_MAX_THREADS]
+    return sorted(ok, key=lambda g: ((_round32(g * H) - g * H) / (g * H), -g))
+
+
+def coef_plan(prm: SlabKernelParams, props, n) -> SlabCoefPlan:
+    """K9's launch plan on a device with properties `props`.  Two blocks
+    an SM where their shared memory fits (one block's staging then
+    overlaps the other's walk), else one; the groups of k9_groups and the
+    largest tile (a multiple of 32, at most K9_MAX_TILE) that fits; no
+    more blocks than tiles of particles.  Raises ValueError when nothing
+    fits."""
     for per_sm in (2, 1):
         budget = min(props.shared_memory_per_block_optin,
                      props.shared_memory_per_multiprocessor // per_sm - 1024)
-        ng = min(budget // group_bytes, K9_MAX_GROUPS, 1024 // gt)
-        if ng >= 1:
-            break
-    else:
-        raise ValueError(f"slab_coef: one group ({group_bytes} B) exceeds a "
-                         "block's shared memory")
-    tiles = -(-n // (ng * K9_TILE))
-    return ng, max(1, min(per_sm * props.multi_processor_count, tiles))
+        for ng in k9_groups(prm):
+            fits = [t for t in range(32, K9_MAX_TILE + 1, 32)
+                    if k9_smem(prm, ng, t) <= budget]
+            if fits:
+                tile = fits[-1]
+                nblocks = max(1, min(per_sm * props.multi_processor_count,
+                                     -(-n // tile)))
+                return SlabCoefPlan(ng, tile, _round32(ng * prm.H), nblocks,
+                                    k9_smem(prm, ng, tile))
+    raise ValueError(f"slab_coef: the smallest block ({k9_smem(prm, 1, 32)}"
+                     " B) exceeds a block's shared memory")
 
 
 def slab_coef(x, mass, prm: SlabKernelParams):
     """K9: G (C, zrows) complex64 raw sums.
 
     x (N, 3), mass (N,), f32.  CPU tensors take slab_coef_plain; CUDA
-    tensors launch csrc/slab_coef.cu."""
+    tensors launch csrc/slab_coef.cu with the plan of coef_plan."""
     check_params(prm)
     if x.device.type == "cpu":
         return slab_coef_plain(x, mass, prm)
@@ -498,15 +542,16 @@ def slab_coef(x, mass, prm: SlabKernelParams):
     _build.check_tensor(x, "x", (n, 3), dev)
     _build.check_tensor(mass, "mass", (n,), dev)
     fn, err = _build.bind("slab_coef", [_P, _P, _LL, _P, _P, _I, _I, _I, _I,
-                                        _I, _I, _F, _F, _P])
-    ng, nblocks = coef_plan(prm, torch.cuda.get_device_properties(dev), n)
-    partial = torch.empty((nblocks, prm.zrows, prm.H, 2),
+                                        _I, _I, _I, _I, _F, _F, _P])
+    plan = coef_plan(prm, torch.cuda.get_device_properties(dev), n)
+    partial = torch.empty((plan.nblocks, prm.zrows, prm.H, 2),
                           dtype=torch.float32, device=dev)
     out = torch.empty((prm.C, prm.zrows, 2), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(x.data_ptr(), mass.data_ptr(), n, partial.data_ptr(),
-                  out.data_ptr(), ng, nblocks, *_geometry_args(prm), stream)
+                  out.data_ptr(), plan.ng, plan.tile, plan.nblocks, plan.smem,
+                  *_geometry_args(prm), stream)
     _build.raise_on(code, err, "slab_coef")
     launch_counts["slab_coef"] += 1
     return torch.view_as_complex(out)

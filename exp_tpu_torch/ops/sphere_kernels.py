@@ -77,10 +77,11 @@ def poly_matrix(lmax, fac_np=None) -> np.ndarray:
 
 
 def poly_support(lmax) -> np.ndarray:
-    """(4P, n_mono) bool: the entries of the [M; Mx; My; Mz] stack that K6
-    multiplies.  A value row of degree l is fit on the monomials of degree
-    <= l and of l's parity; its gradient rows on degree <= l - 1 and the
-    other parity.  K6 skips the rest at compile time."""
+    """(4P, n_mono) bool: the entries of the [M; Mx; My; Mz] stack that
+    degree and parity allow.  A value row of degree l is fit on the
+    monomials of degree <= l and of l's parity; its gradient rows on
+    degree <= l - 1 and the other parity.  A superset of k6_support (886
+    entries against 215 at lmax 4)."""
     from exp_tpu_torch.ops.solidharm import monomial_exponents
 
     deg = np.array([sum(e) for e in monomial_exponents(lmax)])
@@ -94,7 +95,7 @@ def poly_matrix_stack(lmax, fac_np=None) -> np.ndarray:
     """[M; Mx; My; Mz] (4P, n_mono) f32: the value rows of poly_matrix and
     their d/du_j rows M D_j (exp_tpu's _poly_matrices(accel=True),
     unpadded), rescaled to a custom `fac_np` when given.  Raises if any
-    entry K6 skips (outside poly_support) is nonzero."""
+    entry outside poly_support is nonzero."""
     from exp_tpu_torch.ops.solidharm import (harmonic_and_gradient_matrices,
                                              standard_fac)
 
@@ -109,8 +110,61 @@ def poly_matrix_stack(lmax, fac_np=None) -> np.ndarray:
     skipped = np.count_nonzero(Ms[~poly_support(lmax)])
     if skipped:
         raise ValueError(f"poly_matrix_stack: {skipped} nonzero entries lie "
-                         "outside the support K6 multiplies")
+                         "outside poly_support")
     return Ms
+
+
+#: the header of K6's nonzero pattern under csrc/, written by k6_header
+K6_HEADER = "sphere_poly_support.cuh"
+
+
+def k6_support(lmax) -> np.ndarray:
+    """(4P, n_mono) bool: the entries of the [M; Mx; My; Mz] stack that K6
+    multiplies, the nonzeros of poly_matrix_stack(lmax) (215 at lmax 4,
+    941 at 6).  The pattern is structural: a custom fac rescales whole
+    rows.  csrc/sphere_poly_support.cuh holds it (k6_header)."""
+    return poly_matrix_stack(lmax) != 0
+
+
+def k6_header() -> str:
+    """The text of csrc/sphere_poly_support.cuh: for each lmax of
+    POLY_LMAX, k6_support as compressed rows (the first entry of each of
+    the 4P stack rows, then each entry's monomial), which K6 unrolls at
+    compile time.  `python -m exp_tpu_torch.gen_k6_support` writes it."""
+    def ints(v, indent):
+        items = [f"{int(a)}" for a in v]
+        out, line = [], indent
+        for k, s in enumerate(items):
+            s += "," if k + 1 < len(items) else ""
+            if len(line) + len(s) > 88:
+                out.append(line.rstrip())
+                line = indent
+            line += s + " "
+        return "\n".join(out + [line.rstrip()])
+
+    parts = [
+        "// K6's nonzero pattern of the [M; Mx; My; Mz] stack "
+        "(csrc/sphere_accel_poly.cu),\n"
+        "// per lmax: the first entry of each of the 4P stack rows, then "
+        "each entry's\n"
+        "// monomial, in row-major order.  Generated from "
+        "ops/sphere_kernels.k6_support\n"
+        "// by `python -m exp_tpu_torch.gen_k6_support`; do not edit.\n"
+        "#pragma once\n\nnamespace sphere {\n\ntemplate <int L>\n"
+        "struct PolySupport;\n"]
+    for L in POLY_LMAX:
+        sup = k6_support(L)
+        start = np.concatenate([[0], np.cumsum(sup.sum(axis=1))])
+        col = np.nonzero(sup)[1]
+        parts.append(
+            f"\ntemplate <>\nstruct PolySupport<{L}> {{\n"
+            f"  static constexpr int kNnz = {len(col)};\n"
+            f"  static constexpr int start[{len(start)}] = {{\n"
+            f"{ints(start, '      ')}}};\n"
+            f"  static constexpr int col[{len(col)}] = {{\n"
+            f"{ints(col, '      ')}}};\n}};\n")
+    parts.append("\n}  // namespace sphere\n")
+    return "".join(parts)
 
 
 def packed_rows_tensor(lmax, device):
@@ -891,17 +945,6 @@ def sphere_coef_rec(x, mass, tab, fac, prm: SphereKernelParams):
     return coef
 
 
-def _accel_launch(name, x, twT, mat, prm):
-    n, dev = x.shape[0], x.device
-    acc = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    pot = torch.empty((n,), dtype=torch.float32, device=dev)
-    _launch(name, [_P, _LL, _P, _P, _P, _P, *_GEOM, _F, _I, _P],
-            (x.data_ptr(), n, twT.data_ptr(), mat.data_ptr(), acc.data_ptr(),
-             pot.data_ptr(), *_geometry_args(prm), prm.rmax * prm.scale,
-             int(prm.interp == "hat")), dev)
-    return acc, pot
-
-
 #: K2's threads a block, and the threads a SM up to which a bucket runs a
 #: particle on a group of lanes (csrc/sphere_accel.cu); past it, a thread
 #: a particle
@@ -997,13 +1040,58 @@ def sphere_accel(x, twT, fac, prm: SphereKernelParams, plan=None):
     return acc, pot
 
 
+#: K6's threads a block (at most; csrc/sphere_accel_poly.cu)
+K6_THREADS = 256
+
+
+@dataclass(frozen=True)
+class SphereAccelPolyPlan:
+    """K6's launch: `blocks` blocks of `threads` threads, a thread a row."""
+
+    threads: int
+    blocks: int
+
+
+def k6_plan(n, prm: SphereKernelParams, sm_count) -> SphereAccelPolyPlan:
+    """K6's launch plan for n rows on a device of `sm_count` SMs: blocks
+    of K6_THREADS threads, or, when those would leave SMs without a block,
+    of the fewest threads (a multiple of 32) that still give every SM one;
+    the blocks cover the rows, a thread each."""
+    check_params(prm, "sphere_accel_poly")
+    threads = K6_THREADS
+    while threads > 32 and -(-n // threads) < sm_count:
+        threads //= 2
+    return SphereAccelPolyPlan(threads, -(-n // threads))
+
+
+#: host copies of the Ms given to sphere_accel_poly (_on_host's cache)
+_host_ms: dict = {}
+
+
+def _ms_on_host(Ms, lmax):
+    """The nonzeros of Ms (k6_support, row-major) as one contiguous f32
+    host array for K6's launch parameters, read from the device once per
+    tensor and version; raises ValueError when Ms has nonzero entries
+    outside k6_support."""
+    def build(Mh):
+        sup = k6_support(lmax)
+        outside = np.count_nonzero(Mh[~sup])
+        if outside:
+            raise ValueError(f"sphere_accel_poly: Ms has {outside} nonzero "
+                             "entries outside the support K6 multiplies")
+        return np.ascontiguousarray(Mh[sup])
+
+    return _on_host(_host_ms, Ms, build)
+
+
 def sphere_accel_poly(x, twT, Ms, prm: SphereKernelParams):
     """K6: sphere force (acc (N, 3), pot (N,)) f32 from the polynomial
     harmonics.
 
     x (N, 3), twT as for sphere_accel, Ms (4P, n_mono) from
     poly_matrix_stack; all f32.  CPU tensors take sphere_accel_poly_plain;
-    CUDA tensors launch csrc/sphere_accel_poly.cu."""
+    CUDA tensors launch csrc/sphere_accel_poly.cu with the plan of k6_plan
+    (Ms is read back to the host once, for the launch parameters)."""
     if x.device.type == "cpu":
         return sphere_accel_poly_plain(x, twT, Ms, prm)
     if x.device.type != "cuda":
@@ -1012,4 +1100,15 @@ def sphere_accel_poly(x, twT, Ms, prm: SphereKernelParams):
     L = prm.lmax
     _build.check_tensor(Ms, "Ms", (4 * (L + 1) ** 2,
                                    (L + 1) * (L + 2) * (L + 3) // 6), dev)
-    return _accel_launch("sphere_accel_poly", x, twT, Ms, prm)
+    n = x.shape[0]
+    plan = k6_plan(n, prm, torch.cuda.get_device_properties(dev)
+                   .multi_processor_count)
+    Mnz = _ms_on_host(Ms, L)
+    acc = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    pot = torch.empty((n,), dtype=torch.float32, device=dev)
+    _launch("sphere_accel_poly",
+            [_P, _LL, _P, _P, _P, _P, _I, _I, *_GEOM, _F, _I, _P],
+            (x.data_ptr(), n, twT.data_ptr(), Mnz.ctypes.data, acc.data_ptr(),
+             pot.data_ptr(), plan.threads, plan.blocks, *_geometry_args(prm),
+             prm.rmax * prm.scale, int(prm.interp == "hat")), dev)
+    return acc, pot

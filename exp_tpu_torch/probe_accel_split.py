@@ -153,6 +153,32 @@ def make_variants(dest, variants=VARIANTS, port=PORT):
     return roots
 
 
+def time_variants(roots, variants, sizes, tag):
+    """Time each of `variants` from its copy in `roots` by bench_kernels.py
+    at `sizes` (a comma list), "full" first and last: a list of {variant,
+    kernel, ms: {n: ms}, digest: {n: digest}}, each also printed to stderr
+    after `tag`."""
+    out = []
+    for name in ["full", *(v for v in variants if v != "full"), "full"]:
+        kernels = variants[name][0]
+        res = subprocess.run([sys.executable, str(PORT / "bench_kernels.py"),
+                              "--root", str(roots[name]), "--kernels",
+                              kernels, "--sizes", sizes],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{tag} {name}: bench_kernels.py failed:\n"
+                               f"{res.stderr[-3000:]}")
+        sweep = json.loads(res.stdout.strip().splitlines()[-1])["sweep"]
+        for key in kernels.split(","):
+            rows = [r for r in sweep["rows"] if r["kernel"] == key]
+            out.append({"variant": name, "kernel": key,
+                        "ms": {r["n"]: r["device_ms"] for r in rows},
+                        "digest": {r["n"]: r["digest"] for r in rows}})
+            print(f"{tag} {name}: " + json.dumps(out[-1]), file=sys.stderr,
+                  flush=True)
+    return out
+
+
 def main(argv=None):
     import argparse
 

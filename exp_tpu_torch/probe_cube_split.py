@@ -54,11 +54,10 @@ from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
-from exp_tpu_torch.probe_accel_split import make_variants
+from exp_tpu_torch.probe_accel_split import make_variants, time_variants
 
 PORT = Path(__file__).resolve().parent
 SIZES = "4194304"
@@ -137,29 +136,6 @@ FIRST_VARIANTS = {
                       _F_K8_NO_TABLE_POS)),
     "no_loads": (K8, (_F_K8_NO_LOADS,)),
 }
-
-
-def run(roots, variants, sizes=SIZES):
-    """Time each of `variants` from its copy in `roots`, "full" first and
-    last: a list of {variant, kernel, ms: {n: ms}}."""
-    out = []
-    for name in ["full", *(v for v in variants if v != "full"), "full"]:
-        kernels = variants[name][0]
-        res = subprocess.run([sys.executable, str(PORT / "bench_kernels.py"),
-                              "--root", str(roots[name]), "--kernels",
-                              kernels, "--sizes", sizes],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"probe_cube_split {name}: bench_kernels.py "
-                               f"failed:\n{res.stderr[-3000:]}")
-        sweep = json.loads(res.stdout.strip().splitlines()[-1])["sweep"]
-        for key in kernels.split(","):
-            out.append({"variant": name, "kernel": key,
-                        "ms": {r["n"]: r["device_ms"] for r in sweep["rows"]
-                               if r["kernel"] == key}})
-            print(f"probe_cube_split {name}: " + json.dumps(out[-1]),
-                  file=sys.stderr, flush=True)
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +237,8 @@ def main(argv=None):
         else:
             variants = VARIANTS
             roots = make_variants(PORT / "_build" / "cubesplit", variants)
-        out["runs"] = run(roots, variants)
+        out["runs"] = time_variants(roots, variants, SIZES,
+                                    "probe_cube_split")
     print(json.dumps(out), flush=True)
     return 0
 

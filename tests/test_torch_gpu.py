@@ -410,7 +410,9 @@ def test_slab_kernels_match_plain_versions(cuda, nmax, interp):
     """K9: G over k != 0 within 1e-4 of its largest |G| (shot noise of the
     uniform (x, y)) and the k = 0 row within 1e-5 of its own; G(-k) =
     conj G(k) exactly (the kernel mirrors the half lattice); two launches
-    agree bit for bit; zero-mass and |z| > zmax rows give exactly 0.  K10:
+    agree bit for bit; zero-mass and |z| > zmax rows give exactly 0; the
+    same on a sheet with every particle on one z node and on one spread
+    over every node (K9's sort and the ends of its groups' parts).  K10:
     acc and pot within 2e-5 of their largest values.  Each wrapper call on
     the card counts one launch."""
     from exp_tpu_torch.basis.slab import build_slab_tables
@@ -448,6 +450,20 @@ def test_slab_kernels_match_plain_versions(cuda, nmax, interp):
     assert float((p - p0).abs().max()) <= 2e-5 * float(p0.abs().max())
     assert sk.launch_counts["slab_coef"] == before["slab_coef"] + 3
     assert sk.launch_counts["slab_accel"] == before["slab_accel"] + 1
+    # K9's sort and its window's edges: every particle on one z node, and
+    # particles spread over every node
+    rng = np.random.default_rng(5)
+    for z in (np.full(N, 0.0123), rng.uniform(-prm.zmax, prm.zmax, N)):
+        xs = torch.tensor(np.stack([rng.uniform(-1, 2, N), rng.uniform(-1, 2, N),
+                                    z], -1), dtype=torch.float32, device=cuda)
+        ms = torch.full((N,), 1.0 / N, device=cuda)
+        G, G0 = sk.slab_coef(xs, ms, prm), sk.slab_coef_plain(xs, ms, prm)
+        torch.cuda.synchronize()
+        dG = (G - G0).abs()
+        assert float(dG[kn].max() / G0[kn].abs().max()) < 1e-4
+        assert float(dG[ctr].max() / G0[ctr].abs().max()) < 1e-5
+        assert torch.equal(G, G.flip(0).conj())
+        assert torch.equal(G, sk.slab_coef(xs, ms, prm))
 
 
 @pytest.mark.gpu
@@ -618,7 +634,10 @@ def test_k3_long_hat_tables(cuda, lmax, nc):
 @pytest.mark.parametrize("lmax", [0, 2, 4, 6])
 def test_k6_matches_plain_version(cuda, lmax, interp):
     """K6 against sphere_accel_poly_plain: acc rtol 1e-4 / atol 1e-6, pot
-    rtol 1e-5 / atol 1e-7 (K2's gates), one launch a call."""
+    rtol 1e-5 / atol 1e-7 (K2's gates), one launch a call, on _inputs'
+    edge rows (the origin, rows beyond rmax, a zero-mass row), with the
+    force's Ms and with the Ms of a custom fac; two launches agree bit
+    for bit."""
     f, prm, x, m = _variant(cuda, lmax, interp, "poly")
     c0 = sk.sphere_coef_plain(x, m, f._radial_table(), f.Mp, prm)
     twT = _twt(f, c0)
@@ -626,6 +645,18 @@ def test_k6_matches_plain_version(cuda, lmax, interp):
     a, p = sk.sphere_accel_poly(x, twT, f.Ms, prm)
     _check_accel(a, p, *sk.sphere_accel_poly_plain(x, twT, f.Ms, prm))
     assert sk.launch_counts["sphere_accel_poly"] == before + 1
+    from exp_tpu_torch.ops.solidharm import standard_fac
+
+    # each harmonic rescaled by a factor in [0.5, 2]
+    fac = np.random.default_rng(lmax).uniform(0.5, 2.0, (lmax + 1, lmax + 1))
+    fac *= [[standard_fac(l, mm) if mm <= l else 0.0 for mm in range(lmax + 1)]
+            for l in range(lmax + 1)]
+    Ms = torch.tensor(sk.poly_matrix_stack(lmax, fac.astype(np.float32)),
+                      device=cuda)
+    a, p = sk.sphere_accel_poly(x, twT, Ms, prm)
+    _check_accel(a, p, *sk.sphere_accel_poly_plain(x, twT, Ms, prm))
+    a2, p2 = sk.sphere_accel_poly(x, twT, Ms, prm)
+    assert torch.equal(a, a2) and torch.equal(p, p2)
 
 
 @pytest.mark.gpu
@@ -669,6 +700,10 @@ def test_variant_wrappers_reject_bad_inputs(cuda):
         sk.sphere_accel_poly(x, twT.cpu(), f.Ms, prm)
     with pytest.raises(ValueError, match="lmax 0..6"):
         sk.sphere_accel_poly(x, twT, f.Ms, dataclasses.replace(prm, lmax=7))
+    Ms = f.Ms.clone()
+    Ms[~torch.as_tensor(sk.k6_support(prm.lmax), device=cuda)] = 0.5
+    with pytest.raises(ValueError, match="outside the support K6"):
+        sk.sphere_accel_poly(x, twT, Ms, prm)
     with pytest.raises(ValueError, match="lmax 0..10"):
         sk.sphere_coef_rec(x, m, tab, f.fac32, dataclasses.replace(prm, lmax=11))
 

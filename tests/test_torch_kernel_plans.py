@@ -620,3 +620,182 @@ def test_rec_split_probe_patches_the_kernels(tmp_path):
     src, old, new = pr.VARIANTS["no_rows"][1][0]
     with pytest.raises(ValueError):
         patched_sources([(src, new + "x", old)])
+
+
+# --------------------------------------------------------------------- K6
+
+def _header_patterns(text):
+    """{lmax: (start, col)} parsed from csrc/sphere_poly_support.cuh."""
+    import re
+
+    out = {}
+    for L, body in re.findall(r"struct PolySupport<(\d+)> \{(.*?)\n\};", text,
+                              re.S):
+        arrays = dict(re.findall(r"int (\w+)\[\d+\] = \{([^}]*)\}", body))
+        out[int(L)] = tuple(np.array([int(v) for v in arrays[k].split(",")])
+                            for k in ("start", "col"))
+    return out
+
+
+def test_k6_header_is_the_generators():
+    """The checked-in csrc/sphere_poly_support.cuh is what k6_header
+    writes (`python -m exp_tpu_torch.gen_k6_support`)."""
+    from exp_tpu_torch.gen_k6_support import HEADER
+
+    assert HEADER.read_text() == sk.k6_header()
+
+
+@pytest.mark.parametrize("lmax", list(sk.POLY_LMAX))
+def test_k6_header_holds_every_nonzero(lmax):
+    """The header's pattern at each lmax is k6_support: the nonzeros of
+    poly_matrix_stack (215 at lmax 4, 941 at 6), and it holds every
+    nonzero of the stack of a random custom fac (fac only rescales whole
+    rows)."""
+    from exp_tpu_torch.gen_k6_support import HEADER
+
+    start, col = _header_patterns(HEADER.read_text())[lmax]
+    sup = sk.k6_support(lmax)
+    assert np.array_equal(start, np.concatenate(
+        [[0], np.cumsum(sup.sum(axis=1))]))
+    assert np.array_equal(col, np.nonzero(sup)[1])
+    assert {4: 215, 6: 941}.get(lmax, len(col)) == len(col)
+    rng = np.random.default_rng(lmax)
+    fac = rng.uniform(-2.0, 2.0, (lmax + 1, lmax + 1)).astype(np.float32)
+    Ms = sk.poly_matrix_stack(lmax, fac)
+    assert not Ms[~sup].any()
+    assert np.count_nonzero(Ms) == len(col)
+
+
+def test_k6_refuses_ms_outside_its_support():
+    """The wrapper reads Ms's nonzeros (k6_support, row-major) for its
+    launch parameters and raises on a nonzero entry outside the
+    pattern."""
+    import torch
+
+    Ms = torch.tensor(sk.poly_matrix_stack(4))
+    nz = sk._ms_on_host(Ms, 4)
+    assert np.array_equal(nz, Ms.numpy()[sk.k6_support(4)])
+    bad = Ms.clone()
+    bad[0, 1] = 0.25                     # x in the l = 0 row
+    with pytest.raises(ValueError, match="outside the support K6"):
+        sk._ms_on_host(bad, 4)
+
+
+@pytest.mark.parametrize("sms", [132, 46])
+def test_k6_plan_covers_the_rows(sms):
+    """k6_plan: a thread a row, blocks of 32..256 threads (a multiple of
+    32), every block holding rows; 256 threads once the rows give every
+    SM a block of them, fewer (but at least 32) so that more SMs get one
+    below that; lmax above 6 refused."""
+    for n in [0] + SIZES:
+        p = sk.k6_plan(n, SPHERE, sms)
+        assert p.threads % 32 == 0 and 32 <= p.threads <= sk.K6_THREADS
+        assert p.blocks * p.threads >= n
+        assert p.blocks == -(-n // p.threads)
+        if n >= sk.K6_THREADS * sms:
+            assert p.threads == sk.K6_THREADS
+        elif p.threads > 32:
+            assert -(-n // p.threads) >= sms
+    with pytest.raises(ValueError, match="lmax 0..6"):
+        sk.k6_plan(1000, _sphere(lmax=7), 132)
+
+
+# --------------------------------------------------------------------- K9
+
+def _props(device):
+    import types
+
+    sms, optin, per_sm = device
+    return types.SimpleNamespace(multi_processor_count=sms,
+                                 shared_memory_per_block_optin=optin,
+                                 shared_memory_per_multiprocessor=per_sm)
+
+
+def _slab(nx, ny, nzc, interp):
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    return lk.SlabKernelParams(nx, ny, nzc, 0.1, interp)
+
+
+@pytest.mark.parametrize("device", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("interp,nzc", [("spline", 2), ("spline", 60),
+                                        ("spline", 126), ("linear", 2),
+                                        ("linear", 128)])
+def test_k9_plan_fits(device, interp, nzc):
+    """K9's coef_plan at every nmax 0..8 on each axis: groups of H packed
+    threads (ng H rounded up to 32, at most K9_MAX_THREADS), a tile a
+    multiple of 32, shared memory
+    (k9_smem) within a block's and, for two blocks an SM, within half the
+    SM's; blocks no more than the tiles and, at 2^20 rows, all the SMs'
+    blocks."""
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    props = _props(device)
+    for nx in lk.KERNEL_NMAX:
+        for ny in lk.KERNEL_NMAX:
+            prm = _slab(nx, ny, nzc, interp)
+            try:
+                p = lk.coef_plan(prm, props, 1 << 20)
+            except ValueError:
+                assert lk.k9_smem(prm, 1, 32) > min(device[1],
+                                                    device[2] - 1024)
+                continue
+            assert p.threads == -(-p.ng * prm.H // 32) * 32
+            assert p.threads <= lk.K9_MAX_THREADS
+            assert p.tile % 32 == 0 and 32 <= p.tile <= lk.K9_MAX_TILE
+            assert p.smem == lk.k9_smem(prm, p.ng, p.tile) <= device[1]
+            per_sm = -(-p.nblocks // device[0])
+            assert per_sm * (p.smem + 1024) <= device[2]
+            assert p.nblocks == min(per_sm * device[0], -(-(1 << 20) // p.tile))
+            assert lk.coef_plan(prm, props, 100).nblocks == -(-100 // p.tile)
+
+
+@pytest.mark.parametrize("device", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("interp", ["spline", "linear"])
+def test_k9_accepts_every_shape_the_first_kernel_did(device, interp):
+    """The first K9 (groups of H threads rounded up to 32, each with its
+    own (zrows, H) accumulator and a staged tile of 64 particles) ran any
+    shape whose group, 16 x 64 + 8 x 64 (nmaxx + 2 nmaxy + 2) + 8 H zrows
+    bytes, fit a block; coef_plan plans each of them."""
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    props = _props(device)
+    for nx in lk.KERNEL_NMAX:
+        for ny in lk.KERNEL_NMAX:
+            for nzc in range(2, 129 if interp == "linear" else 127, 9):
+                prm = _slab(nx, ny, nzc, interp)
+                row = nx + 1 + 2 * ny + 1
+                first = 16 * 64 + 8 * 64 * row + 8 * prm.H * prm.zrows
+                if first <= min(device[1], device[2] - 1024):
+                    assert lk.coef_plan(prm, props, 1 << 20).smem <= device[1]
+
+
+def test_k9_plan_at_the_benches_shapes():
+    """The slab bench (nmax 4 x 4, nzc 126, 'spline', 2^20 rows) on an
+    H100: 14 groups of 41 threads in 576 (2 idle), two blocks an SM."""
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    p = lk.coef_plan(_slab(4, 4, 126, "spline"), _props(H100), 1 << 20)
+    assert (p.ng, p.threads, p.nblocks) == (14, 576, 264)
+    assert 2 * (p.smem + 1024) <= H100[2]
+
+
+def test_poly_slab_split_probe_patches_the_kernels(tmp_path):
+    """probe_poly_slab_split's variants: each patch matches its source
+    once (so the probe times the kernels as they are), every variant's
+    patched sources differ from the kernels', and a patch that no longer
+    matches raises."""
+    from exp_tpu_torch import probe_poly_slab_split as pp
+    from exp_tpu_torch.probe_accel_split import make_variants, patched_sources
+
+    roots = make_variants(tmp_path, pp.VARIANTS)
+    assert set(roots) == set(pp.VARIANTS)
+    for name, root in roots.items():
+        srcs = {s for s, _, _ in pp.VARIANTS[name][1]}
+        assert bool(srcs) == (name != "full")
+        for src in srcs:
+            text = (root / "exp_tpu_torch" / "csrc" / src).read_text()
+            assert text != (pp.PORT / "csrc" / src).read_text()
+    src, old, new = pp.VARIANTS["no_walk"][1][0]
+    with pytest.raises(ValueError):
+        patched_sources([(src, new + "x", old)])
