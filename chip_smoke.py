@@ -72,12 +72,14 @@ Phases:
   SL1. the slab bench's tables on the host and the force on the card; the
      bench's sheet, a sample half outside |z| <= zmax, and edge rows;
   SL2. K9 and K10 ('spline' and 'linear') against their plain versions on
-     both samples plus edge rows, with the stated tolerances; the sheet's
-     mean field and the vacuum continuation beyond zmax;
+     both samples plus edge rows, with the stated tolerances, each
+     repeatable bit for bit; the sheet's mean field and the vacuum
+     continuation beyond zmax;
   SL3. the slab path: init + 50 KDK steps (dt=1e-3) of the bench's sheet,
      with each kernel's launch count, finiteness, the energy drift, the
      change of the horizontal momentum and of the sheet's thickness gated;
-  SL4. slab timing, as in phase 6;
+  SL4. slab timing, as in phase 6, with K10 also under 'linear' and on an
+     outside sample of 1,048,576 rows (the vacuum branch);
   V1. lmax=10, nmax=10, numr=2000 tables of the same halo beside phase 3's
      lmax=4 ones, and a force on the card for each setting: recurrence (K3 +
      K2), poly (K1 + K6), hat (K1-hat + K2-hat), hat + recurrence (K3-hat +
@@ -941,22 +943,6 @@ def slab_edge_rows(n_bulk):
     return x, m
 
 
-def slab_outside_sample(n, seed=11):
-    """Half of the particles inside the slab, half at zmax < |z| <= 3 zmax
-    of both signs (tests/test_slab_pallas.py:86-111): the bench's sheet
-    has none outside."""
-    import numpy as np
-
-    from exp_tpu_torch.bench_slab import ZMAX
-
-    rng = np.random.default_rng(seed)
-    h = n // 2
-    z_out = rng.uniform(ZMAX, 3 * ZMAX, n - h) * rng.choice([-1, 1], n - h)
-    z = np.concatenate([rng.normal(0, 0.02, h), z_out])
-    x = np.stack([rng.uniform(0, 1, n), rng.uniform(0, 1, n), z], -1)
-    return x, rng.uniform(0.5, 1.5, n) / n
-
-
 def _slab_phase_ops(nmaxx, nmaxy):
     """FP32 operations of one particle's phase rows, shared by K9 and K10:
     the two wraps (2), two sincos (2 each) and the powers by angle
@@ -997,27 +983,29 @@ def k9_work(n, n_in, nmaxx, nmaxy, zrows, kz):
     return n * 16 + C * zrows * 8, n + n_in * per_in
 
 
-def k10_work(n, n_out, nmaxx, nmaxy, zrows, kz):
+def k10_work(n, n_out, nmaxx, nmaxy, force_rows, kz):
     """Bytes and FP32 operations the function of K10 needs at least on
     these inputs (an FMA counts 2), not the kernel's own arithmetic.  The
     outputs are real, so the terms k and -k fold into one (the folded
     table of ops/slab_kernels.fold_half): H = (C + 1) / 2 wavevectors.  Per
     particle the phase rows (_slab_phase_ops), |z| - zmax and the side (3)
     and, per wavevector, e_h = e_x e_y (6).  Inside (n - n_out particles):
-    the grid position (3) and kz weights (11 each), then per wavevector the
-    4 profiles at kz nodes (one FMA each, 8 kz) and the assembly: Re and Im
-    of T e (4), pot (1), a_x and a_y (2 FMAs), a_z from Re T' e (3).
-    Outside: per wavevector Tb e (6), 2 pi |k| dz and its exp (2), the
-    attenuation (2), pot (1), a_x, a_y and a_z (3 FMAs), and the k = 0
-    linear terms (5).  Bytes: x in, acc and pot out, the table and the
-    boundary rows once."""
+    the grid position (3) and the offset g from the first node (1), then
+    per wavevector the 4 profiles, polynomials of degree kz - 1 in g
+    (slab_kernels.force_poly), by Horner's rule (kz - 1 FMAs each, 8 (kz -
+    1)), and the assembly: Re and Im of T e (4), pot (1), a_x and a_y (2
+    FMAs), a_z from Re T' e (3).  Outside: per wavevector Tb e (6), 2 pi
+    |k| dz and its exp (2), the attenuation (2), pot (1), a_x, a_y and a_z
+    (3 FMAs), and the k = 0 linear terms (5).  Bytes: x in, acc and pot
+    out, the table (force_rows, H, kz, 4) f32 and the boundary rows
+    once."""
     C = (2 * nmaxx + 1) * (2 * nmaxy + 1)
     H = (C + 1) // 2
     per = _slab_phase_ops(nmaxx, nmaxy) + 3 + 6 * H
-    per_in = 3 + 11 * kz + H * (8 * kz + 4 + 1 + 4 + 3)
+    per_in = 4 + H * (8 * (kz - 1) + 4 + 1 + 4 + 3)
     per_out = H * (6 + 2 + 2 + 1 + 6) + 5
     ops = n * per + (n - n_out) * per_in + n_out * per_out
-    return n * (12 + 16) + zrows * H * 16 + H * 32, ops
+    return n * (12 + 16) + force_rows * H * kz * 16 + H * 32, ops
 
 
 def _slab_k9_check(name, x, m, prm, force, sk):
@@ -1064,7 +1052,8 @@ def _slab_k9_check(name, x, m, prm, force, sk):
 def _slab_k10_check(name, x, coef, force, sk):
     """K10 against its plain version on x for the force's interp: acc and
     pot within SLAB_FORCE_RTOL of their largest values, the edge rows
-    (last) included, every value finite.  Returns the largest error."""
+    (last) included, every value finite, and a second launch the same bit
+    for bit.  Returns the largest error."""
     import torch
 
     prm = force._kernel_params()
@@ -1072,7 +1061,9 @@ def _slab_k10_check(name, x, coef, force, sk):
     aux = sk.slab_force_aux(coef, force.bnd_s, prm)
     a, p = sk.slab_accel(x, tab, aux, prm)
     a0, p0 = sk.slab_accel_plain(x, tab, aux, prm)
+    a1, p1 = sk.slab_accel(x, tab, aux, prm)
     torch.cuda.synchronize()
+    again = bool(torch.equal(a, a1)) and bool(torch.equal(p, p1))
     da, dp = (a - a0).abs(), (p - p0).abs()
     amax, pmax = float(a0.abs().max()), float(p0.abs().max())
     ne = len(slab_edge_rows(1)[1])
@@ -1085,13 +1076,13 @@ def _slab_k10_check(name, x, coef, force, sk):
           f"{float(da[out].max()) if bool(out.any()) else 0.0:.3e}; edge "
           f"rows max|da| = {float(da[edge].max()):.3e}, max|dpot| = "
           f"{float(dp[edge].max()):.3e}; tolerance {SLAB_FORCE_RTOL:.0e} of "
-          "each largest value", flush=True)
+          f"each largest value; repeatable {again}", flush=True)
     finite = bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
-    if not (finite and float(da.max()) <= SLAB_FORCE_RTOL * amax
+    if not (finite and again and float(da.max()) <= SLAB_FORCE_RTOL * amax
             and float(dp.max()) <= SLAB_FORCE_RTOL * pmax):
         raise AssertionError(f"K10 ({prm.interp}) disagrees with its plain "
                              f"version on the {name} sample (finite="
-                             f"{finite})")
+                             f"{finite}, repeatable={again})")
     return max(float(da.max()), float(dp.max()))
 
 
@@ -1149,12 +1140,13 @@ def _slab_physics(force, dev):
 
 def slab_path(dev):
     """Phases SL1-SL4 on the card; returns the kernels-line rows of K9,
-    K10."""
+    K10 and K10 under 'linear' and on the outside sample."""
     import numpy as np
     import torch
 
     from exp_tpu_torch.bench_slab import (DT, bench_slab, slab_force,
-                                          slab_run, slab_sample, slab_tables)
+                                          slab_outside_sample, slab_run,
+                                          slab_sample, slab_tables)
     from exp_tpu_torch.forces.slab import SlabForce
     from exp_tpu_torch.ops import cube_kernels as qk
     from exp_tpu_torch.ops import cyl_kernels as yk
@@ -1176,8 +1168,12 @@ def slab_path(dev):
           f"{prm.zrows} rows) and samples: {time.perf_counter() - t0:.1f} s; "
           f"sheet max|z| = {float(np.abs(xb[:, 2]).max()):.4f}", flush=True)
 
-    # SL2. K9 and K10 against their plain versions, then the physics
-    inputs, errs = {}, {"slab_coef": 0.0, "slab_accel": 0.0}
+    # SL2. K9 and K10 against their plain versions, then the physics; K10's
+    # errors by kernels-line row: the sheet under 'spline', under 'linear',
+    # and the outside sample under both
+    inputs = {}
+    errs = dict.fromkeys(("slab_coef", "slab_accel", "slab_accel[linear]",
+                          "slab_accel[outside]"), 0.0)
     for name, (xs, ms) in (("sheet", (xb, mb)), ("outside", (xo, mo))):
         x = torch.tensor(np.concatenate([xs, ex]), dtype=torch.float32,
                          device=dev)
@@ -1189,8 +1185,9 @@ def slab_path(dev):
         c0 = sk.contract_coef_output(sk.slab_coef_plain(x, m, prm),
                                      force.phi_s, force.sgn)
         for f in (force, force_lin):
-            errs["slab_accel"] = max(errs["slab_accel"],
-                                     _slab_k10_check(name, x, c0, f, sk))
+            row = ("slab_accel[outside]" if name == "outside" else
+                   "slab_accel[linear]" if f is force_lin else "slab_accel")
+            errs[row] = max(errs[row], _slab_k10_check(name, x, c0, f, sk))
     _slab_physics(force, dev)
 
     # SL3. the slab path: init + SLAB_STEPS KDK steps of the bench's sheet
@@ -1209,6 +1206,26 @@ def slab_path(dev):
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"on the slab path, expected "
                                  f"{SLAB_STEPS + 1}")
+    # the same path under 'linear', and from the outside sample at rest,
+    # for the launches of K10's other two kernels-line rows
+    k10_launches = {"slab_accel": launches["slab_accel"]}
+    xo_run, mo_run = slab_outside_sample(N)
+    for row, f, (xs, vs, ms) in (
+            ("slab_accel[linear]", force_lin, (xb, vb, mb)),
+            ("slab_accel[outside]", force,
+             (xo_run, np.zeros_like(xo_run), mo_run))):
+        sk.reset_launch_counts()
+        run2 = slab_run(f, xs, vs, ms, steps=SLAB_STEPS, dt=DT, device=dev)
+        torch.cuda.synchronize()
+        k10_launches[row] = sk.launch_counts["slab_accel"]
+        print(f"SL3 {row}: " + json.dumps(
+            {**run2, "launches": dict(sk.launch_counts)}), flush=True)
+        if not run2["finite"]:
+            raise AssertionError(f"non-finite state after the {row} run")
+        if k10_launches[row] != SLAB_STEPS + 1:
+            raise AssertionError(f"slab_accel launched {k10_launches[row]} "
+                                 f"times on the {row} run, expected "
+                                 f"{SLAB_STEPS + 1}")
     if launches["slab_phasestream"] != 0:
         raise AssertionError("P1 launched on the slab path")
     for key, bound in (("dE_rel", SLAB_DRIFT_BOUND),
@@ -1218,38 +1235,56 @@ def slab_path(dev):
             raise AssertionError(f"slab {key} = {run[key]} over "
                                  f"{SLAB_STEPS} steps exceeds {bound}")
 
-    # SL4. timing on the bench's sheet (edge rows included)
+    # SL4. timing on the bench's sheet (edge rows included): K9, K10 under
+    # 'spline' and 'linear'; K10 on an outside sample of N rows
     bench = bench_slab(n=N, reps=30, tables=tables, device=dev)
     print("SL4 slab step: " + json.dumps(bench), flush=True)
     x, m = inputs["sheet"]
-    c0 = sk.contract_coef_output(sk.slab_coef_plain(x, m, prm), force.phi_s,
-                                 force.sgn)
-    tab = sk.slab_force_table(c0, force.zq_s, prm)
-    aux = sk.slab_force_aux(c0, force.bnd_s, prm)
+    xo2, mo2 = (torch.tensor(a, dtype=torch.float32, device=dev)
+                for a in (xo_run, mo_run))
+
+    def k10_row(f, x, m):
+        """(call, plain call, work) of K10 for force f on (x, m), from the
+        table of the plain coefficients."""
+        p = f._kernel_params()
+        c0 = sk.contract_coef_output(sk.slab_coef_plain(x, m, p), f.phi_s,
+                                     f.sgn)
+        tab = sk.slab_force_table(c0, f.zq_s, p)
+        aux = sk.slab_force_aux(c0, f.bnd_s, p)
+        n_out = int((x[:, 2].abs() > p.zmax).sum())
+        return (lambda: sk.slab_accel(x, tab, aux, p),
+                lambda: sk.slab_accel_plain(x, tab, aux, p),
+                k10_work(x.shape[0], n_out, p.nmaxx, p.nmaxy, p.force_rows,
+                         p.kz))
+
     n = x.shape[0]
-    kz = 3 if prm.interp == "spline" else 2
     n_in = int(((m > 0) & (x[:, 2].abs() <= prm.zmax)).sum())
-    n_out = int((x[:, 2].abs() > prm.zmax).sum())
+    k10 = "exp_tpu/ops/pallas_slab.py:286"
     rows = []
-    for name, line, fn, plain, (byts, ops) in (
+    for name, line, (fn, plain, (byts, ops)) in (
             ("slab_coef", "exp_tpu/ops/pallas_slab.py:134",
-             lambda: sk.slab_coef(x, m, prm),
-             lambda: sk.slab_coef_plain(x, m, prm),
-             k9_work(n, n_in, prm.nmaxx, prm.nmaxy, prm.zrows, kz)),
-            ("slab_accel", "exp_tpu/ops/pallas_slab.py:286",
-             lambda: sk.slab_accel(x, tab, aux, prm),
-             lambda: sk.slab_accel_plain(x, tab, aux, prm),
-             k10_work(n, n_out, prm.nmaxx, prm.nmaxy, prm.zrows, kz))):
+             (lambda: sk.slab_coef(x, m, prm),
+              lambda: sk.slab_coef_plain(x, m, prm),
+              k9_work(n, n_in, prm.nmaxx, prm.nmaxy, prm.zrows,
+                      3 if prm.interp == "spline" else 2))),
+            ("slab_accel", k10, k10_row(force, x, m)),
+            ("slab_accel[linear]", k10, k10_row(force_lin, x, m)),
+            ("slab_accel[outside]", k10, k10_row(force, xo2, mo2))):
         bms, by = bound_ms(byts, ops)
+        wrapper = name.split("[")[0]
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"exp_tpu_torch/csrc/{name}.cu", "replaces": line,
-            "launches": launches[name], "max_abs_err": errs[name],
+            "source": f"exp_tpu_torch/csrc/{wrapper}.cu", "replaces": line,
+            "launches": k10_launches.get(name, launches[wrapper]),
+            "max_abs_err": errs[name],
             "ms": cuda_ms(fn, 50), "plain_ms": cuda_ms(plain, 5),
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "library_note": "no single PyTorch call computes these "
                             "non-uniform Fourier sums with z weights",
             "bytes": byts, "operations": ops})
+    rows[2]["launches_note"] = "K10's launches on SL3's run under 'linear'"
+    rows[3]["launches_note"] = ("K10's launches on SL3's run from the "
+                                "outside sample at rest")
     return rows
 
 def _variant_rows(forces):

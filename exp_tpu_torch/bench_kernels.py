@@ -2,7 +2,8 @@
 'spline' and 'hat'), K4 (cylinder coefficients) and K5 (cylinder force)
 over the sizes of the composite's buckets; K3 (recurrence coefficients),
 K6 (poly force), P1 (the slab phase-stream probe), K7 and K8 (cube
-coefficients and force) and K9 (slab coefficients) when named.
+coefficients and force), K9 and K10 (slab coefficients and force) when
+named.
 
     python exp_tpu_torch/bench_kernels.py [--root DIR] [--kernels K2,K5]
                                           [--sizes 224,1048576]
@@ -34,7 +35,14 @@ K8, the cube kernels at nmax 6 on the cube bench's uniform sample, K8 on
 the table of the whole sample's coefficients: time them with `--sizes
 4194304`, the cube path's size; K6 and K6hat, K6 on the sphere's sample
 and its lmax 4 tables under pallas_harmonics 'poly', 'spline' and 'hat',
-Ms from poly_matrix_stack; K9, K9 on the slab bench's sheet, 'spline').
+Ms from poly_matrix_stack; K9, K9 on the slab bench's sheet, 'spline';
+K10, K10 on that sheet, and K10lin under 'linear'; K10out, K10 on
+bench_slab.slab_outside_sample, half of it beyond zmax (the first half
+inside, so time it at its full 1,048,576 rows; a root older than that
+sampler cannot time it); K10sort and K10tile, K10
+on the sheet sorted by z, as a whole or within tiles of 1,024 rows, what
+warp-coherent table rows would save: time them at 1,048,576 rows, as a
+cut of the sorted sheet is its lowest rows).
 `--sizes` replaces the sweep's sizes.  Each row carries a digest of the
 kernel's output at that size (sha256 of its bytes), so that two
 checkouts' bits can be compared.  `--form small` or `large`
@@ -154,7 +162,8 @@ KERNELS = ("K1", "K1hat", "K2", "K2hat", "K4", "K5")
 # sphere, whose nodes are few), K3 off the main path ('spline', 'hat',
 # lmax 10) and P1 (stream1, stream2)
 EXTRA = ("K2L10", "K5halo", "K3", "K3hat", "K3L10", "K6", "K6hat", "P1s1",
-         "P1s2", "K7", "K8", "K9")
+         "P1s2", "K7", "K8", "K9", "K10", "K10lin", "K10out", "K10sort",
+         "K10tile")
 # the csrc sources each kernel's timing builds (the force kernels' tables
 # come from the coefficient kernels)
 SOURCES = {"K1": ("sphere_coef",), "K1hat": ("sphere_coef",),
@@ -169,14 +178,23 @@ SOURCES = {"K1": ("sphere_coef",), "K1hat": ("sphere_coef",),
            "K6hat": ("sphere_coef", "sphere_accel_poly"),
            "P1s1": ("slab_phasestream",), "P1s2": ("slab_phasestream",),
            "K7": ("cube_coef",), "K8": ("cube_coef", "cube_accel"),
-           "K9": ("slab_coef",)}
+           "K9": ("slab_coef",), **{k: ("slab_coef", "slab_accel") for k in
+                                    ("K10", "K10lin", "K10out", "K10sort",
+                                     "K10tile")}}
 SPHERE_KEYS = {"K1", "K1hat", "K2", "K2hat", "K2L10", "K5halo", "K3",
                "K3hat", "K3L10", "K6", "K6hat"}
 POLY_KEYS = {"K6": "spline", "K6hat": "hat"}
 LMAX10_KEYS = {"K2L10", "K3L10"}
 P1_KEYS = {"P1s1": False, "P1s2": True}        # key: split table
 CUBE_KEYS = {"K7", "K8"}
-SLAB_KEYS = {"K9"}
+SLAB_KEYS = {"K9", "K10", "K10lin", "K10out", "K10sort", "K10tile"}
+# K10's samples: the bench's sheet ('spline'; 'linear' for K10lin), the
+# outside sample (bench_slab.slab_outside_sample, half beyond zmax), and the
+# sheet sorted by z, as a whole (K10sort) or within each K10_TILE rows
+# (K10tile)
+K10_KEYS = {"K10": "spline", "K10lin": "linear", "K10out": "spline",
+            "K10sort": "spline", "K10tile": "spline"}
+K10_TILE = 1024
 
 
 def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1],
@@ -230,12 +248,7 @@ def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1],
         f = cube_force(dev)
         out.update({k: (f, xc, mc) for k in CUBE_KEYS if k in keys})
     if SLAB_KEYS & set(keys):
-        from exp_tpu_torch.bench_slab import slab_force, slab_sample
-
-        xl, _, ml = slab_sample(n_max)
-        xl, ml = (torch.tensor(a, dtype=torch.float32, device=dev)
-                  for a in (xl, ml))
-        out["K9"] = (slab_force(device=dev), xl, ml)
+        out.update(slab_samples(dev, n_max, SLAB_KEYS & set(keys)))
     if {"K4", "K5", "K5halo"} & set(keys):
         xd, _, md = disk_sample(n_max)
         f = disk_force(disk_tables, dev)
@@ -244,6 +257,49 @@ def samples(dev, sphere_tables, disk_tables, n_max=SWEEP_SIZES[-1],
         out.update({k: (f, xd, md) for k in ("K4", "K5") if k in keys})
         if "K5halo" in keys:
             out["K5halo"] = (f, xs, ms)
+    return out
+
+
+def slab_samples(dev, n_max, keys):
+    """{key: (force, x, m)} of the slab keys (K9, K10 ...) on the slab
+    bench's tables: the sheet of n_max rows, the outside sample, the sheet
+    sorted by z (K10_KEYS)."""
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch.bench_slab import slab_force, slab_sample, slab_tables
+    from exp_tpu_torch.forces.slab import SlabForce
+
+    tables = slab_tables()
+    forces = {}
+
+    def force(interp):
+        if interp not in forces:
+            forces[interp] = SlabForce.from_tables(
+                tables, backend="pallas", pallas_interp=interp, device=dev) \
+                if interp != "spline" else slab_force(tables, dev)
+        return forces[interp]
+
+    xl, _, ml = slab_sample(n_max)
+    out = {}
+    for key in sorted(keys):
+        x, m = xl, ml
+        if key == "K10out":
+            # imported here: a root older than the sampler still times the rest
+            from exp_tpu_torch.bench_slab import slab_outside_sample
+
+            x, m = slab_outside_sample(n_max)
+        elif key == "K10sort":
+            order = np.argsort(xl[:, 2], kind="stable")
+            x, m = xl[order], ml[order]
+        elif key == "K10tile":
+            order = np.concatenate([
+                s + np.argsort(xl[s:s + K10_TILE, 2], kind="stable")
+                for s in range(0, n_max, K10_TILE)])
+            x, m = xl[order], ml[order]
+        out[key] = (force(K10_KEYS.get(key, "spline")),
+                    *(torch.tensor(a, dtype=torch.float32, device=dev)
+                      for a in (x, m)))
     return out
 
 
@@ -318,6 +374,14 @@ def kernel_fns(forces, form="default"):
         elif key == "K9":
             out[key] = (lambda x, m, p=p: lk.slab_coef(x, m, p),
                         lambda x, m, p=p: lk.slab_coef_plain(x, m, p))
+        elif key in K10_KEYS:
+            c = f.coefficients(x, m)
+            tab = lk.slab_force_table(c, f.zq_s, p)
+            aux = lk.slab_force_aux(c, f.bnd_s, p)
+            out[key] = (
+                lambda x, m, p=p, t=tab, a=aux: lk.slab_accel(x, t, a, p),
+                lambda x, m, p=p, t=tab, a=aux: lk.slab_accel_plain(x, t, a,
+                                                                   p))
         elif key in ("K2", "K2hat", "K2L10", "K6", "K6hat"):
             # the contraction as SphereSL.acceleration makes it, spelled out
             # so that --root can time a checkout that predates accel_table

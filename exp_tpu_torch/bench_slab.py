@@ -63,6 +63,20 @@ def slab_sample(n=N, seed=SEED):
     return sample_slab(n, z0=Z0, seed=seed)
 
 
+def slab_outside_sample(n, seed=SEED):
+    """Half of the particles inside the slab, half at zmax < |z| <= 3 zmax
+    of both signs (tests/test_slab_pallas.py:86-111), (x, mass): the
+    sheet has none outside, so this sample times K10's vacuum branch."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h = n // 2
+    z_out = rng.uniform(ZMAX, 3 * ZMAX, n - h) * rng.choice([-1, 1], n - h)
+    z = np.concatenate([rng.normal(0, 0.02, h), z_out])
+    x = np.stack([rng.uniform(0, 1, n), rng.uniform(0, 1, n), z], -1)
+    return x, rng.uniform(0.5, 1.5, n) / n
+
+
 def truncated_sheet(n, seed=0, h=H, zmax=ZMAX):
     """The sech^2(z/h) sheet truncated at |z| = zmax, uniform in (x, y),
     unit surface density: (x (n, 3), mass (n,)), drawn as

@@ -1,11 +1,12 @@
 // Device helpers shared by the two slab kernels (slab_coef.cu,
 // slab_accel.cu): the geometry, the z grid position and the z interpolation
-// nodes and weights.  The (kx, ky) phase rows come from cube_common.cuh.
+// nodes and weights (K9), or the node and the offset from it (K10).  The
+// (kx, ky) phase rows come from cube_common.cuh.
 //
 // Arithmetic follows exp_tpu/ops/pallas_slab.py operation by operation in
 // f32 (t = clip((z + zmax) / dz, 0, nzc - 1), the weights of
 // pallas_cylinder._w2), so the kernels and their plain PyTorch versions
-// (ops/slab_kernels.py z_grid, z_nodes) pick the same nodes.
+// (ops/slab_kernels.py z_grid, z_nodes, z_frac) pick the same nodes.
 #pragma once
 
 #include "cube_common.cuh"
@@ -31,33 +32,47 @@ __device__ __forceinline__ float z_grid(float z, const Params& q) {
   return fminf(fmaxf((z + q.zmax) / q.dz, 0.0f), (float)(q.nzc - 1));
 }
 
-// The first of a particle's KZ contiguous table rows and their weights.
-// KZ = 3 ('spline'): prefiltered quadratic-B-spline weights b2(j - 1 - t)
-// on rows j0..j0+2, j0 = floor(t + 1.5) - 1 held in 0..nzc-1 (rows 0 and
-// nzc + 1 are ghost spline coefficients).  KZ = 2 ('linear'): hats
-// max(0, 1 - |j - t|) on rows j0, j0 + 1, j0 = floor(t) held in 0..nzc-2,
-// so that the window stays in the table (at t = nzc - 1 the first weight
-// is 0).  The weights are those of every other row of the TPU's dense
-// (rows, B) weight matrix, which are 0.
+// The first of a particle's KZ contiguous table rows, j0, and its offset
+// g = t - j0, in which the interpolation is a polynomial.  KZ = 3
+// ('spline'): j0 = floor(t + 1.5) - 1 held in 0..nzc-1 (rows 0 and nzc + 1
+// are ghost spline coefficients), g in [-0.5, 0.5], the weights 0.5 (0.5 -
+// g)^2, 0.75 - g^2, 0.5 (0.5 + g)^2 of rows j0..j0+2.  KZ = 2 ('linear'):
+// j0 = floor(t) held in 0..nzc-2, so that the window stays in the table,
+// g in [0, 1], the weights 1 - g and g of rows j0, j0 + 1.
+template <int KZ>
+__device__ __forceinline__ int z_frac(float t, int nzc, float& g) {
+  int j0;
+  if constexpr (KZ == 3) {
+    j0 = min(max((int)floorf(t + 1.5f), 1), nzc) - 1;
+  } else {
+    j0 = min((int)floorf(t), nzc - 2);
+  }
+  g = t - (float)j0;
+  return j0;
+}
+
+// The first node (z_frac) and the weights of the KZ rows from it.  KZ = 3:
+// the prefiltered quadratic-B-spline weights b2(j - 1 - t); KZ = 2: the
+// hats max(0, 1 - |j - t|) (at t = nzc - 1 the first weight is 0).  The
+// weights are those of every other row of the TPU's dense (rows, B) weight
+// matrix, which are 0.
 template <int KZ>
 __device__ __forceinline__ int z_nodes(float t, int nzc, float w[KZ]) {
+  float g;
+  const int j0 = z_frac<KZ>(t, nzc, g);
   if constexpr (KZ == 3) {
-    int c = (int)floorf(t + 1.5f);
-    c = min(max(c, 1), nzc);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      const float u = fabsf((float)(c - 1 + k) - 1.0f - t);
+      const float u = fabsf((float)(j0 + k) - 1.0f - t);
       const float inner = 0.75f - u * u;
       const float outer = 0.5f * (1.5f - u) * (1.5f - u);
       w[k] = u <= 0.5f ? inner : (u <= 1.5f ? outer : 0.0f);
     }
-    return c - 1;
   } else {
-    const int j0 = min((int)floorf(t), nzc - 2);
 #pragma unroll
     for (int k = 0; k < 2; ++k) w[k] = fmaxf(0.0f, 1.0f - fabsf((float)(j0 + k) - t));
-    return j0;
   }
+  return j0;
 }
 
 }  // namespace slab

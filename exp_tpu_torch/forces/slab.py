@@ -86,7 +86,8 @@ class SlabForce(nn.Module):
         self.register_buffer("phi_s", phi_s)
         self.register_buffer("dphi_s", dphi_s)
         # the kernels' operands that do not change between steps
-        self.register_buffer("zq_s", sk.z_profile_tables(phi_s, dphi_s))
+        self.register_buffer("zq_s", sk.z_profile_tables(phi_s, dphi_s,
+                                                         pallas_interp))
         self.register_buffer("bnd_s", sk.boundary_rows(phi_t, dphi_t))
         self.nmaxx, self.nmaxy, self.nmax = int(nmaxx), int(nmaxy), int(nmax)
         self.numz, self.zmax = int(numz), float(zmax)

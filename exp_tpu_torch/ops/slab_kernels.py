@@ -26,10 +26,11 @@ mirror -k of ab is C - 1 - ab.  The half lattice (kx > 0, or kx = 0 and
 ky >= 0) is h = kx (2 nmaxy + 1) + ky = ab - (C - 1)/2, h = 0..H-1 with
 H = (C + 1)/2.  K9 returns G (C, zrows) complex64, the JAX kernel's
 contract; the caller contracts it with the z-tables (contract_coef_output).
-K10 takes the port's own tables: the z-profiles folded onto the half lattice
-(slab_force_table, (zrows, H, 4)) and the vacuum continuation's boundary
-rows (slab_force_aux, (H, 8)); the TPU's Ct (4 Cp, nzp) and Aux (Cp, 128)
-packings are kept as functions for the tests.
+K10 takes the port's own tables: the z-profiles folded onto the half lattice,
+on each first z node as a polynomial in the particle's offset from it
+(slab_force_table, (force_rows, H, kz, 4)), and the vacuum continuation's
+boundary rows (slab_force_aux, (H, 8)); the TPU's Ct (4 Cp, nzp) and Aux
+(Cp, 128) packings are kept as functions for the tests.
 
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  `launch_counts` counts kernel
@@ -39,6 +40,7 @@ launches, one per wrapper call that reaches the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
@@ -63,6 +65,13 @@ KERNEL_ZROWS_MAX = 128
 K9_MAX_GROUPS = 32
 K9_MAX_TILE = 1024
 K9_MAX_THREADS = 576
+
+#: K10's threads a block, blocks an SM (kThreads, kBlocksPerSm of
+#: csrc/slab_accel.cu, whose launch bounds fit that many in registers) and
+#: its most particles a tile (kMaxTile)
+K10_THREADS = 256
+K10_BLOCKS_PER_SM = 2
+K10_MAX_TILE = 1024
 
 #: P1's tiles of particles, in the order its plan tries them, and its most
 #: threads a block (the TILE instantiations and kMaxThreads of
@@ -108,6 +117,17 @@ class SlabKernelParams:
     @property
     def dz(self):
         return 2.0 * self.zmax / (self.nzc - 1)
+
+    @property
+    def kz(self):
+        """z rows a particle's interpolation takes: 3 'spline', 2 'linear'."""
+        return 3 if self.interp == "spline" else 2
+
+    @property
+    def force_rows(self):
+        """K10's table rows: the first z nodes j0 a particle can take
+        (z_frac), nzc 'spline', nzc - 1 'linear'."""
+        return self.nzc if self.interp == "spline" else self.nzc - 1
 
 
 def check_params(prm: SlabKernelParams) -> None:
@@ -184,11 +204,29 @@ def fold_half(T, prm: SlabKernelParams, dim=-1):
     return h.movedim(-1, dim)
 
 
-def z_profile_tables(phi_s, dphi_s):
-    """The signed coarse z-tables (zrows, A, B2, n) of phi and dphi stacked
-    once into (2, zrows, C, n), the operand of slab_force_table."""
+def force_poly(T, interp):
+    """Rows (zrows, ...) of a profile on the z nodes -> (force_rows, kz,
+    ...): on each first node j0 (z_frac) the coefficients of the
+    interpolated profile as a polynomial in the particle's offset g = t -
+    j0, which z_nodes' weights are.  'spline': T0/8 + 3 T1/4 + T2/8,
+    (T2 - T0)/2 and T0/2 - T1 + T2/2 of rows j0..j0+2, for the weights
+    (1/2 - g)^2/2, 3/4 - g^2, (1/2 + g)^2/2 (g in [-1/2, 1/2]); 'linear':
+    T0 and T1 - T0, for 1 - g and g (g in [0, 1])."""
+    if interp == "spline":
+        t0, t1, t2 = T[:-2], T[1:-1], T[2:]
+        return torch.stack([0.125 * t0 + 0.75 * t1 + 0.125 * t2,
+                            0.5 * (t2 - t0), 0.5 * t0 - t1 + 0.5 * t2], dim=1)
+    return torch.stack([T[:-1], T[1:] - T[:-1]], dim=1)
+
+
+def z_profile_tables(phi_s, dphi_s, interp):
+    """The signed coarse z-tables (zrows, A, B2, n) of phi and dphi as
+    polynomials in the offset from each first node (force_poly), stacked
+    once into (2, force_rows, kz, C, n): the operand of slab_force_table,
+    built when the force is, so that a step's table stays one product."""
     zr, A, B2, nn = phi_s.shape
-    return torch.stack([phi_s, dphi_s]).reshape(2, zr, A * B2, nn)
+    return torch.stack([force_poly(t.reshape(zr, A * B2, nn), interp)
+                        for t in (phi_s, dphi_s)])
 
 
 def boundary_rows(phi_t, dphi_t):
@@ -201,14 +239,17 @@ def boundary_rows(phi_t, dphi_t):
 
 
 def slab_force_table(coef, zq, prm: SlabKernelParams):
-    """coef (A, B2, n) complex x the stacked z-tables (z_profile_tables) ->
-    K10's table (zrows, H, 4) f32: at each z node and half-lattice
-    wavevector the folded (fold_half) complex profiles T = sum_n coef phi
-    and T' = sum_n coef dphi as (Re T, Im T, Re T', Im T')."""
+    """coef (A, B2, n) complex x the polynomial z-tables (z_profile_tables)
+    -> K10's table (force_rows, H, kz, 4) f32: on each first z node and
+    half-lattice wavevector the coefficients of the folded (fold_half)
+    complex profiles T = sum_n coef phi and T' = sum_n coef dphi as
+    polynomials in the particle's offset from the node, each as (Re T,
+    Im T, Re T', Im T'), so that a particle reads kz rows of 16 bytes a
+    wavevector, one after the other."""
     cr = torch.view_as_real(coef).reshape(prm.C, -1, 2)    # (C, n, 2)
-    R = torch.einsum("qjcn,cnr->jcqr", zq.to(cr.dtype), cr).contiguous()
-    T = fold_half(torch.view_as_complex(R), prm, dim=1)    # (zrows, H, 2)
-    return torch.view_as_real(T).reshape(-1, prm.H, 4).to(
+    R = torch.einsum("qjkcn,cnr->jckqr", zq.to(cr.dtype), cr).contiguous()
+    T = fold_half(torch.view_as_complex(R), prm, dim=1)    # (rows, H, kz, 2)
+    return torch.view_as_real(T).reshape(-1, prm.H, prm.kz, 4).to(
         torch.float32).contiguous()
 
 
@@ -281,22 +322,34 @@ def z_grid(z, prm: SlabKernelParams):
                        prm.nzc - 1.0)
 
 
-def z_nodes(t, prm: SlabKernelParams):
-    """The first of a particle's contiguous z nodes and their weights
-    (csrc/slab_common.cuh z_nodes).  'spline': the prefiltered quadratic
-    B-spline weights b2(j - 1 - t) on rows j0..j0+2, j0 = floor(t + 1.5) - 1
-    held in 0..nzc-1 (rows 0 and nzc + 1 are ghost spline coefficients).
-    'linear': the hats max(0, 1 - |j - t|) on rows j0, j0 + 1, j0 =
-    floor(t) held in 0..nzc-2, so that the window stays inside the table
-    (at t = nzc - 1 the first weight is 0)."""
+def z_frac(t, prm: SlabKernelParams):
+    """The first of a particle's contiguous z nodes, j0, and its offset g =
+    t - j0, in which its interpolation is a polynomial (force_poly;
+    csrc/slab_common.cuh z_frac).  'spline': j0 = floor(t + 1.5) - 1 held
+    in 0..nzc-1 (rows 0 and nzc + 1 are ghost spline coefficients);
+    'linear': j0 = floor(t) held in 0..nzc-2, so that the window stays
+    inside the table."""
     if prm.interp == "spline":
         j0 = torch.clamp(torch.floor(t + 1.5), 1.0, float(prm.nzc)) - 1.0
-        ws = [b2(j0 + k - 1.0 - t) for k in range(3)]
     else:
         j0 = torch.clamp(torch.floor(t), max=prm.nzc - 2.0)
-        ws = [torch.clamp(1.0 - torch.abs(j0 + k - t), min=0.0)
+    return j0.long(), t - j0
+
+
+def z_nodes(t, prm: SlabKernelParams):
+    """The first z node (z_frac) and the weights of the nodes from it
+    (csrc/slab_common.cuh z_nodes).  'spline': the prefiltered quadratic
+    B-spline weights b2(j - 1 - t) on rows j0..j0+2; 'linear': the hats
+    max(0, 1 - |j - t|) on rows j0, j0 + 1 (at t = nzc - 1 the first
+    weight is 0)."""
+    j0, _ = z_frac(t, prm)
+    jf = j0.to(t.dtype)
+    if prm.interp == "spline":
+        ws = [b2(jf + k - 1.0 - t) for k in range(3)]
+    else:
+        ws = [torch.clamp(1.0 - torch.abs(jf + k - t), min=0.0)
               for k in range(2)]
-    return j0.long(), ws
+    return j0, ws
 
 
 def slab_coef_plain(x, mass, prm: SlabKernelParams, chunk: int = 65536):
@@ -393,7 +446,8 @@ def stream_coef_plain(ph, x, mass, prm: SlabKernelParams, chunk: int = 65536):
 def slab_accel_plain(x, tab, aux, prm: SlabKernelParams, chunk: int = 65536):
     """Plain version of K10: (acc (N, 3), pot (N,)) f32 at x (N, 3) from
     the folded table (slab_force_table) and boundary rows (slab_force_aux).
-    With e_h = e^{+2 pi i k.u} and T, T' interpolated at the clamped z:
+    With e_h = e^{+2 pi i k.u} and T, T' interpolated at the clamped z (the
+    table's polynomial at the offset g of z_frac, by Horner's rule):
     pot = Re sum T e, a_x, a_y = Im sum 2 pi k T e, a_z = -Re sum T' e.
     For |z| > zmax the vacuum continuation: each mode decays as
     e^{-2 pi |k| (|z| - zmax)} off its boundary value, and the k = 0 mode
@@ -411,8 +465,11 @@ def slab_accel_plain(x, tab, aux, prm: SlabKernelParams, chunk: int = 65536):
         ey = axis_phases(u[:, 1], prm.nmaxy, 1.0)
         e = ex[:, kx] * ey[:, ky + prm.nmaxy]                  # (B, H)
         zc = torch.clamp(z, -prm.zmax, prm.zmax)
-        j0, ws = z_nodes(z_grid(zc, prm), prm)
-        T = sum(wk[:, None, None] * tab[j0 + k] for k, wk in enumerate(ws))
+        j0, g = z_frac(z_grid(zc, prm), prm)
+        P = tab[j0]                                            # (B, H, kz, 4)
+        T = P[:, :, -1]
+        for k in range(prm.kz - 2, -1, -1):
+            T = P[:, :, k] + g[:, None, None] * T
         tp = torch.complex(T[..., 0], T[..., 1]) * e
         pot = tp.real.sum(dim=1)
         ax = (tp.imag * kxw).sum(dim=1)
@@ -645,12 +702,58 @@ def stream_coef(ph, x, mass, prm: SlabKernelParams):
     return torch.view_as_complex(out)
 
 
+def k10_smem(prm: SlabKernelParams, tile: int) -> int:
+    """K10's shared memory a block with tiles of `tile` particles, in the
+    order csrc/slab_accel.cu carves it (its Smem): the tile's sorted
+    records (x, y, z, place; 16 B), with room for a padding record a bin
+    (nzc + 2 bins rounded up to 32), its x as it lies in memory (12 B a
+    particle), its outputs (acc and pot, 16 B a particle), each particle's
+    key, the bins' counts and their first places and the tile's padded
+    count."""
+    nbp = _round32(prm.nzc + 2)
+    return 16 * (tile + nbp) + 32 * tile + 4 * nbp + 4 * (nbp + 1)
+
+
+@dataclass(frozen=True)
+class SlabAccelPlan:
+    """K10's launch: tiles of `tile` particles sorted into `nbins` bins (the
+    first z node, then below -zmax and above +zmax), blocks of `threads`,
+    `nblocks` blocks and `smem` bytes of shared memory a block."""
+
+    tile: int
+    threads: int
+    nblocks: int
+    nbins: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def accel_plan(n, prm: SlabKernelParams, sm_count, smem_optin) -> SlabAccelPlan:
+    """K10's launch plan for n particles on a device of `sm_count` SMs and
+    `smem_optin` bytes of shared memory a block: the largest tile (a power
+    of two, 32..K10_MAX_TILE) that still gives every SM a tile where n
+    allows, since a larger tile sorts more particles into each warp's z
+    nodes; K10_THREADS threads (no more than the tile); one block a tile up
+    to K10_BLOCKS_PER_SM an SM, which then walk the tiles in turn.  Raises
+    ValueError when the shared memory does not fit."""
+    tile = K10_MAX_TILE
+    while tile > 32 and -(-n // tile) < sm_count:
+        tile //= 2
+    smem = k10_smem(prm, tile)
+    if smem > smem_optin:
+        raise ValueError(f"slab_accel: {smem} B of shared memory a block "
+                         f"exceeds the device's {smem_optin}")
+    nblocks = max(1, min(-(-n // tile), K10_BLOCKS_PER_SM * sm_count))
+    return SlabAccelPlan(tile, min(K10_THREADS, tile), nblocks, prm.nzc + 2,
+                         smem)
+
+
 def slab_accel(x, tab, aux, prm: SlabKernelParams):
     """K10: slab force (acc (N, 3), pot (N,)) f32.
 
-    x (N, 3), tab (zrows, H, 4) from slab_force_table, aux (H, 8) from
-    slab_force_aux; f32.  CPU tensors take slab_accel_plain; CUDA tensors
-    launch csrc/slab_accel.cu."""
+    x (N, 3), tab (force_rows, H, kz, 4) from slab_force_table, aux (H,
+    8) from slab_force_aux; f32.  CPU tensors take slab_accel_plain; CUDA
+    tensors launch csrc/slab_accel.cu with the plan of accel_plan."""
     check_params(prm)
     if x.device.type == "cpu":
         return slab_accel_plain(x, tab, aux, prm)
@@ -658,19 +761,22 @@ def slab_accel(x, tab, aux, prm: SlabKernelParams):
     n = x.shape[0]
     dev = x.device
     _build.check_tensor(x, "x", (n, 3), dev)
-    _build.check_tensor(tab, "tab", (prm.zrows, prm.H, 4), dev)
+    _build.check_tensor(tab, "tab", (prm.force_rows, prm.H, prm.kz, 4), dev)
     _build.check_tensor(aux, "aux", (prm.H, 8), dev)
     if tab.data_ptr() % 16 or aux.data_ptr() % 16:
         raise ValueError("tab and aux must be 16-byte aligned")
     fn, err = _build.bind("slab_accel", [_P, _LL, _P, _P, _P, _P, _I, _I, _I,
-                                         _I, _F, _F, _P])
+                                         _I, _F, _F, _I, _I, _I, _I, _P])
+    props = torch.cuda.get_device_properties(dev)
+    plan = accel_plan(n, prm, props.multi_processor_count,
+                      props.shared_memory_per_block_optin)
     acc = torch.empty((n, 3), dtype=torch.float32, device=dev)
     pot = torch.empty((n,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(x.data_ptr(), n, tab.data_ptr(), aux.data_ptr(),
                   acc.data_ptr(), pot.data_ptr(), *_geometry_args(prm),
-                  stream)
+                  plan.tile, plan.threads, plan.nblocks, plan.smem, stream)
     _build.raise_on(code, err, "slab_accel")
     launch_counts["slab_accel"] += 1
     return acc, pot

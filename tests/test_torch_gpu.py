@@ -478,7 +478,7 @@ def test_slab_wrappers_reject_bad_inputs(cuda):
         sk.slab_coef(x.t().contiguous().t(), m, prm)
     with pytest.raises(ValueError, match="shape"):
         sk.slab_coef(x, m[:-1], prm)
-    tab = torch.zeros((prm.zrows, prm.H, 4), device=cuda)
+    tab = torch.zeros((prm.force_rows, prm.H, prm.kz, 4), device=cuda)
     aux = torch.zeros((prm.H, 8), device=cuda)
     with pytest.raises(ValueError, match="is on"):
         sk.slab_accel(x, tab.cpu(), aux, prm)
@@ -486,6 +486,53 @@ def test_slab_wrappers_reject_bad_inputs(cuda):
         sk.slab_accel(x, tab[:-1].contiguous(), aux, prm)
     with pytest.raises(NotImplementedError, match="rows in z"):
         sk.slab_coef(x, m, sk.SlabKernelParams(2, 2, 127, 0.1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interp,nzc", [("spline", 126), ("linear", 128),
+                                        ("spline", 2), ("linear", 2)])
+@pytest.mark.parametrize("nmax", [(0, 0), (0, 8), (8, 0), (3, 1), (4, 4),
+                                  (8, 8)], ids=lambda p: "nmax%d%d" % p)
+def test_slab_accel_sorts_any_sample(cuda, nmax, interp, nzc):
+    """K10 on the polynomials of random folded profiles and random
+    boundary rows at nmax 0..8 on each axis and the extremes of nzc: acc
+    and pot within 2e-5 of their largest values of the plain version's,
+    every value finite, and the same bits twice, on the bench's sheet with
+    the outside particles and the edge rows (a ragged N), every particle on
+    one z node, particles spread over every node and beyond both faces; on
+    the first 1, 31, 33 and 1025 rows of the last (the plan's smallest
+    tiles, and one past a tile), the full sample's rows bit for bit (a
+    particle's arithmetic does not depend on its tile or its place in
+    it)."""
+    from exp_tpu_torch.ops import slab_kernels as sk
+
+    prm = sk.SlabKernelParams(nmax[0], nmax[1], nzc, 0.1, interp)
+    rng = np.random.default_rng(nzc + 10 * nmax[0] + nmax[1])
+    rows = torch.tensor(rng.standard_normal((prm.zrows, prm.H, 4)))
+    tab = sk.force_poly(rows, interp).transpose(1, 2).to(
+        device=cuda, dtype=torch.float32).contiguous()
+    aux = torch.tensor(rng.standard_normal((prm.H, 8)), dtype=torch.float32,
+                       device=cuda)
+    x, _ = _slab_inputs(cuda)
+    n = x.shape[0]
+    xy = rng.uniform(-1, 2, (n, 2))
+    samples = [x] + [torch.tensor(np.concatenate([xy, z[:, None]], -1),
+                                  dtype=torch.float32, device=cuda)
+                     for z in (np.full(n, 0.0123),
+                               rng.uniform(-1.3 * prm.zmax, 1.3 * prm.zmax,
+                                           n))]
+    for xs in samples:
+        a0, p0 = sk.slab_accel_plain(xs, tab, aux, prm)
+        a, p = sk.slab_accel(xs, tab, aux, prm)
+        a1, p1 = sk.slab_accel(xs, tab, aux, prm)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
+        assert float((a - a0).abs().max()) <= 2e-5 * float(a0.abs().max())
+        assert float((p - p0).abs().max()) <= 2e-5 * float(p0.abs().max())
+        assert torch.equal(a, a1) and torch.equal(p, p1)
+    for k in (1, 31, 33, 1025):
+        ak, pk = sk.slab_accel(xs[:k].contiguous(), tab, aux, prm)
+        assert torch.equal(ak, a[:k]) and torch.equal(pk, p[:k])
 
 
 @pytest.mark.gpu

@@ -799,3 +799,190 @@ def test_poly_slab_split_probe_patches_the_kernels(tmp_path):
     src, old, new = pp.VARIANTS["no_walk"][1][0]
     with pytest.raises(ValueError):
         patched_sources([(src, new + "x", old)])
+
+
+# --------------------------------------------------------------------- K10
+
+def _k10_constants():
+    """kThreads, kBlocksPerSm and kMaxTile of csrc/slab_accel.cu."""
+    import re
+    from pathlib import Path
+
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    src = (Path(lk.__file__).resolve().parent.parent / "csrc"
+           / "slab_accel.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                 for k in ("kThreads", "kBlocksPerSm", "kMaxTile"))
+
+
+def test_k10_plan_constants_are_the_kernels():
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    assert _k10_constants() == (lk.K10_THREADS, lk.K10_BLOCKS_PER_SM,
+                                lk.K10_MAX_TILE)
+
+
+@pytest.mark.parametrize("device", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("interp,nzc", [("spline", 2), ("spline", 60),
+                                        ("spline", 126), ("linear", 2),
+                                        ("linear", 128)])
+def test_k10_plan_fits(device, interp, nzc):
+    """K10's accel_plan at every nmax 0..8 on each axis and n from 0 to
+    2^22: a tile a power of two, 32..K10_MAX_TILE, the largest that still
+    gives every SM a tile where n allows; K10_THREADS threads, no more
+    than the tile; no more blocks than tiles or than K10_BLOCKS_PER_SM an
+    SM; nzc + 2 bins; shared memory k10_smem (the tile's records with a
+    padding record a bin, its x, outputs and keys, the bins' counts and
+    first places, with the bins rounded up to 32, and the tile's count),
+    within the device's a block and, on an H100, for K10_BLOCKS_PER_SM
+    blocks an SM's."""
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    sms, optin, per_sm = device
+    tiles = [1 << k for k in range(5, 11)]
+    for nx in lk.KERNEL_NMAX:
+        for ny in lk.KERNEL_NMAX:
+            prm = _slab(nx, ny, nzc, interp)
+            assert prm.zrows <= lk.KERNEL_ZROWS_MAX
+            for n in [0] + SIZES:
+                p = lk.accel_plan(n, prm, sms, optin)
+                assert p.tile in tiles and p.tile <= lk.K10_MAX_TILE
+                assert p.tile == 32 or -(-n // p.tile) >= sms
+                assert p.tile == lk.K10_MAX_TILE or -(-n // (2 * p.tile)) < sms
+                assert p.threads == min(lk.K10_THREADS, p.tile)
+                assert p.threads % 32 == 0 and p.tile % p.threads == 0
+                assert p.nblocks == max(1, min(-(-n // p.tile),
+                                               lk.K10_BLOCKS_PER_SM * sms))
+                assert p.nbins == nzc + 2
+                nbp = -(-(nzc + 2) // 32) * 32
+                assert p.smem == lk.k10_smem(prm, p.tile) == (
+                    16 * (p.tile + nbp) + 32 * p.tile + 8 * nbp + 4)
+                assert p.smem <= optin
+                if device == H100:
+                    assert lk.K10_BLOCKS_PER_SM * (p.smem + 1024) <= per_sm
+
+
+def test_k10_plan_at_the_benches_shapes():
+    """The slab bench (nmax 4 x 4, nzc 126, 'spline') on an H100: tiles of
+    1,024 at 2^20 rows, two blocks an SM; 256 at 49,152 rows, so that
+    every SM has a tile; 32 at 224."""
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    prm = _slab(4, 4, 126, "spline")
+    p = lk.accel_plan(1 << 20, prm, *H100[:2])
+    assert (p.tile, p.threads, p.nblocks, p.nbins) == (1024, 256, 264, 128)
+    assert lk.accel_plan(49_152, prm, *H100[:2]).tile == 256
+    assert (lk.accel_plan(224, prm, *H100[:2]).tile,
+            lk.accel_plan(224, prm, *H100[:2]).nblocks) == (32, 7)
+
+
+def _k10_sort(z, prm):
+    """csrc/slab_accel.cu's sort of one tile in NumPy: each particle's bin
+    (its first z node, slab_kernels.z_frac; nzc below -zmax, nzc + 1
+    above +zmax, by the kernel's test max(|z| - zmax, 0) > 0 in f32) and
+    its sorted place start[bin] + rank, the bins' first places by an
+    exclusive scan of their counts rounded up to even, and a padding
+    record after the last particle of a bin of odd count; the rank within
+    a bin in the input's order (the kernel's atomics give any order: the
+    places of a bin are the same set).  Returns (bins, places, the
+    records' bins, their particles or -1)."""
+    import torch
+
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    zt = torch.tensor(z, dtype=torch.float32)
+    out = torch.clamp(torch.abs(zt) - prm.zmax, min=0.0) > 0.0
+    j0, _ = lk.z_frac(lk.z_grid(zt, prm), prm)
+    bins = torch.where(out, torch.where(zt >= 0, prm.nzc + 1, prm.nzc),
+                       j0).numpy()
+    cnt = np.bincount(bins, minlength=prm.nzc + 2)
+    padded = cnt + (cnt & 1)
+    start = np.cumsum(padded) - padded
+    rank = np.zeros(len(z), np.int64)
+    seen = np.zeros(prm.nzc + 2, np.int64)
+    for i, b in enumerate(bins):
+        rank[i] = seen[b]
+        seen[b] += 1
+    place = start[bins] + rank
+    rbin = np.full(padded.sum(), -1)
+    who = np.full(padded.sum(), -1)
+    rbin[place], who[place] = bins, np.arange(len(z))
+    last = (cnt[bins] & 1).astype(bool) & (rank == cnt[bins] - 1)
+    rbin[place[last] + 1] = bins[last]
+    return bins, place, rbin, who
+
+
+@pytest.mark.parametrize("interp", ["spline", "linear"])
+def test_k10_sort_places_and_warp_windows(interp):
+    """The NumPy model of K10's tile sort on the bench's sheet with
+    particles beyond both faces and the slab's edge rows, in the plan's
+    tiles of 1,024 and a ragged last tile: the records are the tile's
+    particles, each once, and a padding record for each bin of odd count
+    (at most one a bin, within the shared memory's nzc + 2 rounded up to
+    32 spare records); each thread's pair of records 2s, 2s + 1 lies in
+    one bin, so shares its rows; the bins rise along the records, the
+    particles below -zmax and then above +zmax last; every inside
+    particle's first node is a row of K10's table.  The window: a warp's
+    32 pairs read about 3 first nodes on the sheet, against 16.5 for 32
+    particles in the input's order, and 99% of them span at most 20
+    nodes."""
+    from exp_tpu_torch.bench_slab import slab_sample
+    from exp_tpu_torch.ops import slab_kernels as lk
+
+    prm = _slab(4, 4, 126 if interp == "spline" else 128, interp)
+    x, _, _ = slab_sample(1 << 15, seed=3)
+    rng = np.random.default_rng(4)
+    z = np.concatenate([x[:, 2], rng.uniform(0.1, 0.3, 301)
+                        * rng.choice([-1, 1], 301),
+                        [0.1, -0.1, 0.0999, 0.1001, -0.0999, -0.1001, 1.0,
+                         -1.0]])
+    tile = lk.accel_plan(1 << 20, prm, *H100[:2]).tile
+    assert tile == 1024 and len(z) % tile
+    nbp = -(-(prm.nzc + 2) // 32) * 32
+    distinct, spans, plain = [], [], []
+    for s in range(0, len(z), tile):
+        bins, place, rbin, who = _k10_sort(z[s:s + tile], prm)
+        assert np.array_equal(np.sort(who[who >= 0]), np.arange(len(bins)))
+        assert len(rbin) - len(bins) <= min(prm.nzc + 2, nbp)
+        assert len(rbin) % 2 == 0 and np.all(rbin >= 0)
+        assert np.array_equal(rbin[0::2], rbin[1::2])
+        assert np.all(np.diff(rbin) >= 0)
+        inside = rbin < prm.nzc
+        assert rbin[inside].max() < prm.force_rows
+        assert np.all(rbin[~inside][:-1] <= rbin[~inside][1:])
+        for w in range(0, len(rbin), 64):
+            win = rbin[w:w + 64]
+            win = win[win < prm.nzc]
+            if len(win):
+                distinct.append(len(np.unique(win)))
+                spans.append(win.max() - win.min() + 1)
+            plain.append(len(np.unique(bins[w // 2:w // 2 + 32])))
+    assert np.mean(distinct) < 3.5 and np.mean(plain) > 10
+    assert np.percentile(spans, 99) <= 20
+
+
+def test_slab_accel_split_probe_patches_the_kernel(tmp_path):
+    """probe_slab_accel_split's variants, of this kernel and of the first
+    one: each patch matches its source once (so the probe times the kernel
+    as it is), every patched variant's source differs from the kernel's,
+    the sorted variants time the sorted samples, and a patch that no
+    longer matches raises."""
+    from exp_tpu_torch import bench_kernels as bk
+    from exp_tpu_torch import probe_slab_accel_split as ps
+    from exp_tpu_torch.probe_accel_split import make_variants, patched_sources
+
+    roots = make_variants(tmp_path, ps.VARIANTS)
+    assert set(roots) == set(ps.VARIANTS)
+    for name, root in roots.items():
+        srcs = {s for s, _, _ in ps.VARIANTS[name][1]}
+        assert bool(srcs) == (name not in ("full", "sorted", "tiles"))
+        for src in srcs:
+            text = (root / "exp_tpu_torch" / "csrc" / src).read_text()
+            assert text != (ps.PORT / "csrc" / src).read_text()
+    for variants in (ps.VARIANTS, ps.FIRST_VARIANTS):
+        assert {k for k, _ in variants.values()} <= set(bk.EXTRA)
+        assert variants["sorted"][0] == "K10sort"
+    src, old, new = ps.VARIANTS["no_table"][1][0]
+    with pytest.raises(ValueError):
+        patched_sources([(src, new + "x", old)])

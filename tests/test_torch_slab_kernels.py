@@ -165,7 +165,8 @@ def test_k10_plain_matches_jax_kernel(tables, interp, outside):
     ct = torch.from_numpy(c)
     tab = sk.slab_force_table(ct, pf.zq_s, prm)
     aux = sk.slab_force_aux(ct, pf.bnd_s, prm)
-    assert tab.shape == (prm.zrows, prm.H, 4) and aux.shape == (prm.H, 8)
+    assert tab.shape == (prm.force_rows, prm.H, prm.kz, 4)
+    assert aux.shape == (prm.H, 8)
     a, p = sk.slab_accel_plain(torch.from_numpy(x), tab, aux, prm)
     a, p = a.numpy(), p.numpy()
     assert a.dtype == np.float32 and a.shape == aj.shape
@@ -234,7 +235,8 @@ def test_folded_tables_keep_the_force_of_any_coefficients():
     cf = c.reshape(prm.C, -1)
     zc = np.clip(x[:, 2], -ZMAX, ZMAX)
     j0, ws = sk.z_nodes(sk.z_grid(torch.from_numpy(zc), prm), prm)
-    zq = f.zq_s.double().numpy()                                  # (2, zr, C, n)
+    zq = torch.stack([f.phi_s, f.dphi_s]).double().reshape(
+        2, prm.zrows, prm.C, -1).numpy()                          # (2, zr, C, n)
     T = sum(w.double().numpy()[:, None, None, None] * zq[:, j0 + k]
             .transpose(1, 0, 2, 3) for k, w in enumerate(ws))     # (N, 2, C, n)
     T = (T * cf[None, None]).sum(-1)
