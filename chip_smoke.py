@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Seven paths of exp_tpu_torch, each with backend='pallas', run the port's
-eleven hand-written kernels:
+eleven hand-written kernels, and the YAML driver runs two of those paths
+from run configs:
 
   the sphere path (1,048,576 particles): the sphereSL KDK step of a
     Hernquist halo under the spherical Sturm-Liouville basis (lmax=4,
@@ -36,7 +37,10 @@ eleven hand-written kernels:
     K2, K4 and K5 on the per-level buckets;
   the phase-stream probe (1,048,576 particles): the slab coefficients G
     from a streamed bf16 phase table (exp_tpu_torch/
-    probe_slab_phasestream.py), through P1 (csrc/slab_phasestream.cu).
+    probe_slab_phasestream.py), through P1 (csrc/slab_phasestream.cu);
+  the driver path: exp_tpu_torch's YAML driver (nbody/simulation.py,
+    run.py) on the flagship composite's run config, through K1, K2, K4
+    and K5, and single-rate on the sphere path's sample, through K1 and K2.
 
 Phases:
 
@@ -111,6 +115,20 @@ Phases:
      under more padding), then timed at each size beside its bound, with
      the fitted fixed cost a launch and cost a row
      (exp_tpu_torch/bench_kernels.py);
+  R1. the flagship's run config as a dict (the composite bench's settings,
+     the halo's model as a file, both forces 'pallas', OUTLOG every big
+     step, PSP every 10) and CM1's ICs as PSP body files;
+  R2. Simulation on it for 10 big steps, with finiteness, 11 OUTLOG rows,
+     OUTLOG's |dEtot/Etot| (DRIVER_DRIFT_BOUND), each kernel's launches
+     against the schedule and the step-10 PSP file equal to the state
+     gated; the bare MultistepRunner from the same bodies on CM1's forces,
+     its state equal to the driver's bit for bit after init_state and
+     every big step; `exp_tpu_torch.run` on the config as a YAML file,
+     its OUTLOG rows equal to the driver's;
+  R3. the single-rate driver on phase 5's sample as an ascii body file
+     (its write and NumPy read timed), 50 steps under phase 5's gates;
+  R4. the driver's time a big step and a step beside the bare runner's
+     and make_kdk_step's, on the host clock (printed, not gated);
   PS1. P1 against its plain version on the probe's sample with edge rows,
      stream1 and stream2, with the stated tolerances;
   PS2. the probe's run: producer + P1, P1 alone, the producer, the
@@ -317,6 +335,27 @@ P1_REPS = 30
 # value (shot noise, ~1/sqrt(N) of the k = 0 row), K9's gates (SL2).
 P1_RTOL = 1e-5
 P1_KN_RTOL = 1e-4
+
+# The YAML driver (exp_tpu_torch/nbody/simulation.py, run.py) on the
+# flagship's run config (R1-R2: the composite path's settings, CM1's ICs as
+# PSP body files) and on the sphere path's sample as an ascii body file
+# (R3).  R2 runs DRIVER_NBIG big steps; the driver adds no physics, so its
+# state must equal the bare runner's bit for bit.  R3 runs STEPS
+# single-rate steps under phase 5's gates.  R4 times DRIVER_TIMED big
+# steps and DRIVER_TIMED_STEPS steps of each, beside the bare runner and
+# make_kdk_step, on the host clock.
+DRIVER_NBIG = 10
+# |dEtot/Etot| bound over R2's OUTLOG, row 0 (t = 0, init_state) to row
+# DRIVER_NBIG.  CM2's window starts after the warmup; this one holds the
+# first big steps from the ICs, where particles settle into their levels.
+# The same window through the plain versions on a CPU (python -m
+# exp_tpu_torch.bench_composite kdk --device cpu --max-warmup 0, the full
+# 1,048,576 particles) gave 2.017e-4; as for CM2, the bound is three times
+# the CPU's drift, failing a run whose force or tableau breaks
+# conservation by twice as much again.
+DRIVER_DRIFT_BOUND = 6e-4
+DRIVER_TIMED = 5
+DRIVER_TIMED_STEPS = 20
 
 
 def nvidia_smi_line():
@@ -1558,7 +1597,8 @@ def _comp_kernels(halo, disk, coef):
 def composite_path(dev, sphere_tables, disk_tables):
     """Phases CM1-CM3 on the card: `sphere_tables` are phase 3's, the disk's
     EOF tables D1's (the composite uses the benches' tables).  Returns the
-    kernels-line rows of K1, K2, K4 and K5 at the composite's buckets."""
+    kernels-line rows of K1, K2, K4 and K5 at the composite's buckets, and
+    CM1's forces and ICs (bench_composite.prepare's dict)."""
     import numpy as np
     import torch
 
@@ -1699,8 +1739,333 @@ def composite_path(dev, sphere_tables, disk_tables):
     if bad:
         raise AssertionError(f"CM3: kernels disagree with their plain "
                              f"versions on the buckets {bad}")
-    return rows
+    return rows, s
 
+
+
+def write_model_exact(model, path):
+    """A model file that reads back to the same f64 arrays (17 significant
+    digits; SphericalModelTable.to_file keeps 13), so the driver builds the
+    benches' tables bit for bit."""
+    import numpy as np
+
+    with open(path, "w") as f:
+        f.write(f"! {model.comment}\n{len(model.r)}\n")
+        np.savetxt(f, np.column_stack([model.r, model.rho, model.mass,
+                                       model.pot]), fmt="%.17e")
+
+
+def flagship_config(outdir, runtag="flag", nsteps=DRIVER_NBIG):
+    """R1: the flagship composite's run config as the dict yaml.safe_load
+    gives: the composite bench's settings (bench_composite.py; its runner
+    accumulates coefficients in f32, so accum_dtype is float32), the halo's
+    model in halo.model, both forces on the pallas backend, interactions
+    both ways, OUTLOG every big step and PSP snapshots every 10.  The
+    DiskHalo disk's inner orbits ask for steps below the finest level (the
+    runner clamps them to it; R2 prints the share), more than the
+    reference's default maxMindt of 5%, at which the driver would stop the
+    run after its first big step: the bench's runner has no such stop, so
+    the config raises maxMindt to 0.5."""
+    from exp_tpu_torch import bench_composite as bc
+
+    return {
+        "Global": {"dtime": bc.DTIME, "nsteps": nsteps, "runtag": runtag,
+                   "outdir": outdir, "multistep": bc.M,
+                   "dynfracV": bc.DYN["dynfracV"],
+                   "dynfracA": bc.DYN["dynfracA"],
+                   "cap_headroom": bc.CAP_HEADROOM, "fused_bigstep": True,
+                   "accum_dtype": "float32", "maxMindt": 0.5},
+        "Components": [
+            {"name": "halo", "bodyfile": "halo.psp",
+             "force": {"id": "sphereSL", "parameters": {
+                 "Lmax": 4, "nmax": 10, "numr": 2000, "rmapping": 1.0,
+                 "modelname": "halo.model", "backend": "pallas"}}},
+            {"name": "disk", "bodyfile": "disk.psp",
+             "force": {"id": "cylinder", "parameters": {
+                 "mmax": 6, "nmax": 18, "lmaxfid": 32, "nmaxfid": 24,
+                 "ncylnx": 256, "ncylny": 128, "acyl": bc.ACYL,
+                 "hcyl": bc.HCYL, "backend": "pallas"}}}],
+        "Interaction": [{"halo": "disk"}, {"disk": "halo"}],
+        "Output": [{"id": "outlog", "parameters": {"nint": 1}},
+                   {"id": "outpsn", "parameters": {"nint": 10}}]}
+
+
+def outlog_rows(path):
+    """OUTLOG's rows as floats, the wall-clock column (17) dropped."""
+    import numpy as np
+
+    rows = [r for r in open(path).read().splitlines()
+            if not r.startswith("#") and "Time" not in r]
+    return np.delete(np.array([[float(v) for v in r.split("|")]
+                               for r in rows]), 17, 1)
+
+
+def _bucket_diff(st_a, st_b):
+    """The first (component, level, field) where two bucketed states differ
+    bit for bit, or None."""
+    import torch
+
+    for n in st_a:
+        for l, (a, b) in enumerate(zip(st_a[n], st_b[n])):
+            for f in ("x", "v", "mass", "acc", "pot", "level", "indx",
+                      "scale"):
+                if not torch.equal(getattr(a, f), getattr(b, f)):
+                    return n, l, f
+    return None
+
+
+def _clone_state(st):
+    from dataclasses import replace
+
+    return {n: [replace(b, **{f: getattr(b, f).clone() for f in
+                              ("x", "v", "mass", "acc", "pot", "level",
+                               "indx", "scale")}) for b in bs]
+            for n, bs in st.items()}
+
+
+def driver_path(dev, sphere_tables, comp, xe, ve, me):
+    """Phases R1-R4 on the card: the YAML driver on the flagship's run
+    config from CM1's ICs (`comp`, composite_path's set-up), held against
+    the bare MultistepRunner bit for bit; the single-rate driver on phase
+    5's sample (xe, ve, me); the driver's own time beside the bare paths'."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch import bench_composite as bc
+    from exp_tpu_torch.basis.model import hernquist_model
+    from exp_tpu_torch.bench_sphere import sphere_force
+    from exp_tpu_torch.config import RunConfig
+    from exp_tpu_torch.io.psp import PSPComponent, PSPDump, read_psp, \
+        write_psp
+    from exp_tpu_torch.nbody.particles import (ParticleSystem,
+                                               read_ascii_arrays,
+                                               read_bodies,
+                                               write_ascii_bodies)
+    from exp_tpu_torch.nbody.simulation import Simulation
+    from exp_tpu_torch.nbody.step import init_force_state, make_kdk_step
+    from exp_tpu_torch.ops import sphere_kernels as sk
+
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_driver_")
+    wd = work.name
+
+    # R1. the flagship's body files and run config
+    t0 = time.perf_counter()
+    ic = comp["ic"]
+    write_model_exact(hernquist_model(rmin=1e-3, rmax=20.0),
+                      os.path.join(wd, "halo.model"))
+    for name, (x, v, m) in (("halo", (ic["xh"], ic["vh"], ic["mh"])),
+                            ("disk", (ic["xd"], ic["vd"], ic["md"]))):
+        d = PSPDump(time=0.0)
+        d.components.append(PSPComponent(name=name, info=f"name: {name}\n",
+                                         mass=m, x=x, v=v,
+                                         pot=np.zeros(len(m))))
+        write_psp(os.path.join(wd, f"{name}.psp"), d)
+    cfg = RunConfig.from_dict(flagship_config("out"), where="R1")
+    print(f"R1 flagship run config: {len(ic['mh'])} halo + {len(ic['md'])} "
+          f"disk bodies as PSP files, {time.perf_counter() - t0:.1f} s; "
+          + json.dumps(flagship_config("out")), flush=True)
+
+    # R2. Simulation on that config for DRIVER_NBIG big steps, each state
+    # kept; then the bare runner from the same bodies, compared bit for bit
+    t0 = time.perf_counter()
+    sim = Simulation(cfg, workdir=wd, device=dev)
+    t_build = time.perf_counter() - t0
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    sim.run(0)                                  # init_state, outputs at 0
+    states = [_clone_state(sim._ms_state)]
+    for _ in range(DRIVER_NBIG):
+        sim.run(1)
+        states.append(_clone_state(sim._ms_state))
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = bc.kernel_launches()
+    want = {k: 0 for k in launches}
+    want.update(bc.expected_launches(sim._ms_runner, DRIVER_NBIG))
+    log = outlog_rows(os.path.join(wd, "out", "OUTLOG.flag"))
+    etot = log[:, 12] + log[:, 13]
+    de = abs(etot[-1] - etot[0]) / abs(etot[0])
+    finite = bool(np.isfinite(log).all()) and all(
+        bool(torch.isfinite(getattr(b, f)).all())
+        for bs in sim._ms_state.values() for b in bs
+        for f in ("x", "v", "acc", "pot"))
+    snap = read_psp(os.path.join(wd, "out", f"OUT.flag.{DRIVER_NBIG:05d}"))
+    psp_ok = abs(snap.time - sim.time) < 1e-12
+    for c in snap.components:
+        ps = sim._state[c.name]
+        live = (ps.mass > 0).cpu().numpy()
+        for k, col in (("x", c.x), ("v", c.v), ("mass", c.mass),
+                       ("pot", c.pot)):
+            psp_ok &= np.array_equal(getattr(ps, k).cpu().numpy()[live],
+                                     col.astype(np.float32))
+    rep = {"build_sec": t_build, "run_sec": t_run, "rows": len(log),
+           "Etot0": float(etot[0]), "Etot": float(etot[-1]), "dE_rel": de,
+           "Etot_rows": [float(e) for e in etot],
+           "finite": finite, "psp_equal": bool(psp_ok),
+           "level_counts": sim._ms_runner.level_counts(sim._ms_state),
+           "relevel_rebuilds": sim._ms_runner.n_rebuilds,
+           "relevel_fallbacks": sim._ms_runner.n_fallbacks,
+           "overrun": sim._ms_runner.overrun,
+           "launches": launches, "expected_launches": want}
+    print("R2 driver run: " + json.dumps(rep), flush=True)
+    if not finite:
+        raise AssertionError("R2: non-finite OUTLOG or state")
+    if len(log) != DRIVER_NBIG + 1:
+        raise AssertionError(f"R2: {len(log)} OUTLOG rows")
+    if not de < DRIVER_DRIFT_BOUND:
+        raise AssertionError(f"R2: OUTLOG |dEtot/Etot| = {de} exceeds "
+                             f"{DRIVER_DRIFT_BOUND}")
+    if launches != want:
+        raise AssertionError(f"R2: launches {launches}, the schedule "
+                             f"implies {want}")
+    if not psp_ok:
+        raise AssertionError(f"R2: OUT.flag.{DRIVER_NBIG:05d} does not read "
+                             "back equal to the state")
+
+    # the bare runner on CM1's forces from the same bodies
+    runner = bc.make_runner(comp["halo"], comp["disk"])
+    flat = {n: read_bodies(os.path.join(wd, f"{n}.psp"), device=dev)
+            for n in ("halo", "disk")}
+    st, regs, _, _ = runner.init_state(flat)
+    diffs = [_bucket_diff(states[0], st)]
+    t = 0.0
+    for k in range(DRIVER_NBIG):
+        st, regs, _, _ = runner.bigstep(st, regs, t)
+        mid = _clone_state(st)
+        st, regs = runner.relevel(st, regs, t0=t + runner.dtime)
+        t += runner.dtime
+        d = _bucket_diff(states[k + 1], st)
+        if d is not None and diffs[-1] is None and \
+                _bucket_diff(states[k + 1], mid) is None:
+            d = d + ("after the relevel",)
+        diffs.append(d)
+    first = next(((k, d) for k, d in enumerate(diffs) if d), None)
+    print("R2 driver vs bare runner: " + (
+        "the same state bit for bit after init_state and each of the "
+        f"{DRIVER_NBIG} big steps" if first is None else
+        f"first differs after big step {first[0]} (0: init_state) in "
+        f"{first[1]}"), flush=True)
+    if first is not None:
+        raise AssertionError(f"R2: the driver's state differs from the bare "
+                             f"runner's: big step {first[0]}, {first[1]}")
+
+    # the CLI on the same config as a YAML file: its rows equal R2's
+    import yaml
+
+    yml = os.path.join(wd, "flag_cli.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(flagship_config("cli"), f)
+    from exp_tpu_torch.run import main
+
+    t0 = time.perf_counter()
+    main([yml, "-n", "2"])
+    cli = outlog_rows(os.path.join(wd, "cli", "OUTLOG.flag"))
+    print(f"R2 exp_tpu_torch.run on flag_cli.yml -n 2: "
+          f"{time.perf_counter() - t0:.1f} s, {len(cli)} OUTLOG rows, equal "
+          f"to the driver's: {bool(np.array_equal(cli, log[:3]))}",
+          flush=True)
+    if not np.array_equal(cli, log[:3]):
+        raise AssertionError("R2: the CLI's OUTLOG differs from the "
+                             "driver's first rows")
+
+    # R4 (composite). DRIVER_TIMED big steps of the driver and of the bare
+    # runner, each ended by a synchronise, on the host clock
+    drv = []
+    for _ in range(DRIVER_TIMED):
+        t0 = time.perf_counter()
+        sim.run(1)
+        torch.cuda.synchronize()
+        drv.append(time.perf_counter() - t0)
+    st, regs, big, rel = bc.time_bigsteps(runner, st, regs, DRIVER_TIMED, t)
+    r4c = {"driver_bigstep_ms": float(np.median(drv)) * 1e3,
+           "driver_bigstep_ms_all": [x * 1e3 for x in drv],
+           "bare_bigstep_plus_relevel_ms": float(np.median(
+               np.add(big, rel))) * 1e3,
+           "bare_bigstep_ms": float(np.median(big)) * 1e3,
+           "bare_relevel_ms": float(np.median(rel)) * 1e3,
+           "device": torch.cuda.get_device_name(dev)}
+    del sim, runner, st, regs, states, flat
+
+    # R3. the single-rate driver on phase 5's sample as an ascii body file
+    t0 = time.perf_counter()
+    write_ascii_bodies(os.path.join(wd, "sphere.bods"), (xe, ve, me))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xr, vr, mr = read_ascii_arrays(os.path.join(wd, "sphere.bods"))
+    t_read = time.perf_counter() - t0
+    if not (np.array_equal(xr, xe) and np.array_equal(vr, ve)
+            and np.array_equal(mr, me)):
+        raise AssertionError("R3: the ascii body file does not read back "
+                             "equal to the sample")
+    scfg = {"Global": {"dtime": DT, "nsteps": STEPS, "runtag": "sph",
+                       "outdir": "sph"},
+            "Components": [{"name": "halo", "bodyfile": "sphere.bods",
+                            "force": {"id": "sphereSL", "parameters": {
+                                "Lmax": 4, "nmax": 10, "numr": 2000,
+                                "rmapping": 1.0, "modelname": "halo.model",
+                                "backend": "pallas"}}}],
+            "Output": [{"id": "outlog", "parameters": {"nint": 1}}]}
+    t0 = time.perf_counter()
+    sim = Simulation(RunConfig.from_dict(scfg, where="R3"), workdir=wd,
+                     device=dev)
+    t_build = time.perf_counter() - t0
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    sim.prime()
+    sim.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = dict(sk.launch_counts)
+    log = outlog_rows(os.path.join(wd, "sph", "OUTLOG.sph"))
+    etot = log[:, 12] + log[:, 13]
+    de = abs(etot[-1] - etot[0]) / abs(etot[0])
+    rep = {"ascii_write_sec": t_write, "ascii_read_sec": t_read,
+           "bodies": int(log[0, 2]), "build_sec": t_build,
+           "run_sec": t_run, "rows": len(log), "virial0": float(log[0, 16]),
+           "virial1": float(log[-1, 16]), "Etot0": float(etot[0]),
+           "Etot1": float(etot[-1]), "dE_rel": de,
+           "finite": bool(np.isfinite(log).all()), "launches": launches}
+    print("R3 single-rate driver: " + json.dumps(rep), flush=True)
+    if not rep["finite"] or len(log) != STEPS + 1:
+        raise AssertionError(f"R3: {len(log)} OUTLOG rows, finite "
+                             f"{rep['finite']}")
+    for name, cnt in launches.items():
+        want_n = STEPS + 1 if name in ("sphere_coef", "sphere_accel") else 0
+        if cnt != want_n:
+            raise AssertionError(f"R3: {name} launched {cnt} times, "
+                                 f"expected {want_n}")
+    for key in ("virial0", "virial1"):
+        if not abs(rep[key] - 1.0) <= VIRIAL_TOL:
+            raise AssertionError(f"R3: 2T/VC {key} = {rep[key]}")
+    if not de < DRIFT_BOUND:
+        raise AssertionError(f"R3: |dEtot/Etot| = {de} over {STEPS} steps "
+                             f"exceeds {DRIFT_BOUND}")
+
+    # R4 (single rate). DRIVER_TIMED_STEPS steps of the driver (an OUTLOG
+    # row each) and of make_kdk_step on the same sample and tables
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(DRIVER_TIMED_STEPS)
+    torch.cuda.synchronize()
+    t_drv = (time.perf_counter() - t0) / DRIVER_TIMED_STEPS
+    force = sphere_force(sphere_tables, dev)
+    ps = ParticleSystem.from_arrays(xe, ve, me, device=dev)
+    ps, _, _ = init_force_state(force, ps)
+    step = make_kdk_step(force, DT)
+    step(ps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DRIVER_TIMED_STEPS):
+        step(ps)
+    torch.cuda.synchronize()
+    t_kdk = (time.perf_counter() - t0) / DRIVER_TIMED_STEPS
+    r4c.update(driver_step_ms=t_drv * 1e3, kdk_step_ms=t_kdk * 1e3)
+    print("R4 driver overhead (host clock, not gated): " + json.dumps(r4c),
+          flush=True)
+    work.cleanup()
 
 def sweep_path(dev, sphere_tables, disk_tables, rows):
     """Phase KS on the card: K1 and K2 ('spline' and 'hat'), K4 and K5 on
@@ -2033,8 +2398,11 @@ def main():
     rows += cube_path(dev)
     rows += slab_path(dev)
     rows += sphere_settings_path(dev, tables, xe, ve, me)
-    rows += composite_path(dev, tables, disk_tables)
+    comp_rows, comp = composite_path(dev, tables, disk_tables)
+    rows += comp_rows
     sweep_path(dev, tables, disk_tables, rows)
+    driver_path(dev, tables, comp, xe, ve, me)
+    del comp
     rows += phasestream_path(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Spherical mass models (host-side NumPy/SciPy; a copy of
-`SphericalModelTable` (with `from_density`), `hernquist_model` and
-`add_disk_to_model` from exp_tpu/basis/model.py).
+"""Spherical mass models (host-side NumPy/SciPy; a jax-free copy of
+exp_tpu/basis/model.py: `SphericalModelTable`, the model built from a
+particle snapshot, the analytic Hernquist, Plummer, King and truncated
+power-law models, and the halo + disk and halo + sphere composites).
 
 `SphericalModelTable` is the background profile a basis or an IC generator
 needs: rho(r), M(r), Phi(r), in the reference's 4-column file format
@@ -154,6 +155,54 @@ class SphericalModelTable:
         return cls(r, rho, M, Phi, comment=comment)
 
 
+def model_from_particles(x, mass, numr: int = 800, rmin: float = None,
+                         rmax: float = None,
+                         smooth: int = 3) -> SphericalModelTable:
+    """Spherical model from a particle snapshot by radial binning — the
+    adaptive-basis path (reference Sphere::make_model_bin, Sphere.cc:203-354):
+    log-spaced shells, boxcar-smoothed density, exact cumulative mass, and
+    the potential from the two-integral quadrature in from_density.
+    """
+    x = np.asarray(x, dtype=np.float64)
+    mass = np.asarray(mass, dtype=np.float64)
+    live = mass > 0
+    r = np.linalg.norm(x[live], axis=1)
+    mass = mass[live]
+    if rmin is None:
+        rmin = max(np.percentile(r, 0.01), 1e-6)
+    if rmax is None:
+        rmax = np.percentile(r, 99.9)
+    edges = np.geomspace(rmin, rmax, numr + 1)
+    # drop out-of-range particles: clipping them into the edge bins
+    # inflates exactly the cusp/truncation densities
+    inb = (r >= rmin) & (r < rmax)
+    idx = np.digitize(r[inb], edges) - 1
+    msh = np.bincount(np.clip(idx, 0, numr - 1), weights=mass[inb],
+                      minlength=numr)
+    vol = 4.0 * np.pi / 3.0 * np.diff(edges ** 3)
+    rho = msh / vol
+    if smooth > 1:                       # boxcar in log space
+        # edge-padded so the boundary bins average only REAL samples —
+        # mode="same" zero padding would bias the cusp/truncation bins
+        # toward log(rho)=0
+        k = np.ones(smooth) / smooth
+        lg = np.log(np.maximum(rho, rho[rho > 0].min() * 1e-3))
+        half = smooth // 2
+        lg_pad = np.pad(lg, half, mode="edge")
+        rho = np.exp(np.convolve(lg_pad, k, mode="same")[half:half + numr])
+    rc = np.sqrt(edges[:-1] * edges[1:])
+    good = rho > 0
+    rho_i = np.interp(np.log(rc), np.log(rc[good]), np.log(rho[good]))
+    rho_fn = lambda rr: np.exp(np.interp(np.log(np.maximum(rr, rc[0])),
+                                         np.log(rc), rho_i))
+    m = SphericalModelTable.from_density(rho_fn, rmin, rmax, numr,
+                                         comment="! binned from particles")
+    # normalize to the actual bound mass inside rmax
+    s = mass[r <= rmax].sum() / m.total_mass
+    return SphericalModelTable(m.r, m.rho * s, m.mass * s, m.pot * s,
+                               comment=m.comment)
+
+
 def hernquist_model(a: float = 1.0, M: float = 1.0, rmin: float = 1e-4,
                     rmax: float = 100.0, numr: int = 2000
                     ) -> SphericalModelTable:
@@ -164,6 +213,16 @@ def hernquist_model(a: float = 1.0, M: float = 1.0, rmin: float = 1e-4,
     pot = -M / (r + a)
     return SphericalModelTable(r, rho, mass, pot,
                                comment=f"! Hernquist a={a} M={M}")
+
+
+def plummer_model(a: float = 1.0, M: float = 1.0, rmin: float = 1e-4,
+                  rmax: float = 100.0, numr: int = 2000) -> SphericalModelTable:
+    r = np.geomspace(rmin, rmax, numr)
+    rho = 3.0 * M / (4.0 * np.pi * a**3) * (1.0 + (r / a) ** 2) ** -2.5
+    mass = M * r**3 / (r**2 + a**2) ** 1.5
+    pot = -M / np.sqrt(r**2 + a**2)
+    return SphericalModelTable(r, rho, mass, pot,
+                               comment=f"! Plummer a={a} M={M}")
 
 
 def add_disk_to_model(halo: SphericalModelTable, Mdisk: float,
@@ -188,3 +247,118 @@ def add_disk_to_model(halo: SphericalModelTable, Mdisk: float,
                                halo.pot + pot_d,
                                comment=(halo.comment
                                         + f" + disk M={Mdisk} a={acyl}"))
+
+
+def add_sphere_to_model(halo: SphericalModelTable,
+                        other: SphericalModelTable,
+                        mass_scale: float = 1.0,
+                        include_density: bool = False
+                        ) -> SphericalModelTable:
+    """Composite of two spherical models (utils/ICs/AddSpheres.cc: halo +
+    bulge): add the scaled second model's enclosed mass and potential to
+    the halo's table so the halo DF (Eddington inversion of the result)
+    responds to the embedded sphere.
+
+    include_density=False keeps the halo density as the tracer profile
+    (sample the halo in the TOTAL potential — the gensph `--addsphere`
+    path); True also adds the scaled density (a full composite model)."""
+    r = halo.r
+    Mtot_o = float(other.mass[-1]) * mass_scale
+    Mo = mass_scale * np.interp(r, other.r, other.mass,
+                                left=0.0, right=float(other.mass[-1]))
+    pot_o = mass_scale * np.where(
+        r <= other.r[-1],
+        np.interp(r, other.r, other.pot),
+        -float(other.mass[-1]) / np.maximum(r, 1e-30))
+    rho = halo.rho.copy()
+    if include_density:
+        rho = rho + mass_scale * np.interp(r, other.r, other.rho,
+                                           left=float(other.rho[0]),
+                                           right=0.0)
+    return SphericalModelTable(r, rho, halo.mass + Mo, halo.pot + pot_o,
+                               comment=(halo.comment
+                                        + f" + sphere M={Mtot_o:.4g}"))
+
+
+def king_model(W0: float = 5.0, M: float = 1.0, rt: float = 1.0,
+               numr: int = 2000) -> SphericalModelTable:
+    """King (1966) lowered-isothermal model (reference include/king.H).
+
+    Solves the dimensionless King equation for concentration parameter
+    W0 = psi(0)/sigma^2, then rescales to total mass M and tidal radius
+    rt (G = 1).  rho(W) = e^W erf(sqrt(W)) - sqrt(4W/pi)(1 + 2W/3).
+    """
+    from scipy.special import erf
+    from scipy.integrate import solve_ivp
+
+    def rho_w(W):
+        W = np.maximum(W, 0.0)
+        return (np.exp(W) * erf(np.sqrt(W))
+                - np.sqrt(4.0 * W / np.pi) * (1.0 + 2.0 * W / 3.0))
+
+    rho0 = rho_w(W0)
+
+    # y = [W, dW/dr]; d/dr(r^2 W') = -9 r^2 rho(W)/rho0 (king units:
+    # r in core radii r_c, sigma = 1)
+    def rhs(r, y):
+        W, dW = y
+        if r < 1e-12:
+            return [dW, -3.0 * rho_w(W) / rho0]
+        return [dW, -9.0 * rho_w(W) / rho0 - 2.0 * dW / r]
+
+    def hit_edge(r, y):
+        return y[0]
+    hit_edge.terminal = True
+    hit_edge.direction = -1
+
+    sol = solve_ivp(rhs, [1e-8, 1e4], [W0, 0.0], events=hit_edge,
+                    max_step=0.05, rtol=1e-10, atol=1e-12)
+    rt_king = sol.t_events[0][0]          # tidal radius in king units
+    r_k = np.geomspace(rt_king * 1e-4, rt_king * 0.999999, numr)
+    W = np.interp(r_k, sol.t, sol.y[0])
+    rho_k = rho_w(W) / rho0
+    integ = 4.0 * np.pi * rho_k * r_k ** 2
+    dm = 0.5 * (integ[1:] + integ[:-1]) * np.diff(r_k)
+    Mk = np.concatenate([[0.0], np.cumsum(dm)])
+    # rescale: r -> r * rt/rt_king, total mass -> M.  Mk was integrated
+    # from this same rho_k, so rho_phys = rho_k * s_m / s_r^3 keeps
+    # M(r) = 4 pi int rho r^2 dr exact under the rescaling.
+    s_r = rt / rt_king
+    s_m = M / Mk[-1]
+    r = r_k * s_r
+    mass = Mk * s_m
+    rho = rho_k * s_m / s_r ** 3
+    # potential: Phi = -M(r)/r - 4 pi int_r^rt rho s ds  (G = 1)
+    integ_p = 4.0 * np.pi * rho * r
+    dp = 0.5 * (integ_p[1:] + integ_p[:-1]) * np.diff(r)
+    Pout = np.concatenate([[0.0], np.cumsum(dp)])
+    pot = -mass / r - (Pout[-1] - Pout)
+    return SphericalModelTable(r, rho, mass, pot,
+                               comment=f"! King W0={W0} M={M} rt={rt}")
+
+
+def truncated_powerlaw_model(alpha: float = 1.0, beta: float = 3.0,
+                             rcore: float = 0.015, rtrunc: float = 15.0,
+                             wtrunc: float = 4.0, rmin: float = 3e-5,
+                             rmax: float = 30.0, numr: int = 2000,
+                             M: float = 1.0) -> SphericalModelTable:
+    """Cored alpha/beta double-power-law with error-function truncation.
+
+    The profile family of the reference CI halo model (header of
+    tests/Halo/SLGridSph.model: alpha=1 beta=3 rcore rtrunc wtrunc):
+      rho ~ (r + rcore)^-alpha * (r + rs)^-(beta-alpha) * erfc-taper(rtrunc)
+    normalized to total mass M.
+    """
+    from scipy.special import erfc
+
+    def rho_raw(r):
+        core = (r + rcore) ** -alpha
+        outer = (1.0 + r) ** (alpha - beta)
+        taper = 0.5 * erfc((np.log(r / rtrunc)) * wtrunc)
+        return core * outer * taper
+
+    m = SphericalModelTable.from_density(rho_raw, rmin, rmax, numr)
+    s = M / m.total_mass
+    return SphericalModelTable(m.r, m.rho * s, m.mass * s, m.pot * s,
+                               comment=(f"! alpha={alpha} beta={beta} "
+                                        f"rcore={rcore} rtrunc={rtrunc}"))

@@ -124,11 +124,15 @@ def _solve_sl_one_l(l: int, xi: np.ndarray, r: np.ndarray, rp: np.ndarray,
     A = sp.diags([off, diag, off], [-1, 0, 1], format="csc")
     W = sp.diags(m)
     k = min(nmax + 4, nloc - 2)
+    # a fixed start vector: ARPACK's own random start advances from call to
+    # call, so the same tables built twice in one process differed in their
+    # last bits (~1e-13), and so did runs that must agree bit for bit
+    v0 = np.random.default_rng(0).standard_normal(nloc)
     try:
-        ev, y = eigsh(A, k=k, M=W, sigma=0.0, which="LM")
+        ev, y = eigsh(A, k=k, M=W, sigma=0.0, which="LM", v0=v0)
     except RuntimeError:
         # fallback: tiny negative shift if A is exactly singular at 0
-        ev, y = eigsh(A, k=k, M=W, sigma=-1e-8, which="LM")
+        ev, y = eigsh(A, k=k, M=W, sigma=-1e-8, which="LM", v0=v0)
     order = np.argsort(ev)
     ev, y = ev[order], y[:, order]
     pos = ev > 0.0

@@ -9,7 +9,7 @@ cap_headroom 2).  The ICs are built fresh (no disk cache).
     python -m exp_tpu_torch.bench_composite bench [--n-halo N] [--n-disk N]
         [--nbig B]
     python -m exp_tpu_torch.bench_composite kdk [--n-halo N] [--n-disk N]
-        [--nbig B] [--device D]
+        [--nbig B] [--device D] [--max-warmup W]
     python -m exp_tpu_torch.bench_composite profile [--n-halo N] [--n-disk N]
         [--nbig B]
 
@@ -22,10 +22,12 @@ composite_particle_substeps_per_sec (the sum over components of c_l 2^l
 over the big-step time, the multistep figure of merit), step_ms per big
 step, relevel_ms, the level counts.  `kdk` runs B big steps with relevels
 on the named device (the CPU takes the kernels' plain versions) and prints
-the gates of chip_smoke.py's CM2 phase: the virial ratio of the ICs, the
-energy drift, the level populations' moves, the capacity signature, the
-live count and identities, and each kernel's launches from init_state on
-beside the count the schedule implies (a CPU run launches none).
+the gates of chip_smoke.py's CM2 phase (with `--max-warmup 0` from
+init_state on, the window of the YAML driver's run in R2): the virial
+ratio of the ICs, the energy drift, the level populations' moves, the
+capacity signature, the live count and identities, and each kernel's
+launches from init_state on beside the count the schedule implies (a CPU
+run launches none).
 `profile` traces B big steps and B relevels in turn with torch.profiler
 and prints the device time of each by category (the port's kernels, the
 rebucket's sort and gathers, reductions, copies, elementwise glue) and by
@@ -104,7 +106,8 @@ def ics_virial(halo_force, disk_force, ic):
 
 def make_runner(halo_force, disk_force):
     """The bench's runner (bench_suite.py:258-261, fused as there: the port
-    runs the same eager loop either way)."""
+    runs the same eager loop either way; a CUDA graph of the big step is
+    ROADMAP's perf_opt item 9b.1)."""
     from exp_tpu_torch.nbody.multistep import MultistepRunner
 
     return MultistepRunner({"halo": halo_force, "disk": disk_force}, COUPLES,
@@ -235,13 +238,16 @@ def prepare(n_halo=N_HALO, n_disk=N_DISK, device=None, forces=None):
             "ics_sec": time.perf_counter() - t1}
 
 
-def start(s):
-    """The runner, init_state and the warmup on prepare's forces and ICs;
-    adds them to `s` and returns it."""
+def start(s, max_warmup=MAX_WARMUP):
+    """The runner, init_state and the warmup (at most max_warmup big steps;
+    with none, `diag` is init_state's) on prepare's forces and ICs; adds
+    them to `s` and returns it."""
     t0 = time.perf_counter()
     runner = make_runner(s["halo"], s["disk"])
-    st, regs, _, diag = runner.init_state(flat_systems(s["ic"], s["device"]))
-    st, regs, diag, nw, stable = warmup(runner, st, regs)
+    st, regs, _, diag0 = runner.init_state(flat_systems(s["ic"],
+                                                        s["device"]))
+    st, regs, diag, nw, stable = warmup(runner, st, regs, max_warmup)
+    diag = diag0 if diag is None else diag
     s.update(runner=runner, st=st, regs=regs, diag=diag, warmup_bigsteps=nw,
              warmup_stable=stable, init_warmup_sec=time.perf_counter() - t0)
     return s
@@ -252,18 +258,20 @@ def setup(n_halo=N_HALO, n_disk=N_DISK, device=None):
     return start(prepare(n_halo, n_disk, device))
 
 
-def time_bigsteps(runner, st, regs, nbig):
+def time_bigsteps(runner, st, regs, nbig, t=0.0):
     """Host-clock times of `nbig` big steps and of their relevels, each
-    ended by a synchronise.  Returns (st, regs, big-step seconds, relevel
-    seconds)."""
+    ended by a synchronise; the simulation time runs from `t` by dtime a
+    big step, as the YAML driver passes it.  Returns (st, regs, big-step
+    seconds, relevel seconds)."""
     big, rel = [], []
     torch.cuda.synchronize()
     for _ in range(nbig):
         t0 = time.perf_counter()
-        st, regs, _, _ = runner.bigstep(st, regs)
+        st, regs, _, _ = runner.bigstep(st, regs, t)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        st, regs = runner.relevel(st, regs)
+        st, regs = runner.relevel(st, regs, t0=t + runner.dtime)
+        t += runner.dtime
         torch.cuda.synchronize()
         big.append(t1 - t0)
         rel.append(time.perf_counter() - t1)
@@ -383,6 +391,7 @@ def _main():
     ap.add_argument("--n-disk", type=int, default=N_DISK)
     ap.add_argument("--nbig", type=int, default=None)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--max-warmup", type=int, default=MAX_WARMUP)
     a = ap.parse_args()
     if a.mode == "bench":
         print(json.dumps(bench_composite(a.n_halo, a.n_disk, a.nbig or 3,
@@ -394,7 +403,7 @@ def _main():
         return
     s = prepare(a.n_halo, a.n_disk, a.device)
     reset_launches()
-    s = start(s)
+    s = start(s, a.max_warmup)
     nbig = a.nbig or 10
     _, _, out = composite_run(s["runner"], s["st"], s["regs"], s["diag"],
                               nbig)

@@ -19,7 +19,7 @@ exp_tpu/nbody/multistep.py).
 The runner is eager: a big step is a host loop over the 2^M substeps, each
 launching the force kernels on the active buckets; `fused=True` runs the
 same loop (the card's counterpart of the JAX package's one-jit big step, a
-CUDA graph, is left to later work).  Buckets are updated in place, like the
+CUDA graph, is performance work: ROADMAP's perf_opt item 9b.1).  Buckets are updated in place, like the
 port's KDK step.  A relevel reads the level counts, the number of live
 particles that changed level and the overrun counts on the host, once; when
 no particle changed level it returns the state and registers as they are,
@@ -32,9 +32,9 @@ gather costs what the sort's payload would, so one engine serves both.
 Not ported, each raising NotImplementedError with its ROADMAP item:
 source-based (direct) forces and two-center forces (item 11), external
 fields and the playback, Hall, restriction and pseudo-force extras (item
-10), the 'incremental' rebucket (item 9b).  Not ported either: the
+10b), the 'incremental' rebucket (item 9b.2).  Not ported either: the
 position wrappers (periodic boundaries), which only the YAML driver passes
-(item 9b), and the multi-device all-reduce (item 12).
+(item 10b), and the multi-device all-reduce (item 12).
 """
 
 from __future__ import annotations
@@ -335,7 +335,7 @@ class MultistepRunner:
         if externals:
             raise NotImplementedError(
                 "external fields in the multistep runner come with the YAML "
-                "driver's forces/external.py (ROADMAP item 10)")
+                "driver's forces/external.py (ROADMAP item 10b)")
         for n, f in forces.items():
             if getattr(f, "needs_centers", False):
                 raise NotImplementedError(
@@ -348,7 +348,7 @@ class MultistepRunner:
         if self.rebucket_style == "incremental":
             raise NotImplementedError(
                 "rebucket_style='incremental' (the movers-only relevel) is "
-                "not ported (ROADMAP item 9b); 'sortfull' and 'sortgather' "
+                "not ported (ROADMAP item 9b.2); 'sortfull' and 'sortgather' "
                 "run the port's one rebucket engine")
         if self.rebucket_style not in REBUCKET_STYLES:
             raise ValueError(f"rebucket_style={rebucket_style!r}: expected "
@@ -381,7 +381,7 @@ class MultistepRunner:
         if any(ex.get(k) for k in ("playback", "hall", "restrict", "pseudo")):
             raise NotImplementedError(
                 "multistep extras (playback, hall, restrict, pseudo) come "
-                "with the YAML driver (ROADMAP item 10)")
+                "with the YAML driver's next slice (ROADMAP item 10b)")
 
     def _init(self, st, t0=0.0, centers=None, rots=None, prime_accel=True,
               with_diag=True):

@@ -1255,3 +1255,85 @@ def test_k5_mmax_and_plans_match_plain_version(cuda, mmax, interp):
                           x.shape[0])
         outs.append(out)
     assert _same_rows(outs[0], outs[1], x.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# the YAML driver (nbody/simulation.py, run.py) on the card
+# ---------------------------------------------------------------------------
+
+DRIVER_CONFIG = """\
+Global:
+  dtime: {dtime}
+  nsteps: {nsteps}
+  runtag: g
+  outdir: {outdir}
+{extra}Components:
+  - name: halo
+    bodyfile: halo.bods
+    force:
+      id: sphereSL
+      parameters: {{Lmax: 4, nmax: 10, numr: 2000, rmapping: 1.0,
+                   modelname: 'hernquist:a=1,M=1', backend: pallas}}
+  - name: disk
+    bodyfile: disk.bods
+    force:
+      id: cylinder
+      parameters: {{mmax: 4, nmax: 6, lmaxfid: 8, nmaxfid: 8, ncylnx: 128,
+                   ncylny: 64, rnum: 50, tnum: 20, backend: pallas}}
+Output:
+  - id: outlog
+    parameters: {{nint: 1}}
+"""
+
+
+def _outlog(path):
+    rows = [r for r in open(path).read().splitlines()
+            if not r.startswith("#") and "Time" not in r]
+    a = np.array([[float(v) for v in r.split("|")] for r in rows])
+    return np.delete(a, 17, 1)              # the wall clock
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("multistep", [0, 2])
+def test_driver_on_card_matches_cpu(cuda, tmp_path, multistep):
+    """A halo (16,384) + disk (4,096) run config with backend: pallas,
+    single-rate (3 steps) and multistep (M=2, 2 big steps), through
+    `python -m exp_tpu_torch.run` on the card and with --device cpu: the
+    same OUTLOG to the kernels' force tolerance (K2/K5 acc rtol 1e-4;
+    atol 1e-6 for the columns that are sums cancelling to ~0), the same
+    level populations, and the card's run through K1, K2, K4 and K5."""
+    from exp_tpu_torch.bench_disk import disk_sample
+    from exp_tpu_torch.nbody.particles import write_ascii_bodies
+    from exp_tpu_torch.ops import cyl_kernels as ck
+    from exp_tpu_torch.run import main
+
+    xh, vh, mh = hernquist_sample_np(16_384, seed=5)
+    write_ascii_bodies(tmp_path / "halo.bods", (xh, vh, 0.95 * mh))
+    write_ascii_bodies(tmp_path / "disk.bods", disk_sample(4_096, seed=5))
+    # the disk's finest orbits overrun M=2 at this dtime; maxMindt 1 keeps
+    # the sanity stop (which would write an HDF5 checkpoint) out of it
+    extra = ("  multistep: 2\n  dynfracV: 0.01\n  dynfracA: 0.03\n"
+             "  maxMindt: 1.0\n" if multistep else "")
+    dtime, nsteps = (2e-3, 2) if multistep else (1e-3, 3)
+    sims = {}
+    for dev in ("cuda", "cpu"):
+        p = tmp_path / f"{dev}.yml"
+        p.write_text(DRIVER_CONFIG.format(dtime=dtime, nsteps=nsteps,
+                                          outdir=dev, extra=extra))
+        before = {**sk.launch_counts, **ck.launch_counts}
+        sims[dev] = main([str(p), "--device", dev])
+        after = {**sk.launch_counts, **ck.launch_counts}
+        ran = {k: after[k] - before[k] for k in
+               ("sphere_coef", "sphere_accel", "cyl_coef", "cyl_accel")}
+        if dev == "cuda":
+            assert all(n > 0 for n in ran.values()), ran
+        else:
+            assert not any(ran.values()), ran
+    a, b = _outlog(tmp_path / "cuda" / "OUTLOG.g"), \
+        _outlog(tmp_path / "cpu" / "OUTLOG.g")
+    assert a.shape == b.shape == (nsteps + 1, 17 + 2 * 15)
+    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+    if multistep:
+        counts = [s._ms_runner.level_counts(s._ms_state)
+                  for s in sims.values()]
+        assert counts[0] == counts[1]

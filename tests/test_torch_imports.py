@@ -30,7 +30,11 @@ def test_import_loads_no_jax_or_exp_tpu():
         "exp_tpu_torch.ops.slab_kernels, exp_tpu_torch.ic.slab, "
         "exp_tpu_torch.bench_slab, exp_tpu_torch.nbody.multistep, "
         "exp_tpu_torch.ic.diskhalo, exp_tpu_torch.bench_composite, "
-        "exp_tpu_torch.probe_slab_phasestream\n"
+        "exp_tpu_torch.probe_slab_phasestream, exp_tpu_torch.config, "
+        "exp_tpu_torch.run, exp_tpu_torch.nbody.simulation, "
+        "exp_tpu_torch.nbody.output, exp_tpu_torch.io.psp, "
+        "exp_tpu_torch.io.coefs, exp_tpu_torch.forces.noforce, "
+        "exp_tpu_torch.cli._common\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exp_tpu' or m.startswith('exp_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -159,3 +163,29 @@ def test_composite_and_probe_entry_points_without_device_raise_when_no_cuda(
             call()
     with pytest.raises(RuntimeError, match="times the card"):
         bench_composite(8, 8, device="cpu")
+
+
+def test_driver_entry_points_without_device_raise_when_no_cuda(
+        monkeypatch, tmp_path):
+    from exp_tpu_torch.config import ForceConfig, RunConfig
+    from exp_tpu_torch.nbody.particles import read_bodies, write_ascii_bodies
+    from exp_tpu_torch.nbody.simulation import Simulation, build_force
+    from exp_tpu_torch.run import main
+
+    write_ascii_bodies(tmp_path / "b.bods", (np.ones((4, 3)),
+                                             np.zeros((4, 3)), np.ones(4)))
+    raw = {"Global": {"nsteps": 1},
+           "Components": [{"name": "h", "bodyfile": "b.bods",
+                           "force": {"id": "noforce"}}]}
+    (tmp_path / "c.yml").write_text(
+        "Global: {nsteps: 1}\nComponents:\n  - {name: h, bodyfile: b.bods,"
+        " force: {id: noforce}}\n")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: Simulation(RunConfig.from_dict(raw), str(tmp_path)),
+                 lambda: build_force(ForceConfig("noforce"), torch.float32),
+                 lambda: read_bodies(str(tmp_path / "b.bods")),
+                 lambda: main([str(tmp_path / "c.yml")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    sim = main([str(tmp_path / "c.yml"), "--device", "cpu"])
+    assert sim.device == torch.device("cpu") and sim.istep == 1
