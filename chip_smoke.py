@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only-driver]
 
 Seven paths of exp_tpu_torch, each with backend='pallas', run the port's
 eleven hand-written kernels, and the YAML driver runs two of those paths
-from run configs:
+from run configs, with and without its extras.  `--only-driver` runs
+phases 1-3, the sample of phase 5, CM1's forces and ICs, R1-R4 and E1-E4
+alone and prints no kernels line (a shorter run for work on the driver):
 
   the sphere path (1,048,576 particles): the sphereSL KDK step of a
     Hernquist halo under the spherical Sturm-Liouville basis (lmax=4,
@@ -129,6 +131,27 @@ Phases:
      (its write and NumPy read timed), 50 steps under phase 5's gates;
   R4. the driver's time a big step and a step beside the bare runner's
      and make_kdk_step's, on the host clock (printed, not gated);
+  E1. the flagship's run config with the disk's EJ: 2, nEJkeep 256,
+     EJwindow 16, nEJaccel 8 and the halo's npca 5, nsamples 8, tk_type
+     Hall (exp_tpu_torch/bench_extras.py), 10 big steps from t = 0, with
+     finiteness after every big step, 11 OUTLOG rows, an orient-log row an
+     update, K2/K4/K5's launches the schedule's and K1's the schedule's
+     plus nsamples a Hall update, the tracked center against its NumPy
+     f64 recomputation from the card's synced state, the Hall-smoothed
+     halo coefficients from K1 against K1's plain version's, and OUTLOG's
+     |dEtot/Etot| (E1_DRIFT_BOUND) gated;
+  E2. the sphere run config with the halo's NO_L1 and External userbar,
+     50 steps, with finiteness, 51/51 launches of K1 and K2, the l = 1
+     coefficients exactly 0 after every step, 2T/VC at both ends and the
+     bar's acceleration at 4,096 bodies against f64 gated;
+  E3. the flagship's run config with the halo's self_consistent: false,
+     10 big steps, with the halo's coefficients equal to the initial ones
+     bit for bit after every big step, K1 launched only by init_state,
+     K2/K4/K5 the schedule's, finiteness and the disk's |dE/E|
+     (E3_DRIFT_BOUND) gated;
+  E4. E1's and E3's big step and E2's step beside R4's, the Orient and
+     Hall timers, one EJ and one Hall update, a ScatterMFP application and
+     a NOISE draw at 2^20, on the host clock (printed, not gated);
   PS1. P1 against its plain version on the probe's sample with edge rows,
      stream1 and stream2, with the stated tolerances;
   PS2. the probe's run: producer + P1, P1 alone, the producer, the
@@ -356,6 +379,45 @@ DRIVER_NBIG = 10
 DRIVER_DRIFT_BOUND = 6e-4
 DRIVER_TIMED = 5
 DRIVER_TIMED_STEPS = 20
+
+# The driver's extras (exp_tpu_torch/bench_extras.py's E1-E3 configs).
+# E1: the flagship with the disk's EJ: 2 (nEJkeep 256, EJwindow 16,
+# nEJaccel 8) and the halo's npca 5 (nsamples 8, Hall), DRIVER_NBIG big
+# steps from t = 0; E2: the sphere run config with NO_L1 and the userbar,
+# STEPS steps; E3: the flagship with the halo's self_consistent: false.
+# |dEtot/Etot| bounds over OUTLOG's rows 0..DRIVER_NBIG, E1's on the global
+# columns, E3's on the disk's own (the halo is rigid): three times the drift
+# of the same config through the plain versions on a CPU (python -m
+# exp_tpu_torch.bench_extras kdk --case E1|E3 --device cpu --threads 3 on
+# the card's host), the rule of R2 and CM2.  E1's CPU run drifted 1.056e-2:
+# from the 8th big step on, nEJaccel's frame correction subtracts the
+# estimated acceleration of the disk's tracked center (2x the quadratic
+# coefficient of 8 centroids 2e-3 apart, ~170 in these units: the top-256
+# centroid moves by ~1e-3 between updates) from every disk particle, which
+# does work on the disk.  E3's CPU run: the disk's own Etot drifted
+# 3.314e-4.
+E1_DRIFT_BOUND = 3.2e-2
+E3_DRIFT_BOUND = 1.0e-3
+# E1's tracked disk center against its NumPy f64 recomputation from the
+# card's synced state (the same top-256 centroid and window regression), in
+# the disk's length units (acyl = 0.01): the card ranks f32 energies, so one
+# particle may trade places at the 256th rank (the set's rows lie within
+# ~1e-3 of the center: ~4e-6 on the centroid, ~0.4 of it on the regression
+# at the window's end), and the f32 centroid sum errs by ~256 eps |x| ~
+# 2e-8; 2e-6 holds one such trade and fails a wrong set or a wrong
+# regression.
+E1_CENTER_ATOL = 2e-6
+# E1's Hall-smoothed halo coefficients from K1's subsamples against those
+# from K1's plain version on the same state, max|d| / max|value|: each
+# subsample's coefficients err by COEF_RTOL of max|c|, and the smoothed
+# value w * mean moves by at most ~2 of that (|d(w s)| <= |ds| (1 + 1/2)
+# for w = s^2 / (s^2 + var), with var's own error of the same order).
+E1_HALL_RTOL = 4 * COEF_RTOL
+# E2's bar acceleration at E2_BAR_N of the bodies on the card (f32, torch.
+# autograd) against the same formula in f64 on the CPU, max|da| / max|a|:
+# ~30 f32 operations a term, each rounding at 6e-8.
+E2_BAR_N = 4096
+E2_BAR_RTOL = 1e-5
 
 
 def nvidia_smi_line():
@@ -1743,53 +1805,6 @@ def composite_path(dev, sphere_tables, disk_tables):
 
 
 
-def write_model_exact(model, path):
-    """A model file that reads back to the same f64 arrays (17 significant
-    digits; SphericalModelTable.to_file keeps 13), so the driver builds the
-    benches' tables bit for bit."""
-    import numpy as np
-
-    with open(path, "w") as f:
-        f.write(f"! {model.comment}\n{len(model.r)}\n")
-        np.savetxt(f, np.column_stack([model.r, model.rho, model.mass,
-                                       model.pot]), fmt="%.17e")
-
-
-def flagship_config(outdir, runtag="flag", nsteps=DRIVER_NBIG):
-    """R1: the flagship composite's run config as the dict yaml.safe_load
-    gives: the composite bench's settings (bench_composite.py; its runner
-    accumulates coefficients in f32, so accum_dtype is float32), the halo's
-    model in halo.model, both forces on the pallas backend, interactions
-    both ways, OUTLOG every big step and PSP snapshots every 10.  The
-    DiskHalo disk's inner orbits ask for steps below the finest level (the
-    runner clamps them to it; R2 prints the share), more than the
-    reference's default maxMindt of 5%, at which the driver would stop the
-    run after its first big step: the bench's runner has no such stop, so
-    the config raises maxMindt to 0.5."""
-    from exp_tpu_torch import bench_composite as bc
-
-    return {
-        "Global": {"dtime": bc.DTIME, "nsteps": nsteps, "runtag": runtag,
-                   "outdir": outdir, "multistep": bc.M,
-                   "dynfracV": bc.DYN["dynfracV"],
-                   "dynfracA": bc.DYN["dynfracA"],
-                   "cap_headroom": bc.CAP_HEADROOM, "fused_bigstep": True,
-                   "accum_dtype": "float32", "maxMindt": 0.5},
-        "Components": [
-            {"name": "halo", "bodyfile": "halo.psp",
-             "force": {"id": "sphereSL", "parameters": {
-                 "Lmax": 4, "nmax": 10, "numr": 2000, "rmapping": 1.0,
-                 "modelname": "halo.model", "backend": "pallas"}}},
-            {"name": "disk", "bodyfile": "disk.psp",
-             "force": {"id": "cylinder", "parameters": {
-                 "mmax": 6, "nmax": 18, "lmaxfid": 32, "nmaxfid": 24,
-                 "ncylnx": 256, "ncylny": 128, "acyl": bc.ACYL,
-                 "hcyl": bc.HCYL, "backend": "pallas"}}}],
-        "Interaction": [{"halo": "disk"}, {"disk": "halo"}],
-        "Output": [{"id": "outlog", "parameters": {"nint": 1}},
-                   {"id": "outpsn", "parameters": {"nint": 10}}]}
-
-
 def outlog_rows(path):
     """OUTLOG's rows as floats, the wall-clock column (17) dropped."""
     import numpy as np
@@ -1827,7 +1842,9 @@ def driver_path(dev, sphere_tables, comp, xe, ve, me):
     """Phases R1-R4 on the card: the YAML driver on the flagship's run
     config from CM1's ICs (`comp`, composite_path's set-up), held against
     the bare MultistepRunner bit for bit; the single-rate driver on phase
-    5's sample (xe, ve, me); the driver's own time beside the bare paths'."""
+    5's sample (xe, ve, me); the driver's own time beside the bare paths'.
+    Returns R4's times and the work directory (its body and model files),
+    which the caller cleans up."""
     import os
     import tempfile
 
@@ -1835,11 +1852,11 @@ def driver_path(dev, sphere_tables, comp, xe, ve, me):
     import torch
 
     from exp_tpu_torch import bench_composite as bc
-    from exp_tpu_torch.basis.model import hernquist_model
+    from exp_tpu_torch.bench_extras import (flagship_config, sphere_config,
+                                            write_bodies)
     from exp_tpu_torch.bench_sphere import sphere_force
     from exp_tpu_torch.config import RunConfig
-    from exp_tpu_torch.io.psp import PSPComponent, PSPDump, read_psp, \
-        write_psp
+    from exp_tpu_torch.io.psp import read_psp
     from exp_tpu_torch.nbody.particles import (ParticleSystem,
                                                read_ascii_arrays,
                                                read_bodies,
@@ -1854,15 +1871,7 @@ def driver_path(dev, sphere_tables, comp, xe, ve, me):
     # R1. the flagship's body files and run config
     t0 = time.perf_counter()
     ic = comp["ic"]
-    write_model_exact(hernquist_model(rmin=1e-3, rmax=20.0),
-                      os.path.join(wd, "halo.model"))
-    for name, (x, v, m) in (("halo", (ic["xh"], ic["vh"], ic["mh"])),
-                            ("disk", (ic["xd"], ic["vd"], ic["md"]))):
-        d = PSPDump(time=0.0)
-        d.components.append(PSPComponent(name=name, info=f"name: {name}\n",
-                                         mass=m, x=x, v=v,
-                                         pot=np.zeros(len(m))))
-        write_psp(os.path.join(wd, f"{name}.psp"), d)
+    write_bodies(wd, ic)
     cfg = RunConfig.from_dict(flagship_config("out"), where="R1")
     print(f"R1 flagship run config: {len(ic['mh'])} halo + {len(ic['md'])} "
           f"disk bodies as PSP files, {time.perf_counter() - t0:.1f} s; "
@@ -2000,14 +2009,7 @@ def driver_path(dev, sphere_tables, comp, xe, ve, me):
             and np.array_equal(mr, me)):
         raise AssertionError("R3: the ascii body file does not read back "
                              "equal to the sample")
-    scfg = {"Global": {"dtime": DT, "nsteps": STEPS, "runtag": "sph",
-                       "outdir": "sph"},
-            "Components": [{"name": "halo", "bodyfile": "sphere.bods",
-                            "force": {"id": "sphereSL", "parameters": {
-                                "Lmax": 4, "nmax": 10, "numr": 2000,
-                                "rmapping": 1.0, "modelname": "halo.model",
-                                "backend": "pallas"}}}],
-            "Output": [{"id": "outlog", "parameters": {"nint": 1}}]}
+    scfg = sphere_config("sph", "sph", DT, STEPS)
     t0 = time.perf_counter()
     sim = Simulation(RunConfig.from_dict(scfg, where="R3"), workdir=wd,
                      device=dev)
@@ -2065,7 +2067,285 @@ def driver_path(dev, sphere_tables, comp, xe, ve, me):
     r4c.update(driver_step_ms=t_drv * 1e3, kdk_step_ms=t_kdk * 1e3)
     print("R4 driver overhead (host clock, not gated): " + json.dumps(r4c),
           flush=True)
-    work.cleanup()
+    return r4c, work
+
+def _finite_buckets(sim):
+    import torch
+
+    return all(bool(torch.isfinite(getattr(b, f)).all())
+               for bs in sim._ms_state.values() for b in bs
+               for f in ("x", "v", "acc", "pot"))
+
+
+class _PlainK1:
+    """A sphere force's coefficients through K1's plain version (PyTorch
+    ops on the card), for the subsample comparison of E1."""
+
+    def __init__(self, force):
+        self.f = force
+
+    def coefficients(self, x, mass, accum_dtype=None):
+        from exp_tpu_torch.ops import sphere_kernels as sk
+
+        f = self.f
+        return sk.sphere_coef_plain(
+            x.float().contiguous(), mass.float().contiguous(),
+            f._radial_table(), f.Mp, f._kernel_params())
+
+
+def _smoothed(force, x, m, nsamples):
+    from exp_tpu_torch.nbody.pca import (_mean_var, smoothing_weights,
+                                         subsample_coefficients)
+
+    mean, var = _mean_var(subsample_coefficients(force, x, m,
+                                                 nsamples=nsamples))
+    return mean * smoothing_weights(mean, var)
+
+
+def _extras_run(sim, nbig, check=None):
+    """init_state, then nbig big steps, each timed on the host clock and
+    followed by `check(k)`; the launches read just after."""
+    import torch
+
+    from exp_tpu_torch import bench_composite as bc
+
+    bc.reset_launches()
+    sim.run(0)
+    times, ok = [], _finite_buckets(sim)
+    if check:
+        check(-1)
+    for k in range(nbig):
+        t0 = time.perf_counter()
+        sim.run(1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        ok &= _finite_buckets(sim)
+        if check:
+            check(k)
+    return bc.kernel_launches(), times, ok
+
+
+def extras_path(dev, wd, r4):
+    """Phases E1-E4 on the card: the driver's extras on the flagship's run
+    config (E1: EJ, nEJaccel and Hall; E3: a frozen halo) and the sphere's
+    (E2: NO_L1 and the userbar), from R1's body files and R3's in the
+    work directory `wd`; E4 prints their times beside R4's (`r4`)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch import bench_composite as bc
+    from exp_tpu_torch import bench_extras as be
+    from exp_tpu_torch.config import RunConfig
+    from exp_tpu_torch.nbody.centering import _regress
+    from exp_tpu_torch.nbody.simulation import Simulation
+    from exp_tpu_torch.ops import sphere_kernels as sk
+
+    e4 = {"R4_driver_bigstep_ms": r4["driver_bigstep_ms"],
+          "R4_driver_step_ms": r4["driver_step_ms"]}
+
+    # E1. EJ + nEJaccel on the disk, Hall on the halo, multistep
+    t0 = time.perf_counter()
+    sim = Simulation(RunConfig.from_dict(
+        be.case_config("E1", "e1", "e1", DRIVER_NBIG), where="E1"),
+        workdir=wd, device=dev)
+    t_build = time.perf_counter() - t0
+    launches, times, finite = _extras_run(sim, DRIVER_NBIG)
+    halo = sim.components["halo"]
+    n_hall = DRIVER_NBIG // halo.npca
+    want = {k: 0 for k in launches}
+    want.update(bc.expected_launches(sim._ms_runner, DRIVER_NBIG))
+    want["sphere_coef"] += halo.nsamples * n_hall
+    log = be.outlog_rows(os.path.join(wd, "e1", "OUTLOG.e1"))
+    de = be.drift(log, "E1")
+    orient_rows = np.loadtxt(os.path.join(wd, "e1", "e1.orient.disk"),
+                             ndmin=2)
+    # the tracked center against NumPy f64 from the card's synced state
+    sim._sync_flat_state()
+    ps = sim._state["disk"]
+    xd, vd, md, pd = (getattr(ps, f).double().cpu().numpy()
+                      for f in ("x", "v", "mass", "pot"))
+    E = pd + 0.5 * np.sum(vd * vd, axis=1)
+    E[md <= 0] = np.inf
+    top = np.argsort(E, kind="stable")[:256]
+    w = md[top]
+    c1 = np.sum(xd[top] * w[:, None], axis=0) / max(w.sum(), 1e-30)
+    orient = sim.components["disk"].orient
+    hist = list(orient._histC)
+    c_np, _ = _regress(hist[:-1] + [(hist[-1][0], c1)], sim.time,
+                       orient.damp)
+    Eg = ps.pot + 0.5 * torch.sum(ps.v * ps.v, dim=-1)
+    Eg = torch.where(ps.mass > 0, Eg, torch.full_like(Eg, float("inf")))
+    top_card = set(torch.topk(-Eg, 256).indices.cpu().tolist())
+    dcen = float(np.abs(c_np - sim._centers["disk"]).max())
+    # the Hall-smoothed halo coefficients: K1 against its plain version
+    hp = sim._state["halo"]
+    sm = _smoothed(halo.force, hp.x, hp.mass, halo.nsamples)
+    sm0 = _smoothed(_PlainK1(halo.force), hp.x, hp.mass, halo.nsamples)
+    hall_rel = float((sm - sm0).abs().max() / sm0.abs().max())
+    rep = {"build_sec": t_build, "rows": len(log), "dE_rel": de,
+           "finite": finite and bool(np.isfinite(log).all()),
+           "orient_rows": len(orient_rows), "center": list(
+               sim._centers["disk"]), "center_np": list(c_np),
+           "center_c1_card": list(hist[-1][1]), "center_c1_np": list(c1),
+           "top256_differ": len(top_card - set(top.tolist())),
+           "center_dmax": dcen, "hall_rel": hall_rel,
+           "hall_weight_min": float(sim._hall["halo"].min()),
+           "pseudo": [list(a) for a in sim.components["disk"].pseudo()],
+           "level_counts": sim._ms_runner.level_counts(sim._ms_state),
+           "launches": launches, "expected_launches": want,
+           "timers": dict(sim.timers)}
+    print("E1 flagship + EJ/nEJaccel (disk) + Hall (halo): "
+          + json.dumps(rep), flush=True)
+    # E4's update times: one EJ update and one Hall update more
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim._update_orient(multistep=True)
+    t_orient = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim._update_hall(multistep=True)
+    torch.cuda.synchronize()
+    t_hall = time.perf_counter() - t0
+    e4.update(E1_bigstep_ms=float(np.median(times)) * 1e3,
+              E1_bigstep_ms_all=[t * 1e3 for t in times],
+              E1_orient_timer_sec=sim.timers["Orient"],
+              E1_hall_timer_sec=sim.timers["Hall"],
+              ej_update_ms=t_orient * 1e3, hall_update_ms=t_hall * 1e3)
+    del sim, ps, hp
+    if not rep["finite"] or len(log) != DRIVER_NBIG + 1:
+        raise AssertionError(f"E1: {len(log)} OUTLOG rows, finite "
+                             f"{rep['finite']}")
+    if len(orient_rows) != DRIVER_NBIG:
+        raise AssertionError(f"E1: {len(orient_rows)} orient-log rows")
+    if launches != want:
+        raise AssertionError(f"E1: launches {launches}, the schedule and "
+                             f"{n_hall} Hall updates imply {want}")
+    if not dcen <= E1_CENTER_ATOL:
+        raise AssertionError(f"E1: tracked center off its f64 "
+                             f"recomputation by {dcen}")
+    if not hall_rel <= E1_HALL_RTOL:
+        raise AssertionError(f"E1: Hall coefficients from K1 and its plain "
+                             f"version differ by {hall_rel}")
+    if not de < E1_DRIFT_BOUND:
+        raise AssertionError(f"E1: OUTLOG |dEtot/Etot| = {de} exceeds "
+                             f"{E1_DRIFT_BOUND}")
+
+    # E2. the sphere with NO_L1 and the userbar, single-rate
+    t0 = time.perf_counter()
+    sim = Simulation(RunConfig.from_dict(
+        be.sphere_config("e2", "e2", DT, STEPS, extras=True), where="E2"),
+        workdir=wd, device=dev)
+    t_build = time.perf_counter() - t0
+    sk.reset_launch_counts()
+    sim.prime()
+    l1 = [float(np.abs(sim._coefs["halo"][:, 1]).max())]
+    for _ in range(STEPS):
+        sim.run(1)
+        l1.append(float(np.abs(sim._coefs["halo"][:, 1]).max()))
+    torch.cuda.synchronize()
+    launches = dict(sk.launch_counts)
+    log = be.outlog_rows(os.path.join(wd, "e2", "OUTLOG.e2"))
+    bar = sim.externals[0]
+    x4 = sim._state["halo"].x[:E2_BAR_N]
+    a_c, _ = bar.acceleration(x4, sim.time)
+    a_r, _ = bar.acceleration(x4.double().cpu(), sim.time)
+    bar_rel = float((a_c.double().cpu() - a_r).abs().max()
+                    / a_r.abs().max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(DRIVER_TIMED_STEPS)
+    torch.cuda.synchronize()
+    e4["E2_step_ms"] = (time.perf_counter() - t0) / DRIVER_TIMED_STEPS * 1e3
+    # the host transfers of ScatterMFP and of a NOISE draw at 2^20
+    from exp_tpu_torch.basis.model import SphericalModelTable
+    from exp_tpu_torch.forces.external import ScatterMFP
+    from exp_tpu_torch.nbody.noise import SphereNoise
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ScatterMFP(tau=10.0).apply(sim._state["halo"], DT, 0)
+    torch.cuda.synchronize()
+    e4["scatterMFP_apply_ms"] = (time.perf_counter() - t0) * 1e3
+    nz = SphereNoise.build(sim.components["halo"].force,
+                           SphericalModelTable.from_file(
+                               os.path.join(wd, "halo.model")))
+    t0 = time.perf_counter()
+    torch.as_tensor(nz.interpolate(0.0), device=dev)
+    torch.cuda.synchronize()
+    e4["noise_draw_ms"] = (time.perf_counter() - t0) * 1e3
+    rep = {"build_sec": t_build, "rows": len(log),
+           "finite": bool(np.isfinite(log).all()) and bool(
+               torch.isfinite(sim._state["halo"].x).all()),
+           "l1_max_abs": max(l1), "virial0": float(log[0, 16]),
+           "virial1": float(log[STEPS, 16]), "bar_rel": bar_rel,
+           "bar_amax": float(a_r.abs().max()), "launches": launches}
+    print("E2 sphere + NO_L1 + userbar: " + json.dumps(rep), flush=True)
+    del sim, x4
+    if not rep["finite"] or len(log) != STEPS + 1:
+        raise AssertionError(f"E2: {len(log)} OUTLOG rows, finite "
+                             f"{rep['finite']}")
+    for name, cnt in launches.items():
+        want_n = STEPS + 1 if name in ("sphere_coef", "sphere_accel") else 0
+        if cnt != want_n:
+            raise AssertionError(f"E2: {name} launched {cnt} times, "
+                                 f"expected {want_n}")
+    if max(l1) != 0.0:
+        raise AssertionError(f"E2: l = 1 coefficients up to {max(l1)}")
+    for key in ("virial0", "virial1"):
+        if not abs(rep[key] - 1.0) <= VIRIAL_TOL:
+            raise AssertionError(f"E2: 2T/VC {key} = {rep[key]}")
+    if not bar_rel <= E2_BAR_RTOL:
+        raise AssertionError(f"E2: the bar's acceleration on the card is "
+                             f"off its f64 evaluation by {bar_rel}")
+
+    # E3. the flagship with a frozen halo
+    t0 = time.perf_counter()
+    sim = Simulation(RunConfig.from_dict(
+        be.case_config("E3", "e3", "e3", DRIVER_NBIG), where="E3"),
+        workdir=wd, device=dev)
+    t_build = time.perf_counter() - t0
+    frozen = []
+
+    def check(k):
+        c = sim._coefs["halo"]
+        c = c.cpu().numpy() if isinstance(c, torch.Tensor) else c
+        frozen.append(c.copy())
+
+    launches, times, finite = _extras_run(sim, DRIVER_NBIG, check)
+    nb = sim._ms_runner.M + 1
+    want = {k: 0 for k in launches}
+    want.update(bc.expected_launches(sim._ms_runner, DRIVER_NBIG))
+    want["sphere_coef"] = 2 * nb
+    same = all(np.array_equal(c, frozen[0]) for c in frozen[1:])
+    log = be.outlog_rows(os.path.join(wd, "e3", "OUTLOG.e3"))
+    de = be.drift(log, "E3")
+    rep = {"build_sec": t_build, "rows": len(log), "disk_dE_rel": de,
+           "global_dE_rel": be.drift(log, "E1"),
+           "finite": finite and bool(np.isfinite(log).all()),
+           "halo_coefs_frozen_bitwise": same,
+           "launches": launches, "expected_launches": want}
+    print("E3 flagship, halo self_consistent: false: " + json.dumps(rep),
+          flush=True)
+    e4["E3_bigstep_ms"] = float(np.median(times)) * 1e3
+    e4["E3_bigstep_ms_all"] = [t * 1e3 for t in times]
+    del sim
+    if not rep["finite"] or len(log) != DRIVER_NBIG + 1:
+        raise AssertionError(f"E3: {len(log)} OUTLOG rows, finite "
+                             f"{rep['finite']}")
+    if not same:
+        raise AssertionError("E3: the frozen halo's coefficients changed")
+    if launches != want:
+        raise AssertionError(f"E3: launches {launches}, expected {want}")
+    if not de < E3_DRIFT_BOUND:
+        raise AssertionError(f"E3: the disk's |dE/E| = {de} exceeds "
+                             f"{E3_DRIFT_BOUND}")
+
+    # E4. times on the host clock, printed and not gated
+    e4["device"] = torch.cuda.get_device_name(dev)
+    print("E4 extras' times (host clock, not gated): " + json.dumps(e4),
+          flush=True)
+
 
 def sweep_path(dev, sphere_tables, disk_tables, rows):
     """Phase KS on the card: K1 and K2 ('spline' and 'hat'), K4 and K5 on
@@ -2365,6 +2645,22 @@ def main():
         raise AssertionError(f"|dEtot/Etot| = {run['dE_rel']} over "
                              f"{STEPS} steps exceeds {DRIFT_BOUND}")
 
+    if "--only-driver" in sys.argv[1:]:
+        # a shorter run for work on the driver: the composite's forces and
+        # ICs without CM2-CM3, then R1-R4 and E1-E4 only
+        from exp_tpu_torch import bench_composite as bc
+        from exp_tpu_torch.bench_disk import disk_tables as build_disk
+
+        comp = bc.prepare(device=dev, forces=bc.composite_forces(
+            dev, tables, build_disk()))
+        r4, work = driver_path(dev, tables, comp, xe, ve, me)
+        del comp
+        extras_path(dev, work.name, r4)
+        work.cleanup()
+        print("chip_smoke --only-driver: R1-R4 and E1-E4 passed; no "
+              "kernels line", flush=True)
+        return 0
+
     # 6. timing
     bench = bench_sphere(n=N, reps=30, tables=tables, device=dev)
     print("step: " + json.dumps(bench), flush=True)
@@ -2401,8 +2697,10 @@ def main():
     comp_rows, comp = composite_path(dev, tables, disk_tables)
     rows += comp_rows
     sweep_path(dev, tables, disk_tables, rows)
-    driver_path(dev, tables, comp, xe, ve, me)
+    r4, work = driver_path(dev, tables, comp, xe, ve, me)
     del comp
+    extras_path(dev, work.name, r4)
+    work.cleanup()
     rows += phasestream_path(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

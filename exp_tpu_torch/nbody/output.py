@@ -20,8 +20,9 @@ the reference's OutputContainer factory + writers (src/OutputContainer.cc:48-
 The files are exp_tpu's, byte for byte where the values are equal.  One
 process writes them all: exp_tpu's multi-process gather/write split and
 its process-0 gating come with the multi-device slice (ROADMAP item 12).
-OutVel needs analysis.field_basis (ROADMAP item 14) and OutSamp
-nbody/pca.py (item 10b): both raise NotImplementedError.
+OutVel needs analysis.field_basis (ROADMAP item 14) and raises
+NotImplementedError.  OutSamp writes the subsample covariance through
+nbody/pca.py.
 
 Writers read the host copies the driver makes (`sim.host_ps`, and the
 coefficients and diagnostics it brings to the host once at an output
@@ -441,12 +442,26 @@ class OutVel(Output):
 
 class OutSamp(Output):
     """Subsample coefficient covariance (the reference's OutSamp over
-    Covariance.cc): needs nbody/pca.py, ROADMAP item 10b."""
+    Covariance.cc): the component's `nsamples` round-robin subsample
+    projections, their mean and variance appended to an HDF5 file."""
 
     def __init__(self, sim, nint=20, name=None, nsamples=8, **kw):
-        raise NotImplementedError(
-            "output outsamp needs nbody/pca.py, which is not ported "
-            "(ROADMAP item 10b)")
+        super().__init__(sim, nint)
+        self.name = name or next(iter(sim.components))
+        self.nsamples = int(nsamples)
+        self.path = os.path.join(sim.outdir,
+                                 f"outsamp.{self.name}.{sim.runtag}.h5")
+        if _fresh(sim, self.path) and os.path.exists(self.path):
+            os.remove(self.path)
+
+    def write(self, sim, istep):
+        from exp_tpu_torch.nbody.pca import (subsample_coefficients,
+                                             write_covariance_h5)
+
+        ps = sim._state[self.name]
+        cs = subsample_coefficients(sim.components[self.name].force, ps.x,
+                                    ps.mass, nsamples=self.nsamples)
+        write_covariance_h5(self.path, sim.time, cs, name=self.name)
 
 
 class OrbTrace(Output):

@@ -28,13 +28,21 @@ counterpart: here it runs the `fpe: true` guard, `_check_bad_values`, which
 checks the diagnostics and coefficients after every block and dumps a
 checkpoint before raising.
 
+The component extras run on both paths as in exp_tpu: EJ center and axis
+tracking with its orient log, nEJaccel's frame correction and a
+centerfile (nbody/centering.py); coefficient playback from a file
+(analysis/coefs.py) and NOISE draws (nbody/noise.py); Hall/PCA smoothing
+(npca, nbody/pca.py); the sphere and polar harmonic restrictions and
+FIX_L0; the External stanza's fields, PeriodicBC and host operators
+(forces/external.py; the operators between blocks of the single-rate path
+only); and `self_consistent: false`, whose frozen coefficients ride the
+playback channel.  A tracked rotation multiplies positions by a three-term
+sum, never a matrix product that TF32 would round on the card; a
+component with no tracked center or rotation skips both.
+
 Not ported, each raising NotImplementedError with its ROADMAP item: the
-multi-process world (item 12); the force ids bessel, CBsphere, hernq,
-direct, shells, halobulge and twocenter (item 11); and, item 10b, EJ
-centering, nEJaccel and centerfile (nbody/centering.py), coefficient
-playback and NOISE, the External stanza (forces/external.py, PeriodicBC),
-Hall/PCA smoothing (npca, nbody/pca.py), harmonic restrictions, and
-`self_consistent: false` under multistep (the runner's playback extras).
+multi-process world (item 12) and the force ids bessel, CBsphere, hernq,
+direct, shells, halobulge and twocenter (item 11).
 """
 
 from __future__ import annotations
@@ -49,8 +57,11 @@ import torch
 
 from exp_tpu_torch import resolve_device
 from exp_tpu_torch.config import ComponentConfig, ConfigError, RunConfig
-from exp_tpu_torch.nbody.multistep import (CompFeats, _com_centers,
-                                           _project, flatten_buckets)
+from exp_tpu_torch.nbody.multistep import (_NO_EXTRAS, CompFeats, _accel_at,
+                                           _add_externals, _assemble_extras,
+                                           _com_centers, _project,
+                                           _pseudo_accel, flatten_buckets,
+                                           rotate)
 from exp_tpu_torch.nbody.particles import ParticleSystem, _host, read_bodies
 from exp_tpu_torch.nbody.step import _diagnostics
 
@@ -293,45 +304,34 @@ class Component:
     # expand about the component's instantaneous center of mass
     # (Component.H:155-163 'Local' frame, `com: true`)
     com_system: bool = False
+    # EJ center/axis tracking (Orient); ej_flags is the reference bitmask
+    # (AXIS=1, CENTER=2, Orient.H:129)
+    EJ: bool = False
+    ej_flags: int = 0
+    orient: object = None
+    # prescribed center trajectory (CenterFile)
+    center_traj: object = None
+    # non-inertial expansion-frame correction (include/PseudoAccel.H;
+    # Component.cc:4407-4425), enabled by `nEJaccel > 0`: subtracted from
+    # self-gravity (AddAcc) but not from externals (AddAccExt)
+    pseudo: object = None
+    # coefficient playback (a Coefs series or NOISE draws) / Hall smoothing
+    # (AxisymmetricBasis.H:20-43)
+    playback: object = None
+    npca: int = 0
+    nsamples: int = 8
+    tk_type: str = "Hall"
+    tksmooth: float = 3.0
+    tkcum: float = 0.95
+    # smooth in the subsample-covariance eigenbasis instead of channel-wise
+    # (AxisymmetricBasis.H:27 pcaeof)
+    pcaeof: bool = False
 
     @property
     def feats(self) -> CompFeats:
         return CompFeats(adiabatic=self.adiabatic, ton=self.ton,
                          twid=self.twid, rtrunc=self.rtrunc,
                          com_system=self.com_system)
-
-
-def _refuse_features(cc: ComponentConfig):
-    """The component and force options of exp_tpu's driver that are not
-    ported: NotImplementedError with the ROADMAP item."""
-    cp = cc.parameters or {}
-    fp = cc.force.parameters or {}
-    where = f"component {cc.name!r}"
-    for key, what in (("EJ", "EJ center/axis tracking"),
-                      ("nEJaccel", "the nEJaccel frame acceleration"),
-                      ("centerfile", "a centerfile trajectory")):
-        if cp.get(key):
-            raise NotImplementedError(
-                f"{where}: {what} needs nbody/centering.py, which is not "
-                "ported (ROADMAP item 10b)")
-    if cp.get("playback"):
-        raise NotImplementedError(
-            f"{where}: coefficient playback is not ported (ROADMAP item 10b)")
-    if int(cp.get("npca", 0)) > 0:
-        raise NotImplementedError(
-            f"{where}: npca (Hall/PCA smoothing) needs nbody/pca.py, which is "
-            "not ported (ROADMAP item 10b)")
-    if fp.get("NOISE") and cc.force.id in ("sphereSL", "bessel"):
-        raise NotImplementedError(
-            f"{where}: coefficient NOISE is not ported (ROADMAP item 10b)")
-    if (cc.force.id in ("sphereSL", "bessel")
-            and any(fp.get(k) for k in _SPHERE_RESTRICT)) or (
-            cc.force.id in ("cylinder", "flatdisk", "CBDisk")
-            and any(fp.get(k) is not None and fp.get(k) is not False
-                    for k in _POLAR_RESTRICT)):
-        raise NotImplementedError(
-            f"{where}: harmonic restrictions are not ported (ROADMAP item "
-            "10b)")
 
 
 class Simulation:
@@ -366,17 +366,15 @@ class Simulation:
         self.istep = 0
         self.compute_dtype = _torch_dtype(g.compute_dtype)
         self.accum_dtype = _torch_dtype(g.accum_dtype)
-        if any(e for e in (config.external or [])):
-            raise NotImplementedError(
-                "the External stanza (external fields, PeriodicBC) needs "
-                "forces/external.py, which is not ported (ROADMAP item 10b)")
 
         # components
         self.components: dict[str, Component] = {}
+        #: harmonic-restriction state per component: {"mask": 0/1 array over
+        #: the coefficient layout, "fix_l0": bool, "c0": captured monopole}
+        self._restrict: dict[str, dict] = {}
         for cc in config.components:
             if cc.bodyfile is None:
                 raise ConfigError(f"component {cc.name}: no bodyfile")
-            _refuse_features(cc)
             cp = cc.parameters or {}
             # bodyfile may be reference ascii OR a PSP binary snapshot
             # (sniffed by magic) — the name inside a multi-component PSP
@@ -409,11 +407,40 @@ class Simulation:
                                   if cc.force.id == "sphereSL" else 0.0))
             c0.basis_tnext = c0.basis_dtime
             self.components[cc.name] = c0
+            self._component_extras(c0, cc, workdir)
+        self._centers = {n: np.zeros(3) for n in self.components}
+        self._rots = {n: np.eye(3) for n in self.components}
+        # restart: resume orient-tracked centers/rotations immediately
+        for n, c in self.components.items():
+            if c.orient is not None and len(c.orient._histC):
+                if c.ej_flags & 2:
+                    self._centers[n] = c.orient.center
+                if c.ej_flags & 1:
+                    self._rots[n] = c.orient.body
+        self._hall = {}          # name -> smoothing weights on the device
         #: frozen coefficient sets for `self_consistent: false` components
-        #: (captured from the initial projection at prime, in the compute
-        #: dtype, as exp_tpu injects them; the expansion never responds to
-        #: the live particles — the reference's fixed-potential component)
+        #: (captured from the initial projection, in the compute dtype, and
+        #: injected through the playback channel: the expansion never
+        #: responds to the live particles — the reference's fixed-potential
+        #: component)
         self._frozen = {}
+        for n, c in self.components.items():
+            src = (getattr(c.force, "needs_sources", False)
+                   or getattr(c.force, "needs_centers", False))
+            if not c.self_consistent and src:
+                raise ConfigError(
+                    f"component {n}: self_consistent: false is only "
+                    f"supported for coefficient-based forces")
+            if c.npca > 0 and src:
+                raise ConfigError(
+                    f"component {n}: npca smoothing needs an array-valued "
+                    f"coefficient basis (AxisymmetricBasis PCA)")
+            if (c.ej_flags & 1) and getattr(c.force, "needs_centers", False):
+                raise ConfigError(
+                    f"component {n}: EJ AXIS tracking is not supported "
+                    f"with a twocenter force (the two-center blend is "
+                    f"evaluated in the inertial frame); use EJ: 2 "
+                    f"(CENTER) only")
 
         # interaction couples: an entry `a: b` means "b feels a", ONE-WAY
         # (Interaction.l is "components whose particles will feel the force
@@ -432,6 +459,30 @@ class Simulation:
             for b in names:
                 self.couples[b] = list(names)
 
+        # external fields + boundary wrappers + host operators (External:)
+        from exp_tpu_torch.forces.external import (PeriodicBC, build_external,
+                                                   build_operator)
+
+        self.externals = []
+        self.wrappers = []
+        self.operators = []      # host operators between blocks
+        for e in (config.external or []):
+            if not e:
+                continue
+            if e.get("id") == "periodicBC":
+                self.wrappers.append(PeriodicBC(
+                    **(e.get("parameters") or {})))
+                continue
+            op = build_operator(e, runtag=config.glob.runtag,
+                                outdir=self.outdir,
+                                seed=getattr(g, "random_seed", None))
+            if op is not None:
+                self.operators.append(op)
+            else:
+                self.externals.append(build_external(
+                    e, workdir=workdir, dtype=self.compute_dtype,
+                    device=self.device))
+
         # outputs; on an `infile:` restart the writers CONTINUE existing
         # files instead of truncating them (which would also destroy the
         # old outputs before restore_checkpoint even runs).  restart_as_new
@@ -446,6 +497,14 @@ class Simulation:
             self._nint_gcd = int(np.gcd.reduce(nints))
         self.steps_per_block = (steps_per_block if steps_per_block
                                 else self._nint_gcd)
+        # playback coefficients / prescribed centers are interpolated on the
+        # host per block; a block must then be ONE step or the run would
+        # integrate against stale fields mid-block (the reference
+        # interpolates them every step)
+        if steps_per_block is None and any(
+                c.playback is not None or c.center_traj is not None
+                for c in self.components.values()):
+            self.steps_per_block = 1
 
         # graceful-stop machinery (the reference's chkTimer + signal paths,
         # src/chkTimer.cc, expand.cc:236-257,430-437)
@@ -465,7 +524,8 @@ class Simulation:
         # per-phase wall-clock timers (the reference's step timers printed
         # at VERBOSE>3, src/step.cc:28-29,347-374)
         self.verbose = int(getattr(config.glob, "VERBOSE", 0))
-        self.timers = {k: 0.0 for k in ("Compute", "Output", "Relevel")}
+        self.timers = {k: 0.0 for k in
+                       ("Compute", "Orient", "Hall", "Output", "Relevel")}
         self._state = {n: c.ps for n, c in self.components.items()}
         self._coefs = None
         self._diag = None
@@ -480,12 +540,6 @@ class Simulation:
         if self.M > 0:
             from exp_tpu_torch.nbody.multistep import MultistepRunner
 
-            for n, c in self.components.items():
-                if not c.self_consistent:
-                    raise NotImplementedError(
-                        f"component {n!r}: self_consistent: false under "
-                        "multistep rides the runner's playback extras, "
-                        "which are not ported (ROADMAP item 10b)")
             self._ms_runner = MultistepRunner(
                 {n: c.force for n, c in self.components.items()},
                 self.couples, self.dt, self.M, accum_dtype=self.accum_dtype,
@@ -495,41 +549,173 @@ class Simulation:
                 shiftlevl=g.shiftlevl,
                 feats={n: c.feats for n, c in self.components.items()},
                 fused=g.fused_bigstep, cap_headroom=g.cap_headroom,
-                eqmotion=self.eqmotion)
+                eqmotion=self.eqmotion, externals=self.externals,
+                wrappers=self.wrappers)
+
+    def _component_extras(self, c, cc, workdir):
+        """A component's EJ/nEJaccel/centerfile tracking, playback or NOISE
+        source, harmonic restriction and smoothing settings, from its
+        component and force parameters (exp_tpu's Simulation.__init__)."""
+        g = self.config.glob
+        cp = cc.parameters or {}
+        # EJ is the reference's orient bitmask (Orient.H:129: AXIS=1,
+        # CENTER=2); a bare `EJ: true` means center tracking
+        ejraw = cp.get("EJ", 0)
+        c.ej_flags = 2 if ejraw is True else int(ejraw or 0)
+        c.EJ = bool(c.ej_flags)
+        # nEJaccel > 0 enables the non-inertial frame correction
+        # (Component.cc:1355 Orient ctor Naccel; PseudoAccel.H)
+        naccel = int(cp.get("nEJaccel", 0))
+        if naccel > 0:
+            from exp_tpu_torch.nbody.centering import PseudoAccel
+
+            c.pseudo = PseudoAccel(
+                nsize=naccel,
+                center=bool(c.ej_flags & 2) or bool(cp.get("centerfile")),
+                axis=bool(c.ej_flags & 1))
+        if c.ej_flags:
+            from exp_tpu_torch.nbody.centering import EJOrient
+
+            logf = os.path.join(self.outdir, f"{g.runtag}.orient.{cc.name}")
+            # nEJkeep 256 and EJwindow 16 as exp_tpu's code has them
+            c.orient = EJOrient(nkeep=int(cp.get("nEJkeep", 256)),
+                                window=int(cp.get("EJwindow", 16)),
+                                damp=float(cp.get("EJdamp", 1.0)),
+                                logfile=logf, pseudo=c.pseudo)
+            if g.infile and os.path.exists(logf):
+                # restart: reload the regression history
+                c.orient.load_log(logf)
+        if cp.get("centerfile"):
+            from exp_tpu_torch.nbody.centering import CenterFile
+
+            c.center_traj = CenterFile(os.path.join(workdir,
+                                                    cp["centerfile"]))
+        # coefficient playback (the reference's play_back,
+        # SphericalBasis.cc determine_coefficients_playback)
+        if cp.get("playback"):
+            from exp_tpu_torch.analysis.coefs import Coefs
+
+            c.playback = Coefs.from_file(os.path.join(workdir,
+                                                      cp["playback"]))
+        # coefficient NOISE experiment (SphericalBasis.cc:2109-2214),
+        # delivered through the playback channel
+        fp = cc.force.parameters or {}
+        if fp.get("NOISE") and cc.force.id in ("sphereSL", "bessel"):
+            from exp_tpu_torch.nbody.noise import SphereNoise
+
+            nmf = str(fp.get("noise_model_file",
+                             fp.get("modelname", "SLGridSph.model")))
+            nmp = os.path.join(workdir, nmf)
+            if os.path.exists(nmp):
+                from exp_tpu_torch.basis.model import SphericalModelTable
+
+                nmodel = SphericalModelTable.from_file(nmp)
+            else:
+                from exp_tpu_torch.cli._common import load_model
+
+                nmodel = load_model(nmf)
+            c.playback = SphereNoise.build(
+                c.force, nmodel, noiseN=float(fp.get("noiseN", 1.0e-6)),
+                seedN=int(fp.get("seedN", 11)))
+        # harmonic restrictions (SphericalBasis valid_keys,
+        # SphericalBasis.cc:33-39; applied in the force loop :1568-1600,
+        # FIX_L0 :1689-1694): a 0/1 mask over the coefficient array — the
+        # force is linear in the coefficients, so masking them equals
+        # skipping terms
+        if cc.force.id in ("sphereSL", "bessel") and any(
+                fp.get(k) for k in _SPHERE_RESTRICT):
+            L, nm = c.force.lmax, c.force.nmax
+            mask = np.ones((2, L + 1, L + 1, nm), np.float32)
+            if fp.get("NO_L0"):
+                mask[:, 0] = 0.0
+            if fp.get("NO_L1") and L >= 1:
+                mask[:, 1] = 0.0
+            if fp.get("EVEN_L"):
+                mask[:, np.arange(L + 1) % 2 == 1] = 0.0
+            if fp.get("EVEN_M"):
+                mask[:, :, np.arange(L + 1) % 2 == 1] = 0.0
+            if fp.get("M0_ONLY"):
+                mask[:, :, 1:] = 0.0
+            self._restrict[cc.name] = {
+                "mask": mask, "fix_l0": bool(fp.get("FIX_L0")), "c0": None}
+        # polar/cylinder analogues (PolarBasis.cc:36-45; Cylinder.cc
+        # valid_keys) over the (2, mmax+1, nmax) coefficient layout
+        if cc.force.id in ("cylinder", "flatdisk", "CBDisk") and any(
+                fp.get(k) is not None and fp.get(k) is not False
+                for k in _POLAR_RESTRICT):
+            Mm, nm = c.force.mmax, c.force.nmax
+            mask = np.ones((2, Mm + 1, nm), np.float32)
+            if fp.get("NO_M0"):
+                mask[:, 0] = 0.0
+            if fp.get("NO_M1") and Mm >= 1:
+                mask[:, 1] = 0.0
+            if fp.get("EVEN_M"):
+                mask[:, np.arange(Mm + 1) % 2 == 1] = 0.0
+            if fp.get("M0_ONLY"):
+                mask[:, 1:] = 0.0
+            if fp.get("mlim") is not None:
+                mask[:, int(fp["mlim"]) + 1:] = 0.0
+            self._restrict[cc.name] = {
+                "mask": mask, "fix_l0": False, "c0": None}
+        # coefficient smoothing (npca/nsamples/tk_type knobs,
+        # AxisymmetricBasis.H:20-43)
+        c.npca = int(cp.get("npca", 0))
+        c.nsamples = int(cp.get("nsamples", 8))
+        c.tk_type = str(cp.get("tk_type", "Hall"))
+        c.tksmooth = float(cp.get("tksmooth", 3.0))
+        c.tkcum = float(cp.get("tkcum", 0.95))
+        c.pcaeof = bool(cp.get("pcaeof", False))
 
     # ------------------------------------------------------------------
     # stepping
     # ------------------------------------------------------------------
 
-    def _project_and_accel(self, state, t):
+    def _project_and_accel(self, state, t, centers=None, extras=None,
+                           rots=None):
         """Per-component projection + acceleration: coefficients with the
-        adiabatic ramp, rtrunc and COM frame applied (frozen coefficients
-        for `self_consistent: false`), then every component's acceleration
-        and potential from the coupled fields — shared by the step and the
-        initial prime so that features are honored identically in both
-        (reference: the same determine_coefficients path for begin_run and
-        do_step)."""
+        adiabatic ramp, rtrunc, centers, rotations, playback, Hall and the
+        restriction applied, then every component's acceleration and
+        potential from the coupled fields, the frame correction and the
+        external fields — shared by the step and the initial prime so that
+        features are honored identically in both (reference: the same
+        determine_coefficients path for begin_run and do_step).
+
+        `centers` and `rots` map a component to its tracked center and
+        body-frame rotation, None for the origin and the identity."""
+        ex = extras or _NO_EXTRAS
         feats = {n: self.components[n].feats for n in state}
-        ctr = _com_centers({n: [ps] for n, ps in state.items()}, feats, {})
+        forces = {n: c.force for n, c in self.components.items()}
+        centers = centers or {}
+        rots = rots or {n: None for n in state}
+        ctr = _com_centers({n: [ps] for n, ps in state.items()}, feats,
+                           centers)
         coefs = {}
         for n, ps in state.items():
-            if n in self._frozen:
-                coefs[n] = self._frozen[n]
+            if n in ex["playback"]:
+                cf = ex["playback"][n]
+                if n in ex["restrict"]:
+                    mk, off = ex["restrict"][n]
+                    cf = cf * mk + off
+                coefs[n] = cf
             else:
-                coefs[n] = _project(self.components[n].force, feats[n], ps.x,
-                                    ps.mass, t, ctr[n], self.accum_dtype)
+                coefs[n] = _assemble_extras(n, _project(
+                    forces[n], feats[n], ps.x, ps.mass, t, ctr[n],
+                    self.accum_dtype, rot=rots[n]), ex)
         accs, pots = {}, {}
         for n, ps in state.items():
-            acc = pot = None
-            for a in self.couples[n]:
-                xa = ps.x if ctr[a] is None else ps.x - ctr[a][None, :]
-                aa, pp = self.components[a].force.acceleration(coefs[a], xa)
-                acc = aa if acc is None else acc + aa
-                pot = pp if pot is None else pot + pp
-            accs[n], pots[n] = acc, pot
+            acc, pot = _accel_at(ps.x, t, self.couples[n], forces, coefs,
+                                 ctr, rots, cast=False)
+            # non-inertial expansion-frame correction: subtracted from
+            # self-gravity (AddAcc, Component.H:913-921) BEFORE externals
+            # are added (AddAccExt applies no correction)
+            if n in ex["pseudo"]:
+                acc = acc - _pseudo_accel(ex["pseudo"][n], ps.x, ps.v,
+                                          ctr[n])
+            accs[n], pots[n] = _add_externals(acc, pot, ps.x, t,
+                                              self.externals)
         return coefs, accs, pots
 
-    def _step(self, t_new):
+    def _step(self, t_new, centers, extras, rots):
         """One KDK step of every component, in place; t_new is the time at
         the end of the step.  Returns (coefs, diag) on the device."""
         # eqmotion: false freezes x/v (reference incpos.cc:75/incvel.cc:93
@@ -538,7 +724,10 @@ class Simulation:
         for ps in self._state.values():
             ps.v.add_(ps.acc * (dt * 0.5))          # half kick
             ps.x.add_(ps.v * dt)                    # drift
-        coefs, accs, pots = self._project_and_accel(self._state, t_new)
+            for wrp in self.wrappers:
+                ps.x = wrp.wrap(ps.x)
+        coefs, accs, pots = self._project_and_accel(self._state, t_new,
+                                                    centers, extras, rots)
         for n, ps in self._state.items():
             ps.v.add_(accs[n] * (dt * 0.5))         # half kick
             ps.acc, ps.pot = accs[n], pots[n]
@@ -549,7 +738,11 @@ class Simulation:
         honoring the same component features as the stepping path."""
         if self.M > 0:
             return      # multistep primes lazily in _run_multistep
-        coefs, accs, pots = self._project_and_accel(self._state, self.time)
+        extras = self._make_extras(t=self.time)
+        self._refresh_centerfile()
+        coefs, accs, pots = self._project_and_accel(
+            self._state, self.time, self._center_arrays(), extras,
+            self._rot_arrays())
         for n, ps in self._state.items():
             ps.acc, ps.pot = accs[n], pots[n]
         diag = {n: _diagnostics(ps) for n, ps in self._state.items()}
@@ -564,11 +757,177 @@ class Simulation:
 
     def _capture_frozen(self, coefs):
         """Record the initial coefficients of `self_consistent: false`
-        components, in the compute dtype; every later step uses them in
-        place of a projection of the live particles."""
+        components, in the compute dtype; every later step reads them back
+        through the playback channel in place of a projection of the live
+        particles.  FIX_L0: save the monopole of the first evaluation
+        (SphericalBasis.cc:1689-1694), on the host."""
         for n, c in self.components.items():
             if not c.self_consistent and n not in self._frozen:
                 self._frozen[n] = coefs[n].to(self.compute_dtype)
+        for n, r in self._restrict.items():
+            if r["fix_l0"] and r["c0"] is None and n in coefs:
+                r["c0"] = _host(coefs[n])[:, 0, 0, :].copy()
+
+    def _restrict_arrays(self):
+        """(mask, offset) per restricted component, in the accumulation
+        dtype: coefficients are consumed as `c * mask + offset`."""
+        out = {}
+        for n, r in self._restrict.items():
+            mk = r["mask"]
+            # f64 staging: a float32 offset would round the captured
+            # monopole before the accum-dtype cast
+            off = np.zeros(mk.shape, np.float64)
+            if r["fix_l0"] and r["c0"] is not None:
+                mk = mk.copy()
+                mk[:, 0, 0, :] = 0.0
+                off[:, 0, 0, :] = r["c0"]
+            out[n] = tuple(torch.as_tensor(a, dtype=self.accum_dtype,
+                                           device=self.device)
+                           for a in (mk, off))
+        return out
+
+    def _refresh_centerfile(self):
+        """Evaluate prescribed (CenterFile) centers at the current time and
+        feed the frame-acceleration estimator when enabled (the EJ path
+        feeds it from orient.update instead, Orient.cc:697)."""
+        for n, c in self.components.items():
+            if c.center_traj is None:
+                continue
+            self._centers[n] = c.center_traj(self.time)
+            if c.pseudo is not None and c.orient is None:
+                c.pseudo.add(self.time, self._centers[n])
+
+    def _pseudo_arrays(self):
+        """(accel, omega, domdt) per pseudo-enabled component."""
+        out = {}
+        for n, c in self.components.items():
+            if c.pseudo is None:
+                continue
+            out[n] = tuple(torch.as_tensor(a, dtype=self.compute_dtype,
+                                           device=self.device)
+                           for a in c.pseudo())
+        return out
+
+    def _center_arrays(self):
+        """Tracked (EJ CENTER or centerfile) expansion centers as tensors;
+        None for a component whose center is the origin."""
+        out = {}
+        for n, c in self.components.items():
+            tracked = (c.center_traj is not None
+                       or (c.orient is not None and c.ej_flags & 2))
+            out[n] = (torch.as_tensor(self._centers[n],
+                                      dtype=self.compute_dtype,
+                                      device=self.device)
+                      if tracked else None)
+        return out
+
+    def _rot_arrays(self):
+        """Body-frame rotations of EJ AXIS components as tensors; None for
+        the identity."""
+        return {n: (torch.as_tensor(self._rots[n], dtype=self.compute_dtype,
+                                    device=self.device)
+                    if c.orient is not None and c.ej_flags & 1 else None)
+                for n, c in self.components.items()}
+
+    def _ms_centers(self):
+        """Prescribed expansion centers for the multistep path (EJ orient /
+        centerfile); com_system centers are computed by the runner."""
+        self._refresh_centerfile()
+        return self._center_arrays()
+
+    def _make_extras(self, t=None):
+        """Extras of a block (or a substep, at time t): playback
+        coefficients interpolated in float64 on the host at the end-of-step
+        time by default and cast to the compute dtype (frozen sets for
+        `self_consistent: false`), the Hall weights in the compute dtype,
+        the restriction and the frame correction."""
+        pb, hall = {}, {}
+        for n, c in self.components.items():
+            if c.playback is not None:
+                # coefficients apply to the DRIFTED positions: interpolate at
+                # the end-of-step time (blocks are one step under playback)
+                pb[n] = torch.as_tensor(
+                    c.playback.interpolate(self.time + self.dt if t is None
+                                           else t),
+                    dtype=self.compute_dtype, device=self.device)
+            elif n in self._frozen:
+                pb[n] = self._frozen[n]
+            if n in self._hall:
+                hall[n] = self._hall[n].to(self.compute_dtype)
+        return {"playback": pb, "hall": hall,
+                "restrict": self._restrict_arrays(),
+                "pseudo": self._pseudo_arrays()}
+
+    def _update_orient(self, multistep=False):
+        """EJ Orient update: center (flag CENTER=2) and axis frame (flag
+        AXIS=1) per block/big step (src/Orient.cc; Component.H:775), from
+        the state on its device."""
+        for n, c in self.components.items():
+            if not (c.EJ and c.orient is not None):
+                continue
+            if multistep:
+                self._sync_flat_state()
+            c.orient.update(self._state[n], time=self.time)
+            if c.ej_flags & 2:
+                self._centers[n] = c.orient.center
+            if c.ej_flags & 1:
+                self._rots[n] = c.orient.body
+
+    def _update_hall(self, multistep=False):
+        """Recompute coefficient smoothing weights every npca steps
+        (pca_hall analogue; tk_type selects Hall/VarianceCut/CumulativeCut/
+        VarianceWeighted per AxisymmetricBasis.cc:482-503).  The state stays
+        on its device: `nsamples` projections of the component's own
+        coefficients on round-robin masked masses, in the same frame and
+        weighting as the stepping path (center, body rotation, adiabatic
+        ramp, rtrunc)."""
+        from exp_tpu_torch.nbody.pca import (_mean_var, eof_smoothing_matrix,
+                                             smoothing_weights,
+                                             subsample_coefficients)
+
+        for n, c in self.components.items():
+            if not (c.npca > 0 and self.istep % c.npca == 0):
+                continue
+            if multistep:
+                self._sync_flat_state()
+            ps = self._state[n]
+            x, m = ps.x, ps.mass
+            center = self._center_arrays()[n]
+            if c.com_system:
+                live = (m > 0).to(m.dtype)
+                center = (torch.sum((m * live)[:, None] * x, dim=0)
+                          / torch.clamp(torch.sum(m * live), min=1e-300))
+            xc = x if center is None else x - center.to(x.dtype)[None, :]
+            rot = self._rot_arrays()[n]
+            if rot is not None:
+                xc = rotate(xc, rot.to(x.dtype))
+            mw = m * float(c.feats.adb(self.time))
+            if c.rtrunc < 1.0e19:
+                mw = mw * (torch.sum(xc * xc, dim=-1)
+                           < c.rtrunc ** 2).to(mw.dtype)
+            cs = subsample_coefficients(c.force, xc, mw,
+                                        nsamples=c.nsamples,
+                                        accum_dtype=self.accum_dtype)
+            if c.pcaeof:
+                self._hall[n] = torch.as_tensor(
+                    eof_smoothing_matrix(cs, tk_type=c.tk_type,
+                                         tksmooth=c.tksmooth, tkcum=c.tkcum),
+                    dtype=cs.dtype, device=cs.device)
+                continue
+            mean, var = _mean_var(cs)
+            self._hall[n] = smoothing_weights(mean, var, tk_type=c.tk_type,
+                                              tksmooth=c.tksmooth,
+                                              tkcum=c.tkcum)
+
+    def _block_end_updates(self, multistep=False):
+        """Orient, then Hall, at block (big step) end, after the counters
+        advance and before the writes."""
+        t2 = time.time()
+        self._update_orient(multistep)
+        t3 = time.time()
+        self.timers["Orient"] += t3 - t2
+        self._update_hall(multistep)
+        self.timers["Hall"] += time.time() - t3
 
     def run(self, nsteps=None):
         """Main loop (expand.cc:422-424)."""
@@ -589,11 +948,14 @@ class Simulation:
                     if o.nint > 0]
             if dues:
                 kk = min(kk, min(dues))
+            extras = self._make_extras()
+            self._refresh_centerfile()
+            centers, rots = self._center_arrays(), self._rot_arrays()
             t0 = time.time()
             tcur = self.time
             for _ in range(kk):
                 tcur = tcur + self.dt
-                coefs, diag = self._step(tcur)
+                coefs, diag = self._step(tcur, centers, extras, rots)
             t1 = time.time()
             self.timers["Compute"] += t1 - t0
             for _ in range(kk):
@@ -601,6 +963,7 @@ class Simulation:
                 self.time += self.dt
                 done += 1
                 self._nreport_line()
+            self._block_end_updates()
             # the block's last step: one transfer of its coefficients and
             # diagnostics; only this step can be output-due
             self._coefs, self._diag = self._to_host(coefs, diag)
@@ -608,6 +971,17 @@ class Simulation:
             for o in self.outputs:
                 o.run(self, self.istep)
             self.timers["Output"] += time.time() - t3
+            # host operators (scatterMFP, generateRelaxation): applied once
+            # a block, between blocks
+            if self.operators:
+                for op in self.operators:
+                    for n in self._state:
+                        self._state[n] = op.apply(self._state[n],
+                                                  self.dt * kk, self.istep,
+                                                  time=self.time, name=n)
+                # writers at this istep cached the pre-operator state; a
+                # stop/SIGHUP checkpoint after this point must see the kicks
+                self._host_cache_step.clear()
             if self.verbose > 3:
                 self._print_timings()
             self._check_bad_values()
@@ -706,8 +1080,11 @@ class Simulation:
         nsteps = self.nsteps if nsteps is None else nsteps
         r = self._ms_runner
         if self._ms_state is None:
-            st, regs, coef, diag = r.init_state(self._state, t0=self.time)
+            st, regs, coef, diag = r.init_state(
+                self._state, t0=self.time, centers=self._ms_centers(),
+                extras_fn=self._make_extras, rots=self._rot_arrays())
             self._ms_state, self._ms_regs = st, regs
+            self._capture_frozen(coef)
             self._coefs, self._diag = self._to_host(coef, diag)
             self._sync_flat_state()
             for o in self.outputs:
@@ -715,19 +1092,27 @@ class Simulation:
         for _ in range(nsteps):
             if self._check_stop():
                 break
+            centers = self._ms_centers()
+            rots = self._rot_arrays()
             t0 = time.time()
             st, regs, coef, diag = r.bigstep(self._ms_state, self._ms_regs,
-                                             self.time)
+                                             self.time, centers=centers,
+                                             extras_fn=self._make_extras,
+                                             rots=rots)
             t1 = time.time()
             self.timers["Compute"] += t1 - t0
             if (self.istep + 1) % max(1, self.config.glob.nrelevel) == 0:
-                st, regs = r.relevel(st, regs, t0=self.time + self.dt)
+                st, regs = r.relevel(st, regs, t0=self.time + self.dt,
+                                     centers=centers,
+                                     extras_fn=self._make_extras, rots=rots)
             t2 = time.time()
             self.timers["Relevel"] += t2 - t1
             self._ms_state, self._ms_regs = st, regs
             self.istep += 1
             self.time += self.dt
             self._nreport_line()
+            self._block_end_updates(multistep=True)
+            t2 = time.time()
             if any(self.nint_due(o) for o in self.outputs):
                 # one batched transfer of the coefficients and diagnostics
                 self._coefs, self._diag = self._to_host(coef, diag)

@@ -34,7 +34,10 @@ def test_import_loads_no_jax_or_exp_tpu():
         "exp_tpu_torch.run, exp_tpu_torch.nbody.simulation, "
         "exp_tpu_torch.nbody.output, exp_tpu_torch.io.psp, "
         "exp_tpu_torch.io.coefs, exp_tpu_torch.forces.noforce, "
-        "exp_tpu_torch.cli._common\n"
+        "exp_tpu_torch.cli._common, exp_tpu_torch.nbody.centering, "
+        "exp_tpu_torch.nbody.pca, exp_tpu_torch.nbody.noise, "
+        "exp_tpu_torch.forces.external, exp_tpu_torch.ic.ellipsoid, "
+        "exp_tpu_torch.analysis.coefs, exp_tpu_torch.bench_extras\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exp_tpu' or m.startswith('exp_tpu.')]\n"
         "print(','.join(bad))\n")

@@ -402,6 +402,11 @@ def test_indx_stays_int32_and_overflow_falls_back(setup):
 
 
 def test_unported_features_raise(setup):
+    """Two-center and source-based forces (item 11) and the incremental
+    rebucket (item 9b.2) raise; external fields, position wrappers and the
+    playback/Hall/restriction/pseudo extras are accepted (item 10b)."""
+    from exp_tpu_torch.forces.external import PeriodicBC, UserLogPot
+
     _, force, x, v, mass = setup
 
     class TwoCenter:
@@ -412,10 +417,23 @@ def test_unported_features_raise(setup):
     with pytest.raises(NotImplementedError, match="item 11"):
         MultistepRunner({"h": force}, {"h": ["h"]}, 2e-3, 2,
                         feats={"h": CompFeats(needs_sources=True)})
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 9b.2"):
         MultistepRunner({"h": force}, {"h": ["h"]}, 2e-3, 2,
-                        externals=(object(),))
-    r = MultistepRunner({"h": force}, {"h": ["h"]}, 2e-3, 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        r.init_state({"h": _flat(x, v, mass)},
-                     extras_fn=lambda t: {"playback": {"h": 1}, "hall": {}})
+                        rebucket_style="incremental")
+    r = MultistepRunner({"h": force}, {"h": ["h"]}, 2e-3, 2,
+                        externals=(UserLogPot(),),
+                        wrappers=(PeriodicBC(L=100.0, btype="vvv"),))
+    assert len(r.externals) == 1 and len(r.wrappers) == 1
+    pb = force.coefficients(_flat(x, v, mass).x, _flat(x, v, mass).mass,
+                            accum_dtype=F64)
+    z3 = torch.zeros(3, dtype=F64)
+    st, regs, coef, _ = r.init_state(
+        {"h": _flat(x, v, mass)},
+        extras_fn=lambda t: {"playback": {"h": pb}, "hall": {},
+                             "restrict": {}, "pseudo": {"h": (z3, z3, z3)}})
+    assert torch.equal(coef["h"], pb)
+    st, regs, coef, _ = r.bigstep(st, regs, 0.0, extras_fn=lambda t: {
+        "playback": {"h": pb}, "hall": {"h": torch.ones_like(pb)},
+        "restrict": {"h": (torch.ones_like(pb), torch.zeros_like(pb))}})
+    assert torch.equal(coef["h"], pb)
+    assert all(torch.isfinite(b.x).all() for b in st["h"])

@@ -1,8 +1,10 @@
 """The port's YAML driver (exp_tpu_torch/nbody/simulation.py, output.py,
 run.py) against exp_tpu's on the same YAML and the same body files: the
 single-rate flows of tests/test_simulation.py (the multistep flows are in
-test_torch_simulation_multistep.py), the force ids the driver builds, and
-the features it refuses.
+test_torch_simulation_multistep.py), the force ids the driver builds, the
+component extras (EJ, playback, NOISE, npca, restrictions, the External
+stanza, OutSamp, a frozen halo under multistep), and the features it
+refuses.
 
 Each flow runs both drivers on one config, written twice with its own
 `outdir` (j_<tag>, t_<tag>), the port on the CPU.  Tolerances:
@@ -109,14 +111,15 @@ def table(path, drop_clock=True):
     return np.delete(a, 17, 1) if drop_clock else a
 
 
-def close(t, j, rtol, floor=F64):
-    """|t - j| <= rtol |j| + floor max|j| (the floor over each column)."""
+def close(t, j, rtol, floor=F64, atol=0.0):
+    """|t - j| <= rtol |j| + floor max|j| (the floor over each column)
+    + atol."""
     t, j = np.asarray(t), np.asarray(j)
     dt = np.complex128 if np.iscomplexobj(j) else np.float64
     t, j = t.astype(dt), j.astype(dt)
     assert t.shape == j.shape
     scale = np.abs(j).max(axis=0) if j.ndim > 1 else np.abs(j).max()
-    bad = np.abs(t - j) > rtol * np.abs(j) + floor * scale
+    bad = np.abs(t - j) > rtol * np.abs(j) + floor * scale + atol
     assert not bad.any(), (f"{bad.sum()} of {bad.size} differ; max rel "
                            f"{np.max(np.abs(t - j) / np.maximum(np.abs(j), 1e-300))}")
 
@@ -704,22 +707,126 @@ Output:
 
 
 # ---------------------------------------------------------------------------
+# the driver's extras: each runs both drivers on the same YAML (f64, 4
+# steps); the final state to F64 and OUTLOG to its printed digits
+# ---------------------------------------------------------------------------
+
+PORTED = {
+    "EJ": ("comp", "EJ: 2"), "nEJaccel": ("comp", "nEJaccel: 4"),
+    "centerfile": ("comp", "centerfile: ctr.dat"),
+    "playback": ("comp", "playback: outcoef.h5"),
+    "npca": ("comp", "npca: 2"), "NOISE": ("noise", "NOISE: true\n        noiseN: 3000.0"),
+    "NO_L1": ("force", "NO_L1: true"), "FIX_L0": ("force", "FIX_L0: true"),
+    "EVEN_L": ("force", "EVEN_L: true"),
+    "mlim_cylinder": ("cylforce", "mlim: 1"),
+    "External": ("ext", "External:\n  - id: userdisk\n"),
+    "periodicBC": ("ext", "External:\n  - id: periodicBC\n"
+                   "    parameters: {L: 4.0, btype: ppv}\n"),
+    "outsamp": ("out", "  - id: outsamp\n    parameters: {nint: 2}\n"),
+    "frozen_multistep": ("glob", "self_consistent"),
+}
+
+CYL_PARAMS = ("{mmax: 2, nmax: 4, lmaxfid: 4, nmaxfid: 4, ncylnx: 16, "
+              "ncylny: 8, rnum: 24, tnum: 12, acyl: 0.5, hcyl: 0.1, ")
+
+
+def _extras_files(rundir):
+    """ctr.dat (a drifting center) and outcoef.h5 (a port run's own
+    coefficient series, f64, one record a step)."""
+    if not (rundir / "ctr.dat").exists():
+        np.savetxt(rundir / "ctr.dat",
+                   np.array([[0.0, 0.0, 0.0, 0.0], [1.0, 0.5, -0.25, 0.1]]))
+    if not (rundir / "outcoef.h5").exists():
+        src = f64(CONFIG).replace("{nint: 2, name: halo}",
+                                  "{nint: 1, name: halo}")
+        sim = TSim.from_file(configs(rundir, "pbsrc", src)[1], device="cpu")
+        sim.run(6)
+        os.replace(rundir / "t_pbsrc" / "outcoef.halo.trun.h5",
+                   rundir / "outcoef.h5")
+
+
+def ported_config(case):
+    where, what = PORTED[case]
+    txt = f64(CONFIG).replace("nsteps: 20", "nsteps: 4").replace(
+        "  - id: outchkpt\n    parameters: {nint: 10}\n", "")
+    if where == "comp":
+        txt = txt.replace("bodyfile: halo.bods", "bodyfile: halo.bods\n"
+                          f"    parameters:\n      {what}")
+    elif where in ("force", "noise"):
+        txt = txt.replace("        numr: 800", f"        numr: 800\n"
+                          f"        {what}")
+        if where == "noise":
+            # under multistep, where exp_tpu draws once an extras call; its
+            # single-rate driver discards one draw when it compiles a step
+            # (test_torch_extras_pca.py::test_noise_run_end_to_end)
+            txt = txt.replace("runtag: trun", "runtag: trun\n  multistep: 1")
+    elif where == "cylforce":
+        a = txt.index("      parameters:\n        numr")
+        b = txt.index("Output:")
+        txt = (txt[:a] + f"      parameters: {CYL_PARAMS}{what}}}\n"
+               + txt[b:]).replace("id: sphereSL", "id: cylinder")
+    elif where in ("ext", "out"):
+        txt = txt + what
+    elif where == "glob":
+        txt = txt.replace("runtag: trun", "runtag: trun\n  multistep: 2") \
+            .replace("        numr: 800", "        numr: 800\n"
+                     "        self_consistent: false")
+    return txt
+
+
+def by_indx(sim, name="halo"):
+    ps = sim._state[name]
+    ix, m = np.asarray(ps.indx), np.asarray(ps.mass)
+    o = np.argsort(ix[m > 0])
+    return np.asarray(ps.x)[m > 0][o], np.asarray(ps.v)[m > 0][o]
+
+
+@pytest.mark.parametrize("case", list(PORTED))
+def test_ported_feature_matches_exp_tpu(rundir, case):
+    """Each extra the driver once refused: both drivers on the same YAML
+    in f64 for 4 steps (big steps under multistep); the final state to
+    F64, OUTLOG to its printed digits (TEXT8), the OutSamp file (float32
+    accumulation in both) to F32_COEF; a frozen halo's coefficients equal
+    its captured set bit for bit."""
+    _extras_files(rundir)
+    sj, st = both(rundir, f"px_{case}", ported_config(case),
+                  prime=case not in ("frozen_multistep", "NOISE"))
+    for a, b in zip(by_indx(st), by_indx(sj)):
+        close(a, b, F64)
+    lj, lt = logs(rundir, f"px_{case}")
+    assert lt.shape == lj.shape == (5, 32)
+    # atol: the centre-of-mass columns cancel to ~1e-17
+    close(lt, lj, TEXT8, atol=1e-14)
+    assert np.isfinite(lt).all()
+    if case == "outsamp":
+        import h5py
+
+        name = "outsamp.halo.trun.h5"
+        with h5py.File(rundir / f"t_px_{case}" / name) as ft, \
+                h5py.File(rundir / f"j_px_{case}" / name) as fj:
+            assert sorted(ft.keys()) == sorted(fj.keys())
+            assert len(ft.keys()) == 3
+            for k in ft.keys():
+                assert ft[k].attrs["Time"] == fj[k].attrs["Time"]
+                # exp_tpu's OutSamp projects in its float32 default
+                # accumulation: F32_COEF of the largest value
+                for d in ("mean", "variance"):
+                    close(ft[k][d][()], fj[k][d][()], 0.0, floor=F32_COEF)
+    if case == "frozen_multistep":
+        np.testing.assert_array_equal(_host_c(st), _host_c(st, frozen=True))
+
+
+def _host_c(sim, frozen=False):
+    c = sim._frozen["halo"] if frozen else sim._coefs["halo"]
+    return np.asarray(c.cpu() if isinstance(c, torch.Tensor) else c)
+
+
+# ---------------------------------------------------------------------------
 # refusals: what the driver does not port raises, naming its ROADMAP item
 # ---------------------------------------------------------------------------
 
 REFUSED = {
-    "EJ": ("comp", "EJ: 2"), "nEJaccel": ("comp", "nEJaccel: 4"),
-    "centerfile": ("comp", "centerfile: ctr.dat"),
-    "playback": ("comp", "playback: outcoef.h5"),
-    "npca": ("comp", "npca: 4"), "NOISE": ("force", "NOISE: true"),
-    "NO_L1": ("force", "NO_L1: true"), "FIX_L0": ("force", "FIX_L0: true"),
-    "EVEN_L": ("force", "EVEN_L: true"),
-    "mlim_cylinder": ("cylforce", "mlim: 2"),
-    "External": ("ext", "External:\n  - id: userdisk\n"),
-    "periodicBC": ("ext", "External:\n  - id: periodicBC\n"),
     "outvel": ("out", "  - id: outvel\n    parameters: {nint: 2}\n"),
-    "outsamp": ("out", "  - id: outsamp\n    parameters: {nint: 2}\n"),
-    "frozen_multistep": ("glob", "self_consistent"),
 }
 REFUSED.update({f: ("id", f) for f in ("bessel", "CBsphere", "hernq",
                                        "direct", "shells", "halobulge",
@@ -730,22 +837,8 @@ REFUSED.update({f: ("id", f) for f in ("bessel", "CBsphere", "hernq",
 def test_unported_features_raise(rundir, case):
     where, what = REFUSED[case]
     txt = CONFIG
-    if where == "comp":
-        txt = txt.replace("bodyfile: halo.bods", "bodyfile: halo.bods\n"
-                          f"    parameters:\n      {what}")
-    elif where in ("force", "cylforce"):
-        txt = txt.replace("        numr: 800", f"        numr: 800\n"
-                          f"        {what}")
-        if where == "cylforce":
-            txt = txt.replace("id: sphereSL", "id: cylinder")
-    elif where == "ext":
+    if where == "out":
         txt = txt + what
-    elif where == "out":
-        txt = txt + what
-    elif where == "glob":
-        txt = txt.replace("runtag: trun", "runtag: trun\n  multistep: 2") \
-            .replace("        numr: 800", "        numr: 800\n"
-                     "        self_consistent: false")
     else:
         txt = txt.replace("id: sphereSL", f"id: {what}")
     p = configs(rundir, f"ref_{case}", txt)[1]
