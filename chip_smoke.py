@@ -1,13 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--only-driver]
+    python3 chip_smoke.py
 
 Seven paths of exp_tpu_torch, each with backend='pallas', run the port's
 eleven hand-written kernels, and the YAML driver runs two of those paths
-from run configs, with and without its extras.  `--only-driver` runs
-phases 1-3, the sample of phase 5, CM1's forces and ICs, R1-R4 and E1-E4
-alone and prints no kernels line (a shorter run for work on the driver):
+from run configs, with and without its extras:
 
   the sphere path (1,048,576 particles): the sphereSL KDK step of a
     Hernquist halo under the spherical Sturm-Liouville basis (lmax=4,
@@ -137,9 +135,11 @@ Phases:
      finiteness after every big step, 11 OUTLOG rows, an orient-log row an
      update, K2/K4/K5's launches the schedule's and K1's the schedule's
      plus nsamples a Hall update, the tracked center against its NumPy
-     f64 recomputation from the card's synced state, the Hall-smoothed
-     halo coefficients from K1 against K1's plain version's, and OUTLOG's
-     |dEtot/Etot| (E1_DRIFT_BOUND) gated;
+     f64 recomputation from the card's synced state, the halo's set the
+     driver assembled in the last big step against its Hall weights on
+     K1's plain version's coefficients of the synced state, the driver's
+     next Hall update against the same update through K1's plain version,
+     and OUTLOG's |dEtot/Etot| (E1_DRIFT_BOUND) gated;
   E2. the sphere run config with the halo's NO_L1 and External userbar,
      50 steps, with finiteness, 51/51 launches of K1 and K2, the l = 1
      coefficients exactly 0 after every step, 2T/VC at both ends and the
@@ -394,8 +394,11 @@ DRIVER_TIMED_STEPS = 20
 # estimated acceleration of the disk's tracked center (2x the quadratic
 # coefficient of 8 centroids 2e-3 apart, ~170 in these units: the top-256
 # centroid moves by ~1e-3 between updates) from every disk particle, which
-# does work on the disk.  E3's CPU run: the disk's own Etot drifted
-# 3.314e-4.
+# does work on the disk.  exp_tpu's driver does the same: on a reduced copy
+# of E1's extras (tests/test_torch_extras_frame.py::test_e1_extras_reduced,
+# f64 on the CPU) both drivers drift 9.086e-2 with nEJaccel and 1.288e-3
+# without, the frame acceleration after every big step equal.  E3's CPU
+# run: the disk's own Etot drifted 3.314e-4.
 E1_DRIFT_BOUND = 3.2e-2
 E3_DRIFT_BOUND = 1.0e-3
 # E1's tracked disk center against its NumPy f64 recomputation from the
@@ -407,11 +410,17 @@ E3_DRIFT_BOUND = 1.0e-3
 # 2e-8; 2e-6 holds one such trade and fails a wrong set or a wrong
 # regression.
 E1_CENTER_ATOL = 2e-6
-# E1's Hall-smoothed halo coefficients from K1's subsamples against those
-# from K1's plain version on the same state, max|d| / max|value|: each
-# subsample's coefficients err by COEF_RTOL of max|c|, and the smoothed
-# value w * mean moves by at most ~2 of that (|d(w s)| <= |ds| (1 + 1/2)
-# for w = s^2 / (s^2 + var), with var's own error of the same order).
+# E1's Hall smoothing, two comparisons, each max|d| / max|value| on the
+# card's synced state.  (a) The halo's set the driver assembled in the last
+# big step (K1 on each level's bucket at the final positions, then the Hall
+# weights w <= 1 then in use) against those weights on K1's plain version's
+# coefficients c0 of all rows: each bucket's K1 errs by COEF_RTOL of its own
+# max|c_l| <= max|c|, and the sum over the levels by the same order.  (b)
+# The driver's next Hall update through K1 against the same update through
+# K1's plain version, both applied to c0: each subsample's coefficients err
+# by COEF_RTOL of max|c|, and the smoothed value w * s moves by at most ~2
+# of that (|d(w s)| <= |ds| (1 + 1/2) for w = s^2 / (s^2 + var), with var's
+# own error of the same order).
 E1_HALL_RTOL = 4 * COEF_RTOL
 # E2's bar acceleration at E2_BAR_N of the bodies on the card (f32, torch.
 # autograd) against the same formula in f64 on the CPU, max|da| / max|a|:
@@ -1805,16 +1814,6 @@ def composite_path(dev, sphere_tables, disk_tables):
 
 
 
-def outlog_rows(path):
-    """OUTLOG's rows as floats, the wall-clock column (17) dropped."""
-    import numpy as np
-
-    rows = [r for r in open(path).read().splitlines()
-            if not r.startswith("#") and "Time" not in r]
-    return np.delete(np.array([[float(v) for v in r.split("|")]
-                               for r in rows]), 17, 1)
-
-
 def _bucket_diff(st_a, st_b):
     """The first (component, level, field) where two bucketed states differ
     bit for bit, or None."""
@@ -1852,6 +1851,7 @@ def driver_path(dev, sphere_tables, comp, xe, ve, me):
     import torch
 
     from exp_tpu_torch import bench_composite as bc
+    from exp_tpu_torch import bench_extras as be
     from exp_tpu_torch.bench_extras import (flagship_config, sphere_config,
                                             write_bodies)
     from exp_tpu_torch.bench_sphere import sphere_force
@@ -1894,7 +1894,7 @@ def driver_path(dev, sphere_tables, comp, xe, ve, me):
     launches = bc.kernel_launches()
     want = {k: 0 for k in launches}
     want.update(bc.expected_launches(sim._ms_runner, DRIVER_NBIG))
-    log = outlog_rows(os.path.join(wd, "out", "OUTLOG.flag"))
+    log = be.outlog_rows(os.path.join(wd, "out", "OUTLOG.flag"))
     etot = log[:, 12] + log[:, 13]
     de = abs(etot[-1] - etot[0]) / abs(etot[0])
     finite = bool(np.isfinite(log).all()) and all(
@@ -1971,7 +1971,7 @@ def driver_path(dev, sphere_tables, comp, xe, ve, me):
 
     t0 = time.perf_counter()
     main([yml, "-n", "2"])
-    cli = outlog_rows(os.path.join(wd, "cli", "OUTLOG.flag"))
+    cli = be.outlog_rows(os.path.join(wd, "cli", "OUTLOG.flag"))
     print(f"R2 exp_tpu_torch.run on flag_cli.yml -n 2: "
           f"{time.perf_counter() - t0:.1f} s, {len(cli)} OUTLOG rows, equal "
           f"to the driver's: {bool(np.array_equal(cli, log[:3]))}",
@@ -2021,7 +2021,7 @@ def driver_path(dev, sphere_tables, comp, xe, ve, me):
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = dict(sk.launch_counts)
-    log = outlog_rows(os.path.join(wd, "sph", "OUTLOG.sph"))
+    log = be.outlog_rows(os.path.join(wd, "sph", "OUTLOG.sph"))
     etot = log[:, 12] + log[:, 13]
     de = abs(etot[-1] - etot[0]) / abs(etot[0])
     rep = {"ascii_write_sec": t_write, "ascii_read_sec": t_read,
@@ -2079,7 +2079,7 @@ def _finite_buckets(sim):
 
 class _PlainK1:
     """A sphere force's coefficients through K1's plain version (PyTorch
-    ops on the card), for the subsample comparison of E1."""
+    ops on the card), for E1's Hall comparisons."""
 
     def __init__(self, force):
         self.f = force
@@ -2091,15 +2091,6 @@ class _PlainK1:
         return sk.sphere_coef_plain(
             x.float().contiguous(), mass.float().contiguous(),
             f._radial_table(), f.Mp, f._kernel_params())
-
-
-def _smoothed(force, x, m, nsamples):
-    from exp_tpu_torch.nbody.pca import (_mean_var, smoothing_weights,
-                                         subsample_coefficients)
-
-    mean, var = _mean_var(subsample_coefficients(force, x, m,
-                                                 nsamples=nsamples))
-    return mean * smoothing_weights(mean, var)
 
 
 def _extras_run(sim, nbig, check=None):
@@ -2139,6 +2130,7 @@ def extras_path(dev, wd, r4):
     from exp_tpu_torch import bench_extras as be
     from exp_tpu_torch.config import RunConfig
     from exp_tpu_torch.nbody.centering import _regress
+    from exp_tpu_torch.nbody.pca import apply_hall
     from exp_tpu_torch.nbody.simulation import Simulation
     from exp_tpu_torch.ops import sphere_kernels as sk
 
@@ -2151,7 +2143,15 @@ def extras_path(dev, wd, r4):
         be.case_config("E1", "e1", "e1", DRIVER_NBIG), where="E1"),
         workdir=wd, device=dev)
     t_build = time.perf_counter() - t0
-    launches, times, finite = _extras_run(sim, DRIVER_NBIG)
+    w_used = {}
+
+    def keep_hall(k):
+        # the Hall weights the driver applies in the last big step (its
+        # update after big step npca * j applies until the next)
+        if k == DRIVER_NBIG - 2:
+            w_used["halo"] = sim._hall["halo"].clone()
+
+    launches, times, finite = _extras_run(sim, DRIVER_NBIG, keep_hall)
     halo = sim.components["halo"]
     n_hall = DRIVER_NBIG // halo.npca
     want = {k: 0 for k in launches}
@@ -2179,18 +2179,40 @@ def extras_path(dev, wd, r4):
     Eg = torch.where(ps.mass > 0, Eg, torch.full_like(Eg, float("inf")))
     top_card = set(torch.topk(-Eg, 256).indices.cpu().tolist())
     dcen = float(np.abs(c_np - sim._centers["disk"]).max())
-    # the Hall-smoothed halo coefficients: K1 against its plain version
+    # the halo's set the driver assembled in the last big step (K1 on each
+    # level's bucket at the final positions, Hall applied) against its
+    # Hall weights on K1's plain version's coefficients of the synced state
     hp = sim._state["halo"]
-    sm = _smoothed(halo.force, hp.x, hp.mass, halo.nsamples)
-    sm0 = _smoothed(_PlainK1(halo.force), hp.x, hp.mass, halo.nsamples)
-    hall_rel = float((sm - sm0).abs().max() / sm0.abs().max())
+    c0 = _PlainK1(halo.force).coefficients(hp.x, hp.mass)
+    ref = apply_hall(c0, w_used["halo"])
+    drv = torch.as_tensor(sim._coefs["halo"], device=dev)
+    assembled_rel = float((drv - ref).abs().max() / ref.abs().max())
+    # the driver's next Hall update (E4 times it; the 10th big step is one
+    # of npca's) against the same update through K1's plain version, both
+    # applied to c0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim._update_hall(multistep=True)
+    torch.cuda.synchronize()
+    t_hall = time.perf_counter() - t0
+    w_card = sim._hall["halo"]
+    halo.force = _PlainK1(halo.force)
+    try:
+        sim._update_hall(multistep=True)
+    finally:
+        halo.force = halo.force.f
+    w_plain, sim._hall["halo"] = sim._hall["halo"], w_card
+    ref = apply_hall(c0, w_plain)
+    hall_rel = float((apply_hall(c0, w_card) - ref).abs().max()
+                     / ref.abs().max())
     rep = {"build_sec": t_build, "rows": len(log), "dE_rel": de,
            "finite": finite and bool(np.isfinite(log).all()),
            "orient_rows": len(orient_rows), "center": list(
                sim._centers["disk"]), "center_np": list(c_np),
            "center_c1_card": list(hist[-1][1]), "center_c1_np": list(c1),
            "top256_differ": len(top_card - set(top.tolist())),
-           "center_dmax": dcen, "hall_rel": hall_rel,
+           "center_dmax": dcen, "assembled_rel": assembled_rel,
+           "hall_rel": hall_rel,
            "hall_weight_min": float(sim._hall["halo"].min()),
            "pseudo": [list(a) for a in sim.components["disk"].pseudo()],
            "level_counts": sim._ms_runner.level_counts(sim._ms_state),
@@ -2198,15 +2220,11 @@ def extras_path(dev, wd, r4):
            "timers": dict(sim.timers)}
     print("E1 flagship + EJ/nEJaccel (disk) + Hall (halo): "
           + json.dumps(rep), flush=True)
-    # E4's update times: one EJ update and one Hall update more
+    # E4's update times: one EJ update more, and the Hall update above
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim._update_orient(multistep=True)
     t_orient = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sim._update_hall(multistep=True)
-    torch.cuda.synchronize()
-    t_hall = time.perf_counter() - t0
     e4.update(E1_bigstep_ms=float(np.median(times)) * 1e3,
               E1_bigstep_ms_all=[t * 1e3 for t in times],
               E1_orient_timer_sec=sim.timers["Orient"],
@@ -2224,9 +2242,14 @@ def extras_path(dev, wd, r4):
     if not dcen <= E1_CENTER_ATOL:
         raise AssertionError(f"E1: tracked center off its f64 "
                              f"recomputation by {dcen}")
+    if not assembled_rel <= E1_HALL_RTOL:
+        raise AssertionError(f"E1: the halo's assembled set off its Hall "
+                             f"weights on K1's plain version by "
+                             f"{assembled_rel}")
     if not hall_rel <= E1_HALL_RTOL:
-        raise AssertionError(f"E1: Hall coefficients from K1 and its plain "
-                             f"version differ by {hall_rel}")
+        raise AssertionError(f"E1: the driver's Hall update through K1 and "
+                             f"through its plain version differ by "
+                             f"{hall_rel}")
     if not de < E1_DRIFT_BOUND:
         raise AssertionError(f"E1: OUTLOG |dEtot/Etot| = {de} exceeds "
                              f"{E1_DRIFT_BOUND}")
@@ -2644,22 +2667,6 @@ def main():
     if not run["dE_rel"] < DRIFT_BOUND:
         raise AssertionError(f"|dEtot/Etot| = {run['dE_rel']} over "
                              f"{STEPS} steps exceeds {DRIFT_BOUND}")
-
-    if "--only-driver" in sys.argv[1:]:
-        # a shorter run for work on the driver: the composite's forces and
-        # ICs without CM2-CM3, then R1-R4 and E1-E4 only
-        from exp_tpu_torch import bench_composite as bc
-        from exp_tpu_torch.bench_disk import disk_tables as build_disk
-
-        comp = bc.prepare(device=dev, forces=bc.composite_forces(
-            dev, tables, build_disk()))
-        r4, work = driver_path(dev, tables, comp, xe, ve, me)
-        del comp
-        extras_path(dev, work.name, r4)
-        work.cleanup()
-        print("chip_smoke --only-driver: R1-R4 and E1-E4 passed; no "
-              "kernels line", flush=True)
-        return 0
 
     # 6. timing
     bench = bench_sphere(n=N, reps=30, tables=tables, device=dev)
