@@ -40,7 +40,10 @@ from run configs, with and without its extras:
     probe_slab_phasestream.py), through P1 (csrc/slab_phasestream.cu);
   the driver path: exp_tpu_torch's YAML driver (nbody/simulation.py,
     run.py) on the flagship composite's run config, through K1, K2, K4
-    and K5, and single-rate on the sphere path's sample, through K1 and K2.
+    and K5, and single-rate on the sphere path's sample, through K1 and K2;
+  the remaining forces: hernq, CBsphere and twocenter through K1 and K2
+    from run configs, and bessel, direct, shells and halobulge (plain
+    torch, no TPU kernel) at the same sizes.
 
 Phases:
 
@@ -152,6 +155,25 @@ Phases:
   E4. E1's and E3's big step and E2's step beside R4's, the Orient and
      Hall timers, one EJ and one Hall update, a ScatterMFP application and
      a NOISE draw at 2^20, on the host clock (printed, not gated);
+  MF1. the analytic bases (exp_tpu_torch/bench_forces.py): hernq on phase
+     5's sample and CBsphere on a 2^20 Plummer sample, lmax 4, nmax 10,
+     numr 2000, rmax 50, pallas, K1 and K2 on their tables against the
+     plain versions, each basis's field on 12 radii against its model's
+     M(<r)/r^2 (median under 3%), then the single-rate driver for 50
+     steps with 51 / 51 launches, OUTLOG's |dE/E| and 2T/VC against a CPU
+     run of the same config; bessel (gather) in f32 against f64;
+  MF2. twocenter on a 2^20 lopsided cusp + envelope (tests/test_twocenter
+     .py:39's, EJ: 2): K1 and K2 on the inner and outer inputs against
+     the plain versions, the two-center field against the direct sum
+     beside one COM-centered expansion, the single-rate driver for 20
+     steps and multistep 2 for 4 big steps, launches twice the
+     single-center schedule, finite state and KE > 0;
+  MF3. DirectForce at 65,536 bodies in each source model, f32 against f64,
+     one evaluation timed with its temporaries' peak; the sphere path's
+     halo and a one-body bh under direct at multistep 4 for 4 big steps,
+     launches the schedule's and the halo's |dE/E| against a CPU run;
+  MF4. shells and halobulge at 2^20 on the card against the same on the
+     CPU and the model's M(<r)/r^2; MF1-MF3's step times (host clock);
   PS1. P1 against its plain version on the probe's sample with edge rows,
      stream1 and stream2, with the stated tolerances;
   PS2. the probe's run: producer + P1, P1 alone, the producer, the
@@ -427,6 +449,81 @@ E1_HALL_RTOL = 4 * COEF_RTOL
 # ~30 f32 operations a term, each rounding at 6e-8.
 E2_BAR_N = 4096
 E2_BAR_RTOL = 1e-5
+
+
+# The remaining forces (exp_tpu_torch/bench_forces.py's run configs).
+# MF1: hernq on phase 5's sample and CBsphere on a Plummer sample (a 1,
+# M 1) of 2^20, lmax 4, nmax 10, numr 2000, rmax 50, pallas, through the
+# single-rate driver for STEPS steps of DT; MF2: twocenter on
+# tests/test_twocenter.py:39's lopsided system at 2^20, single-rate for
+# TC_STEPS steps and at multistep 2 for TC_NBIG big steps; MF3b: phase 5's
+# halo and a one-body bh under direct at multistep 4, BH_NBIG big steps.
+# Each K1 / K2 check holds phase 4's tolerances (COEF_RTOL, ACC_*, POT_*).
+# tests/test_more_forces.py's bar: each analytic basis reproduces its own
+# halo's M(<r)/r^2 on 12 radii from 0.1 to 10 to a median of 3%.
+MF1_BAR = 0.03
+# MF1's |dEtot/Etot| over OUTLOG's 51 rows: three times the drift of the
+# same config through the plain versions on a CPU (python -m
+# exp_tpu_torch.bench_forces ref --case hernq|CBsphere --device cpu on the
+# card's host), the rule of R2 and CM2, and at least DRIFT_BOUND: a drift
+# at the rounding level of the f32 energy sums (phase 5's reasoning) may
+# differ by that much between the two orders of summation.  2T/VC at both
+# ends within MF1_VIRIAL_ATOL of the CPU run's: the same f32 sums of the
+# same 2^20 bodies (~eps log2 N ~ 2.4e-6 relative) after 50 steps that
+# separate the two runs' orbits by rounding only.  The CPU runs (on the
+# card's host, 2 threads each): hernq drifted 5.59e-6 (2T/VC 0.98824 ->
+# 0.98818), CBsphere 2.04e-7 (1.00002 -> 0.99999).
+MF1_CPU = {"hernq": {"dE_rel": 5.586144669652306e-06, "virial0": 0.9882393,
+                     "virial1": 0.98817841},
+           "CBsphere": {"dE_rel": 2.03991765341778e-07, "virial0": 1.0000214,
+                        "virial1": 0.99999514}}
+MF1_VIRIAL_ATOL = 1e-4
+# bessel (the gather backend, f32) on phase 5's sample scaled into its
+# rmax 1, against the same force in f64 on the card, at 65,536 of the
+# bodies: max|da| / max|a|, max|dpot| / max|pot| and the median of each
+# body's |da| / |a|.  The largest error is the f32 evaluation at the body
+# nearest the center (r = 2.6e-5 in the basis' units), where the angular
+# terms go as 1/r: the f64 coefficients' field in f32 errs as much there
+# (1.8e-3 on the card), and exp_tpu's f32 gather backend gives the port's
+# error to four digits at that body (3.09e-3 on a CPU, with a 2^18
+# subsample's coefficients).  The bounds hold that error with room for
+# the coefficients' f32 sums (9e-4 of max|c|); the median holds the bulk.
+BESSEL_N = 65_536
+BESSEL_ACC_RTOL = 5e-3
+BESSEL_POT_RTOL = 5e-4
+BESSEL_MEDIAN_RTOL = 1e-4
+# MF2's accuracy bar, tests/test_twocenter.py:39's: the median relative
+# force error against the direct sum (DirectForce, plummer, eps 1e-3, f64,
+# all 2^20 sources) on 150 points about the cusp and 150 in the envelope:
+# twocenter < 0.3 x one COM-centered expansion in the cusp, and < 0.1;
+# < 1.2 x in the envelope.
+TC_CUSP_RATIO, TC_CUSP_MAX, TC_ENV_RATIO = 0.3, 0.1, 1.2
+# MF3a: DirectForce at DIRECT_N bodies (doc/direct_energy.json's direct-sum
+# subsample) in f32 against f64 on the card, each source model, max|da| /
+# max|a| and max|dpot| / max|pot|, set before the first run: a term rounds
+# ~20 f32 operations (~1e-6 relative), a body sums 65,536 terms in four
+# chunks (a tree sum, ~log2(16384) eps ~ 1e-6 of the sum of |terms|); the
+# potential's terms share a sign, the acceleration's cancel by up to ~10x
+# at the center.
+DIRECT_N = 65_536
+DIRECT_ACC_RTOL = 1e-4
+DIRECT_POT_RTOL = 1e-5
+# MF3b's halo |dEtot/Etot| over OUTLOG's rows (the halo's own columns):
+# three times the CPU run's drift (python -m exp_tpu_torch.bench_forces ref
+# --case bh --device cpu, on the card's host: 6.69e-4), and at least
+# DRIFT_BOUND, as for MF1.
+MF3B_CPU = {"dE_rel": 0.0006694166964610148}
+# MF4: ShellsForce (rmax 10, 256 bins) and HaloBulgeForce (the halo's
+# model) on phase 5's sample at 2^20, on the card and on the CPU in the
+# same call, at the sample's first MF4_PTS bodies within 0.05 <= r <= 9.5.
+# The card against the CPU: max|da| / max|a| <= MF4_RTOL (the bins' f32
+# sums in another order, ~sqrt(4096) eps a bin).  Against the model's
+# M(<r)/r^2: the card's median |a_R / (M/r^2) - 1| within 1.5 times the
+# CPU's plus 1e-6 (the binning and shot noise are the same inputs' on
+# both).
+MF4_PTS = 4096
+MF4_RTOL = 2e-5
+MF_TIMED_STEPS = 10
 
 
 def nvidia_smi_line():
@@ -2370,6 +2467,452 @@ def extras_path(dev, wd, r4):
           flush=True)
 
 
+def _mf_sphere_check(tag, force, x, m):
+    """K1 and K2 on `force`'s tables against their plain versions on (x, m)
+    (f32 on the card) at phase 4's tolerances; returns the kernels-line
+    fields of each (max error, ms, plain ms, bound) and raises on a
+    disagreement."""
+    import torch
+
+    from exp_tpu_torch.ops import sphere_kernels as sk
+
+    prm = force._kernel_params()
+    tab = force._radial_table()
+    c = sk.sphere_coef(x, m, tab, force.Mp, prm)
+    c0 = sk.sphere_coef_plain(x, m, tab, force.Mp, prm)
+    twT = force.accel_table(c0)
+    a, p = sk.sphere_accel(x, twT, force.fac32, prm)
+    a0, p0 = sk.sphere_accel_plain(x, twT, force.fac32, prm)
+    torch.cuda.synchronize()
+    k1_err = float((c - c0).abs().max())
+    k1_rel = k1_err / float(c0.abs().max())
+    da, dp = (a - a0).abs(), (p - p0).abs()
+    k2_err = max(float(da.max()), float(dp.max()))
+    ok_a = bool((da <= ACC_ATOL + ACC_RTOL * a0.abs()).all())
+    ok_p = bool((dp <= POT_ATOL + POT_RTOL * p0.abs()).all())
+    finite = bool(torch.isfinite(a).all()) and bool(torch.isfinite(p).all())
+    print(f"{tag} K1 vs plain: max|dc|/max|c| = {k1_rel:.3e} (tolerance "
+          f"{COEF_RTOL:.0e}); K2 vs plain: max|da| = {float(da.max()):.3e} "
+          f"(|a| up to {float(a0.abs().max()):.3e}), max|dpot| = "
+          f"{float(dp.max()):.3e}", flush=True)
+    if not (k1_rel <= COEF_RTOL and ok_a and ok_p and finite):
+        raise AssertionError(f"{tag}: K1/K2 disagree with their plain "
+                             f"versions (K1 {k1_rel}, acc ok {ok_a}, pot ok "
+                             f"{ok_p}, finite {finite})")
+    r = x.norm(dim=1) + 1e-10
+    n_in = int(((r >= prm.rmin * prm.scale) & (r <= prm.rmax * prm.scale)
+                & (m > 0)).sum())
+    out = {}
+    for name, fn, plain, err, (byts, ops) in (
+            ("sphere_coef",
+             lambda: sk.sphere_coef(x, m, tab, force.Mp, prm),
+             lambda: sk.sphere_coef_plain(x, m, tab, force.Mp, prm), k1_err,
+             k1_work(x.shape[0], n_in, prm.lmax, prm.nmax, prm.rows)),
+            ("sphere_accel",
+             lambda: sk.sphere_accel(x, twT, force.fac32, prm),
+             lambda: sk.sphere_accel_plain(x, twT, force.fac32, prm), k2_err,
+             k2_work(x.shape[0], prm.lmax, prm.rows))):
+        bms, by = bound_ms(byts, ops)
+        out[name] = {"max_abs_err": err, "ms": cuda_ms(fn, 20),
+                     "plain_ms": cuda_ms(plain, 2), "bound_ms": bms,
+                     "bound_by": by, "bytes": byts, "operations": ops}
+    return out
+
+
+def _mf_rows(case, checks, launches, note):
+    """Kernels-line rows of K1 and K2 under an MF case."""
+    rows = []
+    for name, src, line in (
+            ("sphere_coef", "exp_tpu_torch/csrc/sphere_coef.cu",
+             "exp_tpu/ops/pallas_sphere.py:521"),
+            ("sphere_accel", "exp_tpu_torch/csrc/sphere_accel.cu",
+             "exp_tpu/ops/pallas_sphere.py:398")):
+        rows.append({"name": f"{name}[{case}]", "route": "cuda",
+                     "source": src, "replaces": line,
+                     "launches": launches[name], **checks[name],
+                     "library_ms": None,
+                     "library_note": "no single PyTorch call computes this "
+                     "function", "note": note})
+    return rows
+
+
+def _mf_run(sim, steps=None):
+    """The driver's run from a reset of every launch count: prime and run
+    (single-rate) or init_state and the big steps (multistep); returns the
+    launches read just after and the run's host seconds."""
+    import torch
+
+    from exp_tpu_torch import bench_composite as bc
+
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    if sim.M == 0:
+        sim.prime()
+    sim.run(steps)
+    torch.cuda.synchronize()
+    return bc.kernel_launches(), time.perf_counter() - t0
+
+
+def _mf_timed(sim, steps):
+    """Host-clock ms a step (a big step under multistep) of `steps` more."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(steps)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def _ms_schedule(M, nbig, n_rebuilds, centers=1, kicked=1):
+    """K1's and K2's launches the multistep schedule implies for one basis
+    expansion (`centers` of them: 2 for a twocenter) over `kicked`
+    components' buckets (bench_composite.expected_launches' count)."""
+    per, nb = 2 ** (M + 1) - 1, M + 1
+    return {"sphere_coef": centers * (per * nbig + (2 + n_rebuilds) * nb),
+            "sphere_accel": centers * kicked * (per * nbig + 2 * nb)}
+
+
+def _want(launches, want):
+    full = {k: 0 for k in launches}
+    full.update(want)
+    return full
+
+
+def _mf_bound(cpu):
+    """Three times the CPU run's drift, at least DRIFT_BOUND."""
+    return max(3.0 * cpu["dE_rel"], DRIFT_BOUND)
+
+
+def forces_path(dev, xe, ve, me):
+    """Phases MF1-MF4 on the card: the remaining forces through the driver
+    and on their own (exp_tpu_torch/bench_forces.py's configs).  Returns
+    the kernels-line rows of K1 and K2 under hernq, CBsphere and
+    twocenter."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch import bench_forces as bf
+    from exp_tpu_torch.basis.bessel import make_bessel_force
+    from exp_tpu_torch.basis.model import hernquist_model, plummer_model
+    from exp_tpu_torch.config import RunConfig
+    from exp_tpu_torch.forces.direct import DirectForce
+    from exp_tpu_torch.forces.shells import HaloBulgeForce, ShellsForce
+    from exp_tpu_torch.nbody.simulation import Simulation
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    rows, times = [], {}
+    ex, em = edge_rows(N)
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_forces_")
+    wd = work.name
+
+    def sim_of(case, cfg, sub):
+        d = os.path.join(wd, sub)
+        t0 = time.perf_counter()
+        sim = Simulation(RunConfig.from_dict(cfg, where=case), workdir=d,
+                         device=dev)
+        times[f"{case.replace(' ', '_')}_build_sec"] = time.perf_counter() - t0
+        return sim, d
+
+    # MF1. hernq and CBsphere through the single-rate driver
+    t0 = time.perf_counter()
+    samples = {"hernq": (xe, ve, me), "CBsphere": bf.plummer_sample(N)}
+    models = {"hernq": hernquist_model(rmin=1e-3, rmax=20.0),
+              "CBsphere": plummer_model(rmin=1e-3, rmax=20.0)}
+    times["MF1_plummer_sample_sec"] = time.perf_counter() - t0
+    for kind, (xs, vs, ms) in samples.items():
+        tag = f"MF1 {kind}"
+        os.makedirs(os.path.join(wd, kind))
+        bf.write_case_files(kind, os.path.join(wd, kind), (xs, vs, ms))
+        sim, d = sim_of(tag, bf.analytic_config(kind, "out", "mf"), kind)
+        force = sim.components["halo"].force
+        x = torch.tensor(np.concatenate([xs, ex]), **f32)
+        m = torch.tensor(np.concatenate([ms, em]), **f32)
+        checks = _mf_sphere_check(tag, force, x, m)
+        # tests/test_more_forces.py's bar on the card: K1's coefficients of
+        # the sample, K2's field on 12 radii
+        c = force.coefficients(x[:N], m[:N])
+        rr = np.geomspace(0.1, 10.0, 12)
+        pts = torch.tensor(np.stack([rr, 0 * rr, 0 * rr], -1), **f32)
+        acc, _ = force.acceleration(c, pts)
+        exact = models[kind].get_mass(rr) / rr ** 2
+        bar = float(np.median(np.abs(-acc[:, 0].double().cpu().numpy()
+                                     / exact - 1.0)))
+        launches, t_run = _mf_run(sim)
+        _, rep = bf.outlog_report(os.path.join(d, "out", "OUTLOG.mf"),
+                                  kind)
+        times[f"MF1_{kind}_step_ms"] = _mf_timed(sim, MF_TIMED_STEPS)
+        cpu = MF1_CPU[kind]
+        bound = _mf_bound(cpu)
+        want = _want(launches, {"sphere_coef": STEPS + 1,
+                                "sphere_accel": STEPS + 1})
+        print(f"{tag} single-rate driver: " + json.dumps({
+            **rep, "bar_median": bar, "launches": launches,
+            "expected_launches": want, "run_sec": t_run, "cpu": cpu,
+            "dE_bound": bound}), flush=True)
+        if not (rep["finite"] and rep["rows"] == STEPS + 1):
+            raise AssertionError(f"{tag}: {rep['rows']} OUTLOG rows, finite "
+                                 f"{rep['finite']}")
+        if launches != want:
+            raise AssertionError(f"{tag}: launches {launches}, expected "
+                                 f"{want}")
+        if not bar < MF1_BAR:
+            raise AssertionError(f"{tag}: median |a_R / (M/r^2) - 1| = "
+                                 f"{bar} exceeds {MF1_BAR}")
+        if not rep["dE_rel"] < bound:
+            raise AssertionError(f"{tag}: |dEtot/Etot| = {rep['dE_rel']} "
+                                 f"exceeds {bound}")
+        for key in ("virial0", "virial1"):
+            if not abs(rep[key] - cpu[key]) <= MF1_VIRIAL_ATOL:
+                raise AssertionError(f"{tag}: 2T/VC {key} = {rep[key]}, the "
+                                     f"CPU's {cpu[key]}")
+        rows += _mf_rows(kind, checks, launches,
+                         f"{tag}: the single-rate driver, {STEPS} steps")
+        del sim, force, x, m, c
+
+    # MF1. bessel (gather, no kernel) on the sample scaled into rmax 1: f32
+    # against f64, and the f32 field of the f64 coefficients (the error of
+    # the evaluation alone)
+    t0 = time.perf_counter()
+    xb = xe / 20.0
+    fb, cb, xt = {}, {}, {}
+    for dt in (torch.float32, torch.float64):
+        fb[dt] = make_bessel_force(4, 10, 1.0, numr=2000, dtype=dt,
+                                   device=dev)
+        xt[dt] = torch.tensor(xb, dtype=dt, device=dev)
+        cb[dt] = fb[dt].coefficients(xt[dt], torch.tensor(me, dtype=dt,
+                                                          device=dev),
+                                     accum_dtype=dt)
+    a64, p64 = fb[torch.float64].acceleration(cb[torch.float64],
+                                              xt[torch.float64][:BESSEL_N])
+    f32b = fb[torch.float32]
+    pts = xt[torch.float32][:BESSEL_N]
+    a32, p32 = f32b.acceleration(cb[torch.float32], pts)
+    a32e, _ = f32b.acceleration(cb[torch.float64].float(), pts)
+    torch.cuda.synchronize()
+    da = (a32.double() - a64).abs().max(dim=1).values
+    worst = int(torch.argmax(da))
+    brep = {"acc_rel": float(da.max() / a64.abs().max()),
+            "pot_rel": float((p32.double() - p64).abs().max()
+                             / p64.abs().max()),
+            "coef_rel": float((cb[torch.float32].double()
+                               - cb[torch.float64]).abs().max()
+                              / cb[torch.float64].abs().max()),
+            "acc_rel_eval_only": float((a32e.double() - a64).abs().max()
+                                       / a64.abs().max()),
+            "worst_r": float(xt[torch.float64][worst].norm()),
+            "worst_abs_a": float(a64[worst].abs().max()),
+            "median_rel": float(torch.median(da / a64.norm(dim=1)))}
+    times["MF1_bessel_sec"] = time.perf_counter() - t0
+    print(f"MF1 bessel (gather) f32 vs f64 at {BESSEL_N} (tolerance acc "
+          f"{BESSEL_ACC_RTOL:.0e}, pot {BESSEL_POT_RTOL:.0e}, median "
+          f"{BESSEL_MEDIAN_RTOL:.0e}): " + json.dumps(brep), flush=True)
+    if not (brep["acc_rel"] <= BESSEL_ACC_RTOL
+            and brep["pot_rel"] <= BESSEL_POT_RTOL
+            and brep["median_rel"] <= BESSEL_MEDIAN_RTOL):
+        raise AssertionError(f"MF1 bessel: f32 off f64: {brep}")
+    del fb, cb, xt, a32, p32, a64, p64, a32e
+
+    # MF2. twocenter on the lopsided system at 2^20
+    t0 = time.perf_counter()
+    xl, vl, ml, off, com = bf.lopsided_sample(N)
+    times["MF2_sample_sec"] = time.perf_counter() - t0
+    os.makedirs(os.path.join(wd, "tc"))
+    os.makedirs(os.path.join(wd, "tcms"))
+    for sub in ("tc", "tcms"):
+        bf.write_case_files("twocenter", os.path.join(wd, sub), (xl, vl, ml))
+    sim, d = sim_of("MF2", bf.twocenter_config("out", "mf", 0, bf.TC_STEPS),
+                    "tc")
+    tcf = sim.components["sys"].force.with_centers(
+        torch.tensor(off, **f32), torch.tensor(com, **f32))
+    xt = torch.tensor(xl, **f32)
+    mt = torch.tensor(ml, **f32)
+    mix = tcf.mixture(xt)
+    checks = {}
+    for part, sub, c_, w in (("inner", tcf.inner, tcf.c1, 1 - mix),
+                             ("outer", tcf.outer, tcf.c2, mix)):
+        checks[part] = _mf_sphere_check(f"MF2 {part}", sub,
+                                        (xt - c_).contiguous(),
+                                        (mt * w).contiguous())
+    # tests/test_twocenter.py:39's bar against the direct sum
+    single = tcf.inner
+    cs = single.coefficients(xt - torch.tensor(com, **f32), mt)
+    ct = tcf.coefficients(xt, mt)
+    direct = DirectForce(eps=1e-3, kernel="plummer")
+    rng = np.random.default_rng(2)
+    regions = {"cusp": off + rng.normal(0, 0.3, (150, 3)),
+               "env": rng.normal(0, 2.0, (150, 3))}
+    errs = {}
+    xs64 = torch.tensor(xl, dtype=torch.float64, device=dev)
+    ms64 = torch.tensor(ml, dtype=torch.float64, device=dev)
+    for name, pts in regions.items():
+        p64 = torch.tensor(pts, dtype=torch.float64, device=dev)
+        a_ref, _ = direct.acceleration((xs64, ms64), p64)
+        scale = a_ref.norm(dim=1)
+        p32 = p64.float()
+        a1, _ = single.acceleration(cs, p32 - torch.tensor(com, **f32))
+        a2, _ = tcf.acceleration(ct, p32)
+        errs[name] = [float(np.median(((a.double() - a_ref).norm(dim=1)
+                                       / scale).cpu().numpy()))
+                      for a in (a1, a2)]
+    del xs64, ms64
+    (e1c, e2c), (e1e, e2e) = errs["cusp"], errs["env"]
+    launches_sr, t_run = _mf_run(sim)
+    ke_sr = float(sim._diag["sys"]["KE"])
+    fin_sr = all(bool(torch.isfinite(t).all()) for t in (
+        sim._state["sys"].x, sim._state["sys"].v))
+    times["MF2_step_ms"] = _mf_timed(sim, MF_TIMED_STEPS)
+    want_sr = _want(launches_sr, {"sphere_coef": 2 * (bf.TC_STEPS + 1),
+                                  "sphere_accel": 2 * (bf.TC_STEPS + 1)})
+    del sim
+    simm, _ = sim_of("MF2 multistep", bf.twocenter_config(
+        "out", "mf", 2, bf.TC_NBIG), "tcms")
+    launches_ms, t_run_ms = _mf_run(simm)
+    ke_ms = float(simm._diag["sys"]["KE"])
+    fin_ms = _finite_buckets(simm)
+    want_ms = _want(launches_ms, _ms_schedule(
+        2, bf.TC_NBIG, simm._ms_runner.n_rebuilds, centers=2))
+    times["MF2_bigstep_ms"] = _mf_timed(simm, 2)
+    rep = {"errors": {"cusp_single": e1c, "cusp_twocenter": e2c,
+                      "env_single": e1e, "env_twocenter": e2e},
+           "single_rate": {"launches": launches_sr,
+                           "expected_launches": want_sr, "KE": ke_sr,
+                           "finite": fin_sr, "run_sec": t_run},
+           "multistep": {"launches": launches_ms,
+                         "expected_launches": want_ms, "KE": ke_ms,
+                         "finite": fin_ms, "run_sec": t_run_ms,
+                         "rebuilds": simm._ms_runner.n_rebuilds}}
+    print("MF2 twocenter: " + json.dumps(rep), flush=True)
+    if not (e2c < TC_CUSP_RATIO * e1c and e2c < TC_CUSP_MAX
+            and e2e < TC_ENV_RATIO * e1e):
+        raise AssertionError(f"MF2: the two-center bar fails: {errs}")
+    if launches_sr != want_sr or launches_ms != want_ms:
+        raise AssertionError(f"MF2: launches {launches_sr} / {launches_ms}, "
+                             f"expected {want_sr} / {want_ms}")
+    if not (fin_sr and fin_ms and ke_sr > 0 and ke_ms > 0):
+        raise AssertionError(f"MF2: finite {fin_sr}, {fin_ms}; KE {ke_sr}, "
+                             f"{ke_ms}")
+    both = {k: launches_sr[k] + launches_ms[k] for k in launches_sr}
+    rows += _mf_rows("twocenter", checks["inner"], both,
+                     f"MF2: the inner expansion's inputs; launches of the "
+                     f"single-rate run ({launches_sr['sphere_coef']}, "
+                     f"{launches_sr['sphere_accel']}) and the multistep run "
+                     f"({launches_ms['sphere_coef']}, "
+                     f"{launches_ms['sphere_accel']})")
+    del simm, tcf, single, xt, mt, mix, cs, ct
+
+    # MF3a. DirectForce at DIRECT_N bodies, f32 against f64 on the card
+    mod = plummer_model(a=0.5, M=1.0, rmin=1e-3, rmax=5.0)
+    kinds = {"plummer": dict(eps=0.01, kernel="plummer"),
+             "spline": dict(eps=0.05, kernel="spline"),
+             "mn": dict(mn_model=True, a=0.8, b=0.2),
+             "pm": dict(eps=1e-3, kernel="plummer")}
+    rep = {}
+    for kind, kw in kinds.items():
+        out = {}
+        for dt in (torch.float32, torch.float64):
+            f = (DirectForce.with_pm_model(mod, device=dev, **kw)
+                 if kind == "pm" else DirectForce(**kw).to(dev))
+            xs = torch.tensor(xe[:DIRECT_N], dtype=dt, device=dev)
+            ms = torch.tensor(me[:DIRECT_N], dtype=dt, device=dev)
+            out[dt] = f.acceleration(f.coefficients(xs, ms), xs)
+        (a32, p32), (a64, p64) = out[torch.float32], out[torch.float64]
+        rep[kind] = {
+            "acc_rel": float((a32.double() - a64).abs().max()
+                             / a64.abs().max()),
+            "pot_rel": float((p32.double() - p64).abs().max()
+                             / p64.abs().max()),
+            "finite": bool(torch.isfinite(a32).all())}
+    f = DirectForce(**kinds["plummer"])
+    xs = torch.tensor(xe[:DIRECT_N], **f32)
+    ms = torch.tensor(me[:DIRECT_N], **f32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    direct_ms = cuda_ms(lambda: f.acceleration((xs, ms), xs), 3)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    rep["eval_ms"] = direct_ms
+    rep["tmp_bytes_cap"] = f.tmp_bytes
+    rep["peak_bytes"] = peak
+    rep["target_chunk"] = f.target_chunk(DIRECT_N, torch.float32)
+    print(f"MF3a direct at {DIRECT_N}: " + json.dumps(rep), flush=True)
+    for kind in kinds:
+        r = rep[kind]
+        if not (r["finite"] and r["acc_rel"] <= DIRECT_ACC_RTOL
+                and r["pot_rel"] <= DIRECT_POT_RTOL):
+            raise AssertionError(f"MF3a {kind}: f32 off f64: {r}")
+    del xs, ms
+
+    # MF3b. the halo and a one-body bh under direct at multistep 4
+    os.makedirs(os.path.join(wd, "bh"))
+    bf.write_case_files("bh", os.path.join(wd, "bh"), (xe, ve, me))
+    sim, d = sim_of("MF3b", bf.bh_config("out", "mf"), "bh")
+    launches, t_run = _mf_run(sim)
+    _, rep = bf.outlog_report(os.path.join(d, "out", "OUTLOG.mf"), "bh")
+    fin = _finite_buckets(sim)
+    want = _want(launches, _ms_schedule(bf.BH_M, bf.BH_NBIG,
+                                        sim._ms_runner.n_rebuilds, kicked=2))
+    times["MF3b_bigstep_ms"] = _mf_timed(sim, 2)
+    bound = _mf_bound(MF3B_CPU)
+    sim._sync_flat_state()
+    bh = sim._state["bh"]
+    rep.update(launches=launches, expected_launches=want, finite_state=fin,
+               rebuilds=sim._ms_runner.n_rebuilds, run_sec=t_run,
+               cpu=MF3B_CPU, dE_bound=bound,
+               bh_x=bh.x[bh.mass > 0].double().cpu().numpy().tolist())
+    print("MF3b halo + bh (direct) at multistep 4: " + json.dumps(rep),
+          flush=True)
+    if not (fin and rep["finite"]):
+        raise AssertionError("MF3b: non-finite state or OUTLOG")
+    if launches != want:
+        raise AssertionError(f"MF3b: launches {launches}, expected {want}")
+    if not rep["dE_rel"] < bound:
+        raise AssertionError(f"MF3b: the halo's |dEtot/Etot| = "
+                             f"{rep['dE_rel']} exceeds {bound}")
+    del sim, bh
+
+    # MF4. shells and halobulge at 2^20, the card and the CPU
+    r = np.linalg.norm(xe, axis=1)
+    sel = np.nonzero((r >= 0.05) & (r <= 9.5))[0][:MF4_PTS]
+    rp = r[sel]
+    exact = models["hernq"].get_mass(rp) / rp ** 2
+    rep = {}
+    for name in ("shells", "halobulge"):
+        res = {}
+        for where in ("cpu", "card"):
+            device = torch.device("cpu") if where == "cpu" else dev
+            force = (ShellsForce() if name == "shells" else
+                     HaloBulgeForce.from_model(models["hernq"],
+                                               device=device))
+            xt = torch.tensor(xe, dtype=torch.float32, device=device)
+            mt = torch.tensor(me, dtype=torch.float32, device=device)
+            c = force.coefficients(xt, mt)
+            a, _ = force.acceleration(c, xt[sel])
+            a = a.double().cpu().numpy()
+            aR = -(a * xe[sel]).sum(1) / rp
+            res[where] = (a, float(np.median(np.abs(aR / exact - 1.0))))
+            if where == "card":
+                res["ms"] = cuda_ms(lambda: force.acceleration(
+                    force.coefficients(xt, mt), xt), 5)
+        (ac, mc), (ag, mg) = res["cpu"], res["card"]
+        rep[name] = {"card_vs_cpu": float(np.abs(ag - ac).max()
+                                          / np.abs(ac).max()),
+                     "median_dev_card": mg, "median_dev_cpu": mc,
+                     "ms_2^20": res["ms"]}
+    rep["times"] = times
+    print("MF4 shells, halobulge at 2^20; MF1-MF3 times (host clock): "
+          + json.dumps(rep), flush=True)
+    for name in ("shells", "halobulge"):
+        q = rep[name]
+        if not (q["card_vs_cpu"] <= MF4_RTOL
+                and q["median_dev_card"] <= 1.5 * q["median_dev_cpu"] + 1e-6):
+            raise AssertionError(f"MF4 {name}: {q}")
+    work.cleanup()
+    return rows
+
+
 def sweep_path(dev, sphere_tables, disk_tables, rows):
     """Phase KS on the card: K1 and K2 ('spline' and 'hat'), K4 and K5 on
     the sphere and disk benches' samples cut to bench_kernels.SWEEP_SIZES
@@ -2708,6 +3251,7 @@ def main():
     del comp
     extras_path(dev, work.name, r4)
     work.cleanup()
+    rows += forces_path(dev, xe, ve, me)
     rows += phasestream_path(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -316,6 +316,23 @@ class SLGridSph(nn.Module):
         return cls(tens(t.pot_table), tens(t.dens_table), t.lmax, t.nmax,
                    t.numr, t.cmap, t.rmap, t.xmin, t.dxi, t.rmin, t.rmax)
 
+    @classmethod
+    def from_raw(cls, pot_table, dens_table, rmin, rmax, cmap=1, rmap=1.0,
+                 dtype=torch.float32, device="cpu") -> "SLGridSph":
+        """Build directly from (numr, lmax+1, nmax) pot/dens tables, for
+        the analytic bases (Bessel, Clutton-Brock, Hernquist) that do not
+        go through the SL solve."""
+        numr, lp1, nmax = pot_table.shape
+        xmin = float(coords.r_to_xi(rmin, cmap, rmap))
+        xmax = float(coords.r_to_xi(rmax, cmap, rmap))
+
+        def tens(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+        return cls(tens(pot_table), tens(dens_table), lp1 - 1, nmax, numr,
+                   cmap, float(rmap), xmin, (xmax - xmin) / (numr - 1),
+                   float(rmin), float(rmax))
+
     def xi_of_r(self, r):
         return coords.r_to_xi(r, self.cmap, self.rmap)
 

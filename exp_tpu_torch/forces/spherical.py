@@ -187,6 +187,10 @@ class SphereSL(nn.Module):
         return SphereSL(**kw)
 
     @property
+    def coef_shape(self):
+        return (2, self.lmax + 1, self.lmax + 1, self.nmax)
+
+    @property
     def _interp_eff(self):
         """'spline' only when the spline tables exist."""
         return self.pallas_interp if self.tabc_s is not None else "hat"

@@ -29,6 +29,15 @@ packed together and a separate int32 gather of `indx`, whichever of the
 JAX package's 'sortfull' and 'sortgather' is asked for: on the card a
 gather costs what the sort's payload would, so one engine serves both.
 
+Two-center forces and source-based (direct) forces run as in exp_tpu's
+substep: a two-center force is rebuilt each substep with the component's
+resolved center as its inner center and its COM over all buckets as its
+outer one, and projects the raw positions (it subtracts its centers
+itself); its coefficients are a pair, which `tmap` carries through the
+registers and the assembly.  A source component has no registers: every
+kick reads the positions and masses of all its buckets, the inactive ones
+at their frozen positions, as the reference's per-level force pass does.
+
 The driver's extras follow exp_tpu's substep: position wrappers
 (PeriodicBC) after each drift; external fields evaluated at the substep's
 drift time in every kick; and, from `extras_fn(t)` called once a substep
@@ -37,8 +46,7 @@ assembled set, its registers unused), Hall weights on the assembled set,
 then the restriction's `c * mask + offset`, and the non-inertial frame
 correction (`pseudo`), subtracted once a kick.
 
-Not ported, each raising NotImplementedError with its ROADMAP item:
-source-based (direct) forces and two-center forces (item 11), the
+Not ported, each raising NotImplementedError with its ROADMAP item: the
 'incremental' rebucket (item 9b.2) and the multi-device all-reduce (item
 12).
 """
@@ -73,8 +81,9 @@ def mfirst_of(ms: int, M: int) -> int:
 class CompFeats:
     """Static per-component options the substeps honour (Component.H:
     136-163): adiabatic mass ramp, rtrunc expansion cutoff, the
-    instantaneous-COM expansion frame, and source-based (direct) forces,
-    which this port refuses (ROADMAP item 11)."""
+    instantaneous-COM expansion frame.  `needs_sources` keeps exp_tpu's
+    field; the runner reads a source (direct) force's flag from the force
+    itself."""
 
     adiabatic: bool = False
     ton: float = 0.0
@@ -117,22 +126,85 @@ def _project(force, feat: CompFeats, x, mass, t, center, accum_dtype,
     return force.coefficients(xc, mw, accum_dtype=accum_dtype)
 
 
+def _project_tc(force, feat: CompFeats, x, mass, t, center, accum_dtype):
+    """Two-center projection: positions stay raw (the force subtracts its
+    own centers), the adiabatic ramp and the rtrunc cutoff about the
+    resolved inner center (None: the origin), as exp_tpu's single-rate
+    step and runner apply them."""
+    mw = mass * feat.adb(t) if feat.adiabatic else mass
+    if feat.rtrunc < 1.0e19:
+        xr = x if center is None else x - center[None, :]
+        mw = mw * (torch.sum(xr * xr, dim=-1) < feat.rtrunc ** 2).to(mw.dtype)
+    return force.coefficients(x, mw, accum_dtype=accum_dtype)
+
+
+def tmap(fn, *sets):
+    """fn over the leaves of coefficient sets: a tensor, or a tuple of
+    them (a two-center force's pair), as exp_tpu's tree_map."""
+    if isinstance(sets[0], (tuple, list)):
+        return tuple(tmap(fn, *parts) for parts in zip(*sets))
+    return fn(*sets)
+
+
+def source_names(forces):
+    """The components whose force sums over their particles as sources
+    (`needs_sources`, the direct force)."""
+    return {n for n, f in forces.items() if getattr(f, "needs_sources", False)}
+
+
+def _eff_forces(forces, state, ctr):
+    """Two-center (needs_centers) forces rebuilt with their centers: inner
+    = the component's resolved center (None: the origin), outer = its
+    instantaneous COM over all buckets (TwoCenter.cc:106-155).  Returns
+    (forces, the two-center names)."""
+    eff, tc = dict(forces), set()
+    for n, f in forces.items():
+        if not getattr(f, "needs_centers", False):
+            continue
+        tc.add(n)
+        bs = state[n]
+        x0 = bs[0].x
+        msum = sum(torch.sum(b.mass) for b in bs)
+        xsum = sum(torch.sum(b.mass[:, None] * b.x, dim=0) for b in bs)
+        c1 = (torch.zeros(3, dtype=x0.dtype, device=x0.device)
+              if ctr[n] is None else ctr[n].to(x0.dtype))
+        eff[n] = f.with_centers(c1, xsum / msum)
+    return eff, tc
+
+
+def _sources_of(bs):
+    """A source component's buckets as (x, mass) source arrays; inactive
+    buckets contribute their frozen positions, as the reference's
+    per-level force pass does."""
+    return (torch.cat([b.x for b in bs]), torch.cat([b.mass for b in bs]))
+
+
 def _accel_at(x, t, comp_couples, forces, coef_full, ctr, rots,
-              externals=(), cast=True):
+              externals=(), cast=True, tc=(), sources=None):
     """Acceleration and potential at positions x from the coupled
     components' assembled coefficients (centers and rots as in _project),
-    plus the external fields at time t.  cast: the coefficients in the
+    plus the external fields at time t.  A two-center force (in `tc`)
+    takes the raw positions; a source component (in `sources`, name ->
+    (x, mass)) sums over its particles.  cast: the coefficients in the
     positions' dtype first, as exp_tpu's runner does (its single-rate
     driver passes them as they are)."""
     acc = pot = None
+    sources = sources or {}
     for a in comp_couples:
-        xa = x if ctr[a] is None else x - ctr[a][None, :]
-        if rots[a] is not None:
-            xa = rotate(xa, rots[a])
-        cf = coef_full[a].to(x.dtype) if cast else coef_full[a]
-        aa, pp = forces[a].acceleration(cf, xa)
-        if rots[a] is not None:
-            aa = unrotate(aa, rots[a])
+        if a in sources:
+            aa, pp = forces[a].acceleration(sources[a], x)
+        elif a in tc:
+            cf = (tmap(lambda c: c.to(x.dtype), coef_full[a]) if cast
+                  else coef_full[a])
+            aa, pp = forces[a].acceleration(cf, x)
+        else:
+            xa = x if ctr[a] is None else x - ctr[a][None, :]
+            if rots[a] is not None:
+                xa = rotate(xa, rots[a])
+            cf = coef_full[a].to(x.dtype) if cast else coef_full[a]
+            aa, pp = forces[a].acceleration(cf, xa)
+            if rots[a] is not None:
+                aa = unrotate(aa, rots[a])
         acc = aa if acc is None else acc + aa
         pot = pp if pot is None else pot + pp
     return _add_externals(acc, pot, x, t, externals)
@@ -173,7 +245,7 @@ def _assemble_extras(n, tot, ex):
     from exp_tpu_torch.nbody.pca import apply_hall
 
     if n in ex["hall"]:
-        tot = apply_hall(tot, ex["hall"][n])
+        tot = tmap(lambda c: apply_hall(c, ex["hall"][n]), tot)
     if n in ex["restrict"]:
         mk, off = ex["restrict"][n]
         tot = tot * mk + off
@@ -352,31 +424,39 @@ def init_regs(forces: dict, couples: dict, state: dict, t0=0.0,
     rots = rots or {n: None for n in names}
     ex = extras or _NO_EXTRAS
     ctr = _com_centers(state, feats, centers)
+    eff, tc = _eff_forces(forces, state, ctr)
+    src = source_names(forces)
     regs, coef_full = {}, {}
     for n in names:
-        if n in ex["playback"]:
+        if n in ex["playback"] or n in src:
             z = torch.zeros((1,), dtype=state[n][0].x.dtype,
                             device=state[n][0].x.device)
             regs[n] = ([z] * len(state[n]), [z] * len(state[n]))
-            cf = ex["playback"][n]
-            if n in ex["restrict"]:
+            cf = ex["playback"].get(n, z)
+            if n in ex["playback"] and n in ex["restrict"]:
                 mk, off = ex["restrict"][n]
                 cf = cf * mk + off
             coef_full[n] = cf
             continue
-        cs = [_project(forces[n], feats[n], b.x, b.mass, t0, ctr[n],
-                       accum_dtype, rot=rots[n]) for b in state[n]]
+        if n in tc:
+            cs = [_project_tc(eff[n], feats[n], b.x, b.mass, t0, ctr[n],
+                              accum_dtype) for b in state[n]]
+        else:
+            cs = [_project(forces[n], feats[n], b.x, b.mass, t0, ctr[n],
+                           accum_dtype, rot=rots[n]) for b in state[n]]
         regs[n] = (list(cs), list(cs))
         tot = cs[0]
         for c in cs[1:]:
-            tot = tot + c
+            tot = tmap(torch.add, tot, c)
         coef_full[n] = _assemble_extras(n, tot, ex)
+    srcs = {n: _sources_of(state[n]) for n in src}
     diag = {}
     for n in names:
         if prime_accel:
             for b in state[n]:
-                acc, b.pot = _accel_at(b.x, t0, couples[n], forces,
-                                       coef_full, ctr, rots, externals)
+                acc, b.pot = _accel_at(b.x, t0, couples[n], eff, coef_full,
+                                       ctr, rots, externals, tc=tc,
+                                       sources=srcs)
                 if n in ex["pseudo"]:
                     acc = acc - _pseudo_accel(ex["pseudo"][n], b.x, b.v,
                                               ctr[n])
@@ -419,15 +499,6 @@ class MultistepRunner:
         self.rebucket_style = str(rebucket_style)
         self.externals = tuple(externals)
         self.wrappers = tuple(wrappers)
-        for n, f in forces.items():
-            if getattr(f, "needs_centers", False):
-                raise NotImplementedError(
-                    f"component {n!r}: two-center forces are not ported "
-                    "(ROADMAP item 11)")
-            if self.feats[n].needs_sources:
-                raise NotImplementedError(
-                    f"component {n!r}: source-based (direct) forces are not "
-                    "ported (ROADMAP item 11)")
         if self.rebucket_style == "incremental":
             raise NotImplementedError(
                 "rebucket_style='incremental' (the movers-only relevel) is "
@@ -524,17 +595,26 @@ class MultistepRunner:
                         b.x = wrp.wrap(b.x)
 
         ctr = _com_centers(st, self.feats, centers)
+        # two-center inner = the resolved center, outer = the COM
+        eff, tc = _eff_forces(self.forces, st, ctr)
+        src = source_names(self.forces)
 
         # registers of the active levels: L <- N, N <- new, at the time of
-        # the end of each level's own step (unused under playback)
+        # the end of each level's own step (unused under playback and for
+        # a source component)
         for n in names:
-            if n in ex["playback"]:
+            if n in ex["playback"] or n in src:
                 continue
             for l in range(mfirst, M + 1):
                 b = st[n][l]
                 t_lvl = t0 + dt * (ms + mint[l])
-                cnew = _project(self.forces[n], self.feats[n], b.x, b.mass,
-                                t_lvl, ctr[n], self.accum_dtype, rot=rots[n])
+                if n in tc:     # the force applies its centers itself
+                    cnew = _project_tc(eff[n], self.feats[n], b.x, b.mass,
+                                       t_lvl, ctr[n], self.accum_dtype)
+                else:
+                    cnew = _project(self.forces[n], self.feats[n], b.x,
+                                    b.mass, t_lvl, ctr[n], self.accum_dtype,
+                                    rot=rots[n])
                 regs[n][0][l] = regs[n][1][l]
                 regs[n][1][l] = cnew
 
@@ -542,6 +622,10 @@ class MultistepRunner:
         # playback set replaces them, then Hall and the restriction
         coef_full = {}
         for n in names:
+            if n in src:
+                coef_full[n] = torch.zeros((1,), dtype=st[n][0].x.dtype,
+                                           device=st[n][0].x.device)
+                continue
             if n in ex["playback"]:
                 tot = ex["playback"][n]
                 if n in ex["restrict"]:
@@ -552,20 +636,23 @@ class MultistepRunner:
             tot = None
             for l in range(M + 1):
                 w = ((ms % mint[l]) + 1) / mint[l]
-                c = regs[n][0][l] * (1.0 - w) + regs[n][1][l] * w
-                tot = c if tot is None else tot + c
+                c = tmap(lambda L, N: L * (1.0 - w) + N * w, regs[n][0][l],
+                         regs[n][1][l])
+                tot = c if tot is None else tmap(torch.add, tot, c)
             coef_full[n] = _assemble_extras(n, tot, ex)
 
-        # closing half-kick of the levels at their end boundary
+        # closing half-kick of the levels at their end boundary (the kicks
+        # move no position, so a source component is gathered once)
+        srcs = {n: _sources_of(st[n]) for n in src}
         for n in names:
             for l in range(M + 1):
                 if mdrft % mint[l] != 0:
                     continue
                 b = st[n][l]
                 DT = dt * mint[l]
-                acc, pot = _accel_at(b.x, t_sub, self.couples[n],
-                                     self.forces, coef_full, ctr, rots,
-                                     self.externals)
+                acc, pot = _accel_at(b.x, t_sub, self.couples[n], eff,
+                                     coef_full, ctr, rots, self.externals,
+                                     tc=tc, sources=srcs)
                 # the non-inertial frame correction, once a kick
                 # (Component.H:913-921 AddAcc)
                 if n in ex["pseudo"]:

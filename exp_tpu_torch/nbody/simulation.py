@@ -40,9 +40,14 @@ playback channel.  A tracked rotation multiplies positions by a three-term
 sum, never a matrix product that TF32 would round on the card; a
 component with no tracked center or rotation skips both.
 
-Not ported, each raising NotImplementedError with its ROADMAP item: the
-multi-process world (item 12) and the force ids bessel, CBsphere, hernq,
-direct, shells, halobulge and twocenter (item 11).
+Every force id of exp_tpu's factory is built.  A two-center force's
+coefficients are a pair, carried by `tmap` through the runner, and the
+host transfer, the NaN guard and OutCoef take the pair as exp_tpu's
+tree_map does; a source (direct) component's coefficients are a (1,)
+zero, and the components it couples to read its positions and masses.
+
+Not ported, raising NotImplementedError with its ROADMAP item: the
+multi-process world (item 12).
 """
 
 from __future__ import annotations
@@ -59,15 +64,12 @@ from exp_tpu_torch import resolve_device
 from exp_tpu_torch.config import ComponentConfig, ConfigError, RunConfig
 from exp_tpu_torch.nbody.multistep import (_NO_EXTRAS, CompFeats, _accel_at,
                                            _add_externals, _assemble_extras,
-                                           _com_centers, _project,
+                                           _com_centers, _eff_forces,
+                                           _project, _project_tc,
                                            _pseudo_accel, flatten_buckets,
-                                           rotate)
+                                           rotate, source_names)
 from exp_tpu_torch.nbody.particles import ParticleSystem, _host, read_bodies
 from exp_tpu_torch.nbody.step import _diagnostics
-
-#: the force ids of exp_tpu's factory that this port does not build yet
-_UNPORTED_FORCES = ("bessel", "CBsphere", "hernq", "direct", "shells",
-                    "halobulge", "twocenter")
 
 #: harmonic-restriction keys of the sphere and polar bases
 #: (SphericalBasis.cc:33-39; PolarBasis.cc:36-45, Cylinder.cc valid_keys)
@@ -85,15 +87,18 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 def _fetch(tree):
-    """A nested dict of tensors as the same dict of NumPy arrays, in one
-    device-to-host transfer: every leaf flattened into one f64 buffer
-    (complex leaves as their (re, im) pairs), then cut and cast back to its
-    dtype (exact: f32 -> f64 -> f32 rounds nothing)."""
+    """A nested dict (or tuple) of tensors as the same structure of NumPy
+    arrays, in one device-to-host transfer: every leaf flattened into one
+    f64 buffer (complex leaves as their (re, im) pairs), then cut and cast
+    back to its dtype (exact: f32 -> f64 -> f32 rounds nothing)."""
     leaves = []
 
     def walk(t):
         if isinstance(t, dict):
             for v in t.values():
+                walk(v)
+        elif isinstance(t, tuple):
+            for v in t:
                 walk(v)
         else:
             leaves.append(t)
@@ -118,6 +123,8 @@ def _fetch(tree):
     def build(t):
         if isinstance(t, dict):
             return {k_: build(v) for k_, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(build(v) for v in t)
         return next(it)
 
     return build(tree)
@@ -274,9 +281,79 @@ def build_force(fc, dtype, workdir=".", particles=None, device=None):
         return SlabForce.from_tables(
             t, dtype=dtype, backend=str(p.pop("backend", "einsum")),
             device=device)
-    elif fc.id in _UNPORTED_FORCES:
-        raise NotImplementedError(
-            f"force id {fc.id!r} is not ported (ROADMAP item 11)")
+    elif fc.id == "bessel":
+        from exp_tpu_torch.basis.bessel import make_bessel_force
+
+        return make_bessel_force(
+            lmax=int(p.pop("Lmax", p.pop("lmax", 4))),
+            nmax=int(p.pop("nmax", 10)),
+            rmax=float(p.pop("rmax", 1.0)),
+            numr=int(p.pop("numr", 2000)), dtype=dtype, device=device)
+    elif fc.id in ("CBsphere", "hernq"):
+        from exp_tpu_torch.basis.analytic import make_analytic_force
+
+        return make_analytic_force(
+            fc.id, lmax=int(p.pop("Lmax", p.pop("lmax", 4))),
+            nmax=int(p.pop("nmax", 10)),
+            rmin=float(p.pop("rmin", 1e-3)),
+            rmax=float(p.pop("rmax", 50.0)),
+            numr=int(p.pop("numr", 2000)),
+            scale=float(p.pop("scale", 1.0)), dtype=dtype,
+            backend=str(p.pop("backend", "matmul")), device=device)
+    elif fc.id == "direct":
+        from exp_tpu_torch.forces.direct import DirectForce
+
+        # reference defaults to the SplineSoft kernel when `type` is
+        # absent (src/Direct.cc:88-93)
+        kernel = str(p.pop("type", "Spline")).lower()
+        kw = dict(eps=float(p.pop("soft", p.pop("eps", 1e-4))),
+                  kernel="spline" if kernel.startswith("spline")
+                  else "plummer",
+                  mn_model=bool(p.pop("mn_model", False)),
+                  a=float(p.pop("a", 1.0)), b=float(p.pop("b", 0.1)))
+        if p.pop("pm_model", False):
+            from exp_tpu_torch.basis.model import SphericalModelTable
+
+            # the path as given, as exp_tpu reads it (not under workdir)
+            model = SphericalModelTable.from_file(
+                str(p.pop("pmmodel_file", "SLGridSph.model")))
+            return DirectForce.with_pm_model(model, device=device, **kw)
+        return DirectForce(**kw).to(device)
+    elif fc.id == "shells":
+        from exp_tpu_torch.forces.shells import ShellsForce
+
+        return ShellsForce(rmax=float(p.pop("rmax", 10.0)),
+                           nbins=int(p.pop("nbins", 256)))
+    elif fc.id == "halobulge":
+        from exp_tpu_torch.basis.model import SphericalModelTable
+        from exp_tpu_torch.forces.shells import HaloBulgeForce
+
+        model = SphericalModelTable.from_file(
+            os.path.join(workdir, p.pop("modelname")))
+        return HaloBulgeForce.from_model(model, dtype=dtype, device=device)
+    elif fc.id == "twocenter":
+        from exp_tpu_torch.config import ForceConfig
+        from exp_tpu_torch.forces.twocenter import TwoCenterForce
+
+        cfac = float(p.pop("cfac", 1.0))
+        alpha = float(p.pop("alpha", 1.0))
+        inner_cfg = p.pop("inner", None)
+        outer_cfg = p.pop("outer", None)
+        base_id = p.pop("basis", "sphereSL")
+        base_params = p.pop("parameters", dict(p))
+
+        def mk(cfg):
+            if cfg is None:
+                cfg = {"id": base_id, "parameters": base_params}
+            return build_force(
+                ForceConfig(id=cfg.get("id", base_id),
+                            parameters=dict(cfg.get("parameters",
+                                                    base_params))),
+                dtype, workdir, particles=particles, device=device)
+
+        zero = torch.zeros(3, dtype=dtype, device=device)
+        return TwoCenterForce(inner=mk(inner_cfg), outer=mk(outer_cfg),
+                              c1=zero, c2=zero, cfac=cfac, alpha=alpha)
     raise ConfigError(f"force id {fc.id!r} not implemented yet")
 
 
@@ -687,8 +764,11 @@ class Simulation:
         forces = {n: c.force for n, c in self.components.items()}
         centers = centers or {}
         rots = rots or {n: None for n in state}
-        ctr = _com_centers({n: [ps] for n, ps in state.items()}, feats,
-                           centers)
+        bs = {n: [ps] for n, ps in state.items()}
+        ctr = _com_centers(bs, feats, centers)
+        # two-center forces: inner = the resolved center, outer = the COM
+        eff, tc = _eff_forces(forces, bs, ctr)
+        src = source_names(forces)
         coefs = {}
         for n, ps in state.items():
             if n in ex["playback"]:
@@ -697,14 +777,22 @@ class Simulation:
                     mk, off = ex["restrict"][n]
                     cf = cf * mk + off
                 coefs[n] = cf
+            elif n in src:
+                coefs[n] = torch.zeros((1,), dtype=ps.x.dtype,
+                                       device=ps.x.device)
+            elif n in tc:
+                coefs[n] = _assemble_extras(n, _project_tc(
+                    eff[n], feats[n], ps.x, ps.mass, t, ctr[n],
+                    self.accum_dtype), ex)
             else:
                 coefs[n] = _assemble_extras(n, _project(
                     forces[n], feats[n], ps.x, ps.mass, t, ctr[n],
                     self.accum_dtype, rot=rots[n]), ex)
+        srcs = {n: (state[n].x, state[n].mass) for n in src}
         accs, pots = {}, {}
         for n, ps in state.items():
-            acc, pot = _accel_at(ps.x, t, self.couples[n], forces, coefs,
-                                 ctr, rots, cast=False)
+            acc, pot = _accel_at(ps.x, t, self.couples[n], eff, coefs,
+                                 ctr, rots, cast=False, tc=tc, sources=srcs)
             # non-inertial expansion-frame correction: subtracted from
             # self-gravity (AddAcc, Component.H:913-921) BEFORE externals
             # are added (AddAccExt applies no correction)
@@ -1051,7 +1139,8 @@ class Simulation:
                 _dump_and_raise(n, f"diagnostics (KE={ke}, PE={pe})")
         if self._coefs is not None:
             for n, c in self._coefs.items():
-                if not np.isfinite(_host(c)).all():
+                parts = c if isinstance(c, tuple) else (c,)
+                if not all(np.isfinite(_host(a)).all() for a in parts):
                     _dump_and_raise(n, "coefficients")
 
     def _ms_sanity_check(self):

@@ -7,6 +7,7 @@ index as the LEADING axis, so a per-particle lookup is a row gather.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -47,3 +48,24 @@ def lerp_and_deriv3(table, x, xmin: float, dx: float):
                       f0 * (1.0 - w) + fp * w)
     der = ((w - 0.5) * fm - 2.0 * w * f0 + (w + 0.5) * fp) / dx
     return val, der
+
+
+def interp(x, xp, fp, left=None, right=None):
+    """Piecewise-linear interpolation of (xp, fp) at x on the device, as
+    jnp.interp computes it: x and xp in their common dtype, the differences
+    of fp in fp's own dtype; `left`/`right` (default fp[0]/fp[-1]) below
+    xp[0] and above xp[-1]."""
+    dt = torch.promote_types(x.dtype, xp.dtype)
+    x, xp = x.to(dt), xp.to(dt)
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.shape[0] - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    dx0 = torch.abs(dx) <= float(np.spacing(np.finfo(
+        str(dt).replace("torch.", "")).eps))
+    f = torch.where(dx0, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    lo = fp[0] if left is None else left
+    hi = fp[-1] if right is None else right
+    f = torch.where(x < xp[0], lo, f)
+    return torch.where(x > xp[-1], hi, f)

@@ -11,9 +11,12 @@ OUTLOG to its printed digits (TEXT8).
 """
 
 
+import jax
 import numpy as np
 import pytest
 import torch
+from jax.experimental.compilation_cache import compilation_cache
+from threadpoolctl import threadpool_limits
 
 import jax.numpy as jnp
 from exp_tpu.nbody import centering as J
@@ -21,6 +24,26 @@ from exp_tpu.nbody.simulation import Simulation as JSim
 from exp_tpu_torch.nbody import centering as T
 from exp_tpu_torch.nbody.simulation import Simulation as TSim
 from test_torch_simulation import F64, TEXT8, close, configs, table
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """numpy's and scipy's BLAS and torch at one thread while this module
+    runs: several test workers share the CPUs, and a BLAS call at eight
+    spinning threads a worker runs tens of times slower there than alone.
+    The old limits come back at the end of the module.  JAX's persistent
+    compilation cache, a directory every worker reads and writes without
+    a lock, is off meanwhile (ROADMAP §3, F1)."""
+    n, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
+    torch.set_num_threads(1)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+    jax.config.update("jax_enable_compilation_cache", cache)
+    compilation_cache.reset_cache()
+
 
 F64T = torch.float64
 

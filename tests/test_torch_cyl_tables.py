@@ -6,10 +6,13 @@ the cylinder kernels (resampling, contractions)."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.compilation_cache import compilation_cache
+from threadpoolctl import threadpool_limits
 
 from exp_tpu.basis.empcyl import EmpCylTables as JEmpCylTables
 from exp_tpu.basis.empcyl import build_empcyl_tables as j_build
@@ -31,7 +34,25 @@ from exp_tpu_torch.ic.disk import disk_velocities, sample_exponential_disk
 from exp_tpu_torch.ops import cyl_kernels as ck
 from exp_tpu_torch.ops.spline import prefilter_x
 
-torch.set_num_threads(1)
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """numpy's and scipy's BLAS and torch at one thread while this module
+    runs: several test workers share the CPUs, and a BLAS call at eight
+    spinning threads a worker runs tens of times slower there than alone.
+    The old limits come back at the end of the module.  JAX's persistent
+    compilation cache, a directory every worker reads and writes without
+    a lock, is off meanwhile (ROADMAP §3, F1)."""
+    n, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
+    torch.set_num_threads(1)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+    jax.config.update("jax_enable_compilation_cache", cache)
+    compilation_cache.reset_cache()
+
 
 EOF_KW = dict(mmax=4, nmax=8, lmaxfid=24, nmaxfid=16, acyl=0.01, hcyl=0.002,
               numx=128, numy=64, rnum=100, tnum=40, cachename=None)

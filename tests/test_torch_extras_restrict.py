@@ -6,8 +6,12 @@ largest value), the restricted channels exactly 0 and the FIX_L0 monopole
 constant bit for bit, as exp_tpu's own test holds them.
 """
 
+
+import jax
 import numpy as np
 import pytest
+from jax.experimental.compilation_cache import compilation_cache
+from threadpoolctl import threadpool_limits
 
 from exp_tpu.basis.model import hernquist_model
 from exp_tpu.ic.eddington import sample_spherical_model
@@ -16,6 +20,26 @@ from exp_tpu.nbody.simulation import Simulation as JSim
 from exp_tpu_torch.analysis.coefs import Coefs
 from exp_tpu_torch.nbody.simulation import Simulation as TSim
 from test_torch_simulation import F64, close, configs
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """numpy's and scipy's BLAS and torch at one thread while this module
+    runs: several test workers share the CPUs, and a BLAS call at eight
+    spinning threads a worker runs tens of times slower there than alone.
+    The old limits come back at the end of the module.  JAX's persistent
+    compilation cache, a directory every worker reads and writes without
+    a lock, is off meanwhile (ROADMAP §3, F1)."""
+    n, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
+    torch.set_num_threads(1)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+    jax.config.update("jax_enable_compilation_cache", cache)
+    compilation_cache.reset_cache()
 
 
 @pytest.fixture(scope="module")

@@ -1337,3 +1337,100 @@ def test_driver_on_card_matches_cpu(cuda, tmp_path, multistep):
         counts = [s._ms_runner.level_counts(s._ms_state)
                   for s in sims.values()]
         assert counts[0] == counts[1]
+
+
+# ---------------------------------------------------------------------------
+# the remaining forces: the analytic bases and twocenter on K1 / K2, and
+# the direct sum in f32 against f64
+# ---------------------------------------------------------------------------
+
+def _analytic(cuda, kind):
+    from exp_tpu_torch.basis.analytic import make_analytic_force
+
+    return make_analytic_force(kind, 4, 10, rmin=1e-3, rmax=50.0, numr=2000,
+                               backend="pallas", device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["hernq", "CBsphere"])
+def test_analytic_bases_on_k1_k2(cuda, kind):
+    """hernq and CBsphere on the pallas backend (cmap 1 tables): K1 and K2
+    against their plain versions at test_kernels_match_plain_versions'
+    tolerances, and the force's own passes launch them."""
+    f = _analytic(cuda, kind)
+    prm = f._kernel_params()
+    assert prm.cmap == 1 and f._harmonics_eff("coef") == "poly"
+    x, m = _inputs(cuda)
+    c0 = sk.sphere_coef_plain(x, m, f.tabc_s, f.Mp, prm)
+    before = dict(sk.launch_counts)
+    c = f.coefficients(x, m)
+    torch.cuda.synchronize()
+    assert float((c - c0).abs().max() / c0.abs().max()) < 1e-5
+    a, p = f.acceleration(c0, x)
+    a0, p0 = sk.sphere_accel_plain(x, f.accel_table(c0), f.fac32, prm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(a, a0, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(p, p0, rtol=1e-5, atol=1e-7)
+    assert sk.launch_counts["sphere_coef"] == before["sphere_coef"] + 1
+    assert sk.launch_counts["sphere_accel"] == before["sphere_accel"] + 1
+
+
+@pytest.mark.gpu
+def test_twocenter_pair_on_k1_k2(cuda):
+    """TwoCenterForce over two pallas hernq expansions: each of the pair of
+    coefficient sets and the summed field against the plain versions on
+    the reweighted, recentered inputs; two launches of each kernel."""
+    from exp_tpu_torch.forces.twocenter import TwoCenterForce
+
+    x, m = _inputs(cuda)
+    c1 = torch.tensor([1.5, 0.0, 0.0], device=cuda)
+    c2 = torch.tensor([0.2, 0.1, 0.0], device=cuda)
+    tc = TwoCenterForce(inner=_analytic(cuda, "hernq"),
+                        outer=_analytic(cuda, "hernq"), c1=c1, c2=c2,
+                        alpha=2.0)
+    before = dict(sk.launch_counts)
+    pair = tc.coefficients(x, m)
+    a, p = tc.acceleration(pair, x)
+    torch.cuda.synchronize()
+    assert sk.launch_counts["sphere_coef"] == before["sphere_coef"] + 2
+    assert sk.launch_counts["sphere_accel"] == before["sphere_accel"] + 2
+    mix = tc.mixture(x)
+    a_sum = p_sum = 0.0
+    for f, c, cen, w in ((tc.inner, pair[0], c1, 1 - mix),
+                         (tc.outer, pair[1], c2, mix)):
+        prm = f._kernel_params()
+        xc = (x - cen).contiguous()
+        c0 = sk.sphere_coef_plain(xc, (m * w).contiguous(), f.tabc_s, f.Mp,
+                                  prm)
+        assert float((c - c0).abs().max() / c0.abs().max()) < 1e-5
+        a0, p0 = sk.sphere_accel_plain(xc, f.accel_table(c), f.fac32, prm)
+        a_sum, p_sum = a_sum + a0, p_sum + p0
+    torch.testing.assert_close(a, a_sum, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(p, p_sum, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["plummer", "spline", "mn", "pm"])
+def test_direct_f32_matches_f64(cuda, kind):
+    """DirectForce at 65,536 bodies on the card, f32 against f64: max|da| /
+    max|a| < 1e-4 and max|dpot| / max|pot| < 1e-5 (chip_smoke.py's
+    DIRECT_* tolerances), with the default 1 GiB temporary cap."""
+    from exp_tpu_torch.basis.model import plummer_model
+    from exp_tpu_torch.forces.direct import DirectForce
+
+    kw = {"plummer": dict(eps=0.01, kernel="plummer"),
+          "spline": dict(eps=0.05, kernel="spline"),
+          "mn": dict(mn_model=True, a=0.8, b=0.2),
+          "pm": dict(eps=1e-3, kernel="plummer")}[kind]
+    x, _, m = hernquist_sample_np(65_536, seed=3)
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        f = (DirectForce.with_pm_model(
+            plummer_model(a=0.5, M=1.0, rmin=1e-3, rmax=5.0), device=cuda,
+            **kw) if kind == "pm" else DirectForce(**kw).to(cuda))
+        xs = torch.tensor(x, dtype=dt, device=cuda)
+        ms = torch.tensor(m, dtype=dt, device=cuda)
+        out[dt] = f.acceleration(f.coefficients(xs, ms), xs)
+    (a32, p32), (a64, p64) = out[torch.float32], out[torch.float64]
+    assert float((a32.double() - a64).abs().max() / a64.abs().max()) < 1e-4
+    assert float((p32.double() - p64).abs().max() / p64.abs().max()) < 1e-5

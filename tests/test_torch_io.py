@@ -6,9 +6,12 @@ values, and each package opening the other's files."""
 import struct
 
 import h5py
+import jax
 import numpy as np
 import pytest
 import torch
+from jax.experimental.compilation_cache import compilation_cache
+from threadpoolctl import threadpool_limits
 
 import exp_tpu.io.coefs as jc
 import exp_tpu.io.psp as jp
@@ -16,6 +19,25 @@ import exp_tpu.nbody.particles as jpart
 import exp_tpu_torch.io.coefs as tc
 import exp_tpu_torch.io.psp as tp
 import exp_tpu_torch.nbody.particles as tpart
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """numpy's and scipy's BLAS and torch at one thread while this module
+    runs: several test workers share the CPUs, and a BLAS call at eight
+    spinning threads a worker runs tens of times slower there than alone.
+    The old limits come back at the end of the module.  JAX's persistent
+    compilation cache, a directory every worker reads and writes without
+    a lock, is off meanwhile (ROADMAP §3, F1)."""
+    n, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
+    torch.set_num_threads(1)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+    jax.config.update("jax_enable_compilation_cache", cache)
+    compilation_cache.reset_cache()
 
 
 def _dump(mod, n=100, ncomp=2, seed=0, time=1.25, octant=False):

@@ -7,12 +7,36 @@ split probes' patches against the kernels' sources."""
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
+from jax.experimental.compilation_cache import compilation_cache
+from threadpoolctl import threadpool_limits
 
 from exp_tpu_torch.ops import cyl_kernels as ck
 from exp_tpu_torch.ops import sphere_kernels as sk
 from exp_tpu_torch.ops.solidharm import monomial_exponents
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """numpy's and scipy's BLAS and torch at one thread while this module
+    runs: several test workers share the CPUs, and a BLAS call at eight
+    spinning threads a worker runs tens of times slower there than alone.
+    The old limits come back at the end of the module.  JAX's persistent
+    compilation cache, a directory every worker reads and writes without
+    a lock, is off meanwhile (ROADMAP §3, F1)."""
+    n, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
+    torch.set_num_threads(1)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+    jax.config.update("jax_enable_compilation_cache", cache)
+    compilation_cache.reset_cache()
+
 
 H100 = (132, 232_448, 233_472)
 SMALL = (46, 101_376, 102_400)

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import Mesh
+from jax.experimental.compilation_cache import compilation_cache
+from threadpoolctl import threadpool_limits
 
 from exp_tpu.basis.model import hernquist_model
 from exp_tpu.basis.slgrid import build_sph_sl_tables
@@ -39,7 +41,25 @@ from exp_tpu_torch.nbody.multistep import (CompFeats, LevelBuckets,
 from exp_tpu_torch.nbody.particles import ParticleSystem
 from exp_tpu_torch.nbody.step import energies, init_force_state, make_kdk_step
 
-torch.set_num_threads(1)
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """numpy's and scipy's BLAS and torch at one thread while this module
+    runs: several test workers share the CPUs, and a BLAS call at eight
+    spinning threads a worker runs tens of times slower there than alone.
+    The old limits come back at the end of the module.  JAX's persistent
+    compilation cache, a directory every worker reads and writes without
+    a lock, is off meanwhile (ROADMAP §3, F1)."""
+    n, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
+    torch.set_num_threads(1)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+    jax.config.update("jax_enable_compilation_cache", cache)
+    compilation_cache.reset_cache()
+
 
 F64 = torch.float64
 DYN = {"dynfracV": 0.01, "dynfracA": 0.03}
@@ -402,21 +422,13 @@ def test_indx_stays_int32_and_overflow_falls_back(setup):
 
 
 def test_unported_features_raise(setup):
-    """Two-center and source-based forces (item 11) and the incremental
-    rebucket (item 9b.2) raise; external fields, position wrappers and the
-    playback/Hall/restriction/pseudo extras are accepted (item 10b)."""
+    """The incremental rebucket (item 9b.2) raises; external fields,
+    position wrappers and the playback/Hall/restriction/pseudo extras are
+    accepted (item 10b)."""
     from exp_tpu_torch.forces.external import PeriodicBC, UserLogPot
 
     _, force, x, v, mass = setup
 
-    class TwoCenter:
-        needs_centers = True
-
-    with pytest.raises(NotImplementedError, match="item 11"):
-        MultistepRunner({"h": TwoCenter()}, {"h": ["h"]}, 2e-3, 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        MultistepRunner({"h": force}, {"h": ["h"]}, 2e-3, 2,
-                        feats={"h": CompFeats(needs_sources=True)})
     with pytest.raises(NotImplementedError, match="item 9b.2"):
         MultistepRunner({"h": force}, {"h": ["h"]}, 2e-3, 2,
                         rebucket_style="incremental")

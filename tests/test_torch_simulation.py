@@ -24,9 +24,12 @@ Each flow runs both drivers on one config, written twice with its own
 
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
+from jax.experimental.compilation_cache import compilation_cache
+from threadpoolctl import threadpool_limits
 
 from exp_tpu.basis.model import hernquist_model
 from exp_tpu.config import ConfigError as JConfigError
@@ -35,6 +38,26 @@ from exp_tpu.nbody.particles import write_ascii_bodies
 from exp_tpu.nbody.simulation import Simulation as JSim
 from exp_tpu_torch.config import ConfigError
 from exp_tpu_torch.nbody.simulation import Simulation as TSim
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """numpy's and scipy's BLAS and torch at one thread while this module
+    runs: several test workers share the CPUs, and a BLAS call at eight
+    spinning threads a worker runs tens of times slower there than alone.
+    The old limits come back at the end of the module.  JAX's persistent
+    compilation cache, a directory every worker reads and writes without
+    a lock, is off meanwhile (ROADMAP §3, F1)."""
+    n, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
+    torch.set_num_threads(1)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+    jax.config.update("jax_enable_compilation_cache", cache)
+    compilation_cache.reset_cache()
+
 
 F64 = 1e-10
 TEXT8, TEXT6 = 2e-7, 2e-5
@@ -673,6 +696,17 @@ FORCES = {
                          "numr: 400, modelname: 'hernquist:a=1,M=1'}"),
     "sphereSL_gather": ("sphereSL", "halo", "{Lmax: 2, nmax: 6, numr: 400, "
                         "modelname: halo.model, backend: gather}"),
+    "bessel": ("bessel", "halo", "{Lmax: 2, nmax: 6, rmax: 25.0, numr: 400}"),
+    "CBsphere": ("CBsphere", "halo", "{Lmax: 2, nmax: 6, numr: 400, "
+                 "rmax: 30.0}"),
+    "hernq": ("hernq", "halo", "{Lmax: 2, nmax: 6, numr: 400, rmax: 30.0, "
+              "scale: 1.2}"),
+    "direct": ("direct", "halo", "{type: Plummer, soft: 0.01}"),
+    "shells": ("shells", "halo", "{rmax: 20.0, nbins: 64}"),
+    "halobulge": ("halobulge", "halo", "{modelname: halo.model}"),
+    "twocenter": ("twocenter", "halo", "{basis: sphereSL, cfac: 1.0, "
+                  "alpha: 2.0, parameters: {numr: 400, Lmax: 2, nmax: 6, "
+                  "rmapping: 1.0, modelname: halo.model}}"),
 }
 
 
@@ -680,7 +714,8 @@ FORCES = {
 def test_force_ids_match(rundir, case):
     """build_force's other ids through both drivers: 3 KDK steps in f64,
     coefficients and state to F64 (tables on the host in f64 on both
-    sides)."""
+    sides); a twocenter's coefficients are its (inner, outer) pair, a
+    direct component's a (1,) zero."""
     fid, kind, params = FORCES[case]
     txt = f"""\
 Global:
@@ -699,7 +734,7 @@ Output:
     parameters: {{nint: 1}}
 """
     sj, st = both(rundir, f"f_{case}", txt)
-    ct, cj = st._coefs["c"], np.asarray(sj._coefs["c"])
+    ct, cj = np.asarray(st._coefs["c"]), np.asarray(sj._coefs["c"])
     assert ct.shape == cj.shape
     close(ct, cj, F64)
     for a, b in zip(state(st, "c"), state(sj, "c")):
@@ -835,19 +870,12 @@ def _host_c(sim, frozen=False):
 REFUSED = {
     "outvel": ("out", "  - id: outvel\n    parameters: {nint: 2}\n"),
 }
-REFUSED.update({f: ("id", f) for f in ("bessel", "CBsphere", "hernq",
-                                       "direct", "shells", "halobulge",
-                                       "twocenter")})
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_unported_features_raise(rundir, case):
     where, what = REFUSED[case]
-    txt = CONFIG
-    if where == "out":
-        txt = txt + what
-    else:
-        txt = txt.replace("id: sphereSL", f"id: {what}")
+    txt = CONFIG + what
     p = configs(rundir, f"ref_{case}", txt)[1]
     with pytest.raises(NotImplementedError, match="ROADMAP item 1[0-9]"):
         TSim.from_file(p, device="cpu")

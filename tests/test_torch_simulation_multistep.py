@@ -12,9 +12,13 @@ test's own tolerance (x rtol 1e-7, v rtol 1e-6, atol 1e-10) and the flat
 run to exp_tpu's flat run at F64.
 """
 
+
+import jax
 import numpy as np
 import pytest
 import torch
+from jax.experimental.compilation_cache import compilation_cache
+from threadpoolctl import threadpool_limits
 
 from exp_tpu.basis.model import hernquist_model
 from exp_tpu.ic.eddington import sample_spherical_model
@@ -23,6 +27,26 @@ from exp_tpu.nbody.simulation import Simulation as JSim
 from exp_tpu_torch.nbody.simulation import Simulation as TSim
 from test_torch_simulation import (CONFIG, F64, TEXT8, close, configs, f64,
                                    logs)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """numpy's and scipy's BLAS and torch at one thread while this module
+    runs: several test workers share the CPUs, and a BLAS call at eight
+    spinning threads a worker runs tens of times slower there than alone.
+    The old limits come back at the end of the module.  JAX's persistent
+    compilation cache, a directory every worker reads and writes without
+    a lock, is off meanwhile (ROADMAP §3, F1)."""
+    n, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
+    torch.set_num_threads(1)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+    jax.config.update("jax_enable_compilation_cache", cache)
+    compilation_cache.reset_cache()
+
 
 MS = f64(CONFIG).replace("runtag: trun", "runtag: trun\n  multistep: 2\n"
                          "  dynfracV: 0.05\n  dynfracA: 0.05\n  nrelevel: 2"
@@ -248,3 +272,144 @@ def test_fused_bigstep_runs_the_same_loop(rundir):
     for u, w in zip(by_id(a), by_id(b)):
         np.testing.assert_array_equal(u, w)
     assert torch.equal(a._state["halo"].x, b._state["halo"].x)
+
+
+# ---------------------------------------------------------------------------
+# the forces the runner once refused: two-center and source (direct)
+# components, both drivers on the same YAML in f64
+# ---------------------------------------------------------------------------
+
+TWOCENTER = """\
+    force:
+      id: twocenter
+      parameters:
+        basis: sphereSL
+        cfac: 1.0
+        alpha: 1.0
+        parameters: {numr: 600, Lmax: 2, nmax: 6, rmapping: 1.0,
+                      modelname: sys.model}
+"""
+
+
+def _system_files(rundir):
+    """sys.bods: the halo's 3,000 bodies and a satellite clump (a 0.3,
+    M 0.3, 600 bodies) at (3, 0, 0), tests/test_twocenter.py's host +
+    satellite at a smaller count; sys.model its basis model; bh.bods one
+    body of mass 0.01 on a near-circular orbit at r = 0.5."""
+    if (rundir / "sys.bods").exists():
+        return
+    mh = hernquist_model(rmin=1e-4, rmax=20.0, numr=1000)
+    xh, vh, mass_h = sample_spherical_model(mh, 3000, seed=11)
+    ms = hernquist_model(a=0.3, M=0.3, rmin=1e-4, rmax=6.0, numr=600)
+    xs, vs, mass_s = sample_spherical_model(ms, 600, seed=12)
+    write_ascii_bodies(rundir / "sys.bods", (
+        np.concatenate([xh, xs + np.array([3.0, 0.0, 0.0])]),
+        np.concatenate([vh, vs]), np.concatenate([mass_h, mass_s])))
+    hernquist_model(rmin=1e-4, rmax=30.0, numr=800).to_file(
+        rundir / "sys.model")
+    write_ascii_bodies(rundir / "bh.bods", (np.array([[0.5, 0.0, 0.0]]),
+                                            np.array([[0.0, 0.47, 0.0]]),
+                                            np.array([0.01])))
+
+
+def _tc_cfg(multistep, comp_params, pinned=False):
+    glob = f"  multistep: {multistep}\n"
+    if pinned:
+        glob += ("  dynfracV: 1.0e30\n  dynfracA: 1.0e30\n"
+                 "  dynfracP: 1.0e30\n")
+    return f"""\
+Global:
+  dtime: 0.02
+  nsteps: 4
+  runtag: trun
+  compute_dtype: float64
+{glob}Components:
+  - name: sys
+    bodyfile: sys.bods
+    parameters: {comp_params}
+{TWOCENTER}Output:
+  - id: outlog
+    parameters: {{nint: 1}}
+"""
+
+
+def test_twocenter_multistep_matches_exp_tpu(rundir):
+    """tests/test_twocenter.py:85 at M=2: the EJ-tracked center drives the
+    inner expansion, the COM the outer; both drivers for 4 big steps, the
+    state to F64 by id and OUTLOG to its printed digits."""
+    _system_files(rundir)
+    pj, pt = configs(rundir, "tc_ms", _tc_cfg(
+        2, "{EJ: 2, nEJkeep: 512, EJwindow: 4}"))
+    sj, st = JSim.from_file(pj), TSim.from_file(pt, device="cpu")
+    for s in (sj, st):
+        s.run()
+    lj, lt = logs(rundir, "tc_ms")
+    assert lt.shape == lj.shape
+    close(lt, lj, TEXT8, atol=1e-14)
+    for a, b in zip(by_id(st, "sys"), by_id(sj, "sys")):
+        close(a, b, F64)
+    ke = float(np.asarray(st._diag["sys"]["KE"]))
+    assert np.isfinite(ke) and ke > 0
+
+
+def test_twocenter_multistep_equals_flat(rundir):
+    """tests/test_twocenter.py:121 on the port: M=2 with every particle at
+    level 0, com and rtrunc, equals flat stepping at the JAX test's
+    tolerance (x rtol 1e-7, v rtol 1e-6); the port's flat run equals
+    exp_tpu's (F64)."""
+    _system_files(rundir)
+    feats = "{com: true, rtrunc: 8.0}"
+    ms = TSim.from_file(configs(rundir, "tcp_ms", _tc_cfg(2, feats, True))[1],
+                        device="cpu")
+    ms.run()
+    assert ms._ms_runner.level_counts(ms._ms_state)["sys"][0] == 3600
+    pj, pt = configs(rundir, "tcp_flat", _tc_cfg(0, feats))
+    flat = TSim.from_file(pt, device="cpu", steps_per_block=1)
+    jflat = JSim.from_file(pj, steps_per_block=1)
+    for s in (flat, jflat):
+        s.prime()
+        s.run()
+    _, xm, vm = by_id(ms, "sys")
+    _, xf, vf = by_id(flat, "sys")
+    np.testing.assert_allclose(xm, xf, rtol=1e-7, atol=1e-10)
+    np.testing.assert_allclose(vm, vf, rtol=1e-6, atol=1e-9)
+    for a, b in zip(by_id(flat, "sys"), by_id(jflat, "sys")):
+        close(a, b, F64)
+
+
+def test_direct_component_multistep_matches_exp_tpu(rundir):
+    """A halo (sphereSL) and a one-body `smbh` component under `direct`
+    (plummer, soft 0.01), coupled both ways, at M=2 with live levels: the
+    runner's source path (every kick reads the body's position and mass).
+    Both drivers for 4 big steps: both components' states to F64 and
+    OUTLOG to its printed digits.  (The names sort in config order:
+    exp_tpu writes OUTLOG's sections in sorted-name order, ROADMAP §3.)"""
+    _system_files(rundir)
+    txt = f64(CONFIG).replace("nsteps: 20", "nsteps: 4").replace(
+        "runtag: trun", "runtag: trun\n  multistep: 2\n  dynfracV: 0.05\n"
+        "  dynfracA: 0.05").replace(
+        "  - id: outcoef\n    parameters: {nint: 2, name: halo}\n", "")
+    txt = txt.replace("  - id: outchkpt\n    parameters: {nint: 10}\n", "")
+    txt = txt.replace("Output:", """\
+  - name: smbh
+    bodyfile: bh.bods
+    force:
+      id: direct
+      parameters: {type: Plummer, soft: 0.01}
+Interaction:
+  - halo: smbh
+  - smbh: halo
+Output:""")
+    pj, pt = configs(rundir, "bh_ms", txt)
+    sj, st = JSim.from_file(pj), TSim.from_file(pt, device="cpu")
+    for s in (sj, st):
+        s.run()
+    assert st.couples == {"halo": ["halo", "smbh"],
+                          "smbh": ["smbh", "halo"]}
+    lj, lt = logs(rundir, "bh_ms")
+    assert lt.shape == lj.shape
+    close(lt, lj, TEXT8, atol=1e-14)
+    for name in ("halo", "smbh"):
+        for a, b in zip(by_id(st, name), by_id(sj, name)):
+            close(a, b, F64)
+    assert st._coefs["smbh"].shape == (1,)

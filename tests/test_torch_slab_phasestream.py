@@ -6,19 +6,41 @@ the plain version against the JAX kernel in interpret mode on the same bf16
 table, the two producers against each other, and both passes against the
 f64 reference."""
 
+
 import importlib.util
 import os
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.compilation_cache import compilation_cache
+from threadpoolctl import threadpool_limits
 
 from exp_tpu_torch import probe_slab_phasestream as probe
 from exp_tpu_torch.ops import slab_kernels as sk
 
-torch.set_num_threads(1)
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """numpy's and scipy's BLAS and torch at one thread while this module
+    runs: several test workers share the CPUs, and a BLAS call at eight
+    spinning threads a worker runs tens of times slower there than alone.
+    The old limits come back at the end of the module.  JAX's persistent
+    compilation cache, a directory every worker reads and writes without
+    a lock, is off meanwhile (ROADMAP §3, F1)."""
+    n, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
+    torch.set_num_threads(1)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+    jax.config.update("jax_enable_compilation_cache", cache)
+    compilation_cache.reset_cache()
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 N = 4096          # a multiple of the JAX kernel's BLOCK (1024)

@@ -6,10 +6,14 @@ versions).  The step needs no change for the slab: its coefficients are
 complex, as the cube's are, and the step's diagnostics read only real
 tensors."""
 
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.compilation_cache import compilation_cache
+from threadpoolctl import threadpool_limits
 
 from exp_tpu.basis.slab import build_slab_tables as j_build
 from exp_tpu.cli.genslab import main as genslab
@@ -29,7 +33,25 @@ from exp_tpu_torch.ic.slab import sample_slab
 from exp_tpu_torch.nbody.particles import ParticleSystem
 from exp_tpu_torch.nbody.step import energies, init_force_state, make_kdk_step
 
-torch.set_num_threads(1)
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_cpu_thread():
+    """numpy's and scipy's BLAS and torch at one thread while this module
+    runs: several test workers share the CPUs, and a BLAS call at eight
+    spinning threads a worker runs tens of times slower there than alone.
+    The old limits come back at the end of the module.  JAX's persistent
+    compilation cache, a directory every worker reads and writes without
+    a lock, is off meanwhile (ROADMAP §3, F1)."""
+    n, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
+    torch.set_num_threads(1)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
+    jax.config.update("jax_enable_compilation_cache", cache)
+    compilation_cache.reset_cache()
+
 
 STEPS = 5
 STEP_DT = 0.002
