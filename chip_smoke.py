@@ -43,7 +43,10 @@ from run configs, with and without its extras:
     and K5, and single-rate on the sphere path's sample, through K1 and K2;
   the remaining forces: hernq, CBsphere and twocenter through K1 and K2
     from run configs, and bessel, direct, shells and halobulge (plain
-    torch, no TPU kernel) at the same sizes.
+    torch, no TPU kernel) at the same sizes;
+  the multistep relevel's movers-only style, the composite's energy bars
+    and the multi-rank runs (a one-rank NCCL world, two ranks on the
+    card), through K1, K2, K4 and K5.
 
 Phases:
 
@@ -174,13 +177,41 @@ Phases:
      launches the schedule's and the halo's |dE/E| against a CPU run;
   MF4. shells and halobulge at 2^20 on the card against the same on the
      CPU and the model's M(<r)/r^2; MF1-MF3's step times (host clock);
+  RI1. the composite from CM1's ICs, 10 big steps with a relevel each
+     under rebucket_style 'incremental' and under 'sortfull': in lockstep
+     each relevel both ways from one state, the live sets bucket by
+     bucket, each particle's x, v, acc, pot bit for bit and the rebuilt
+     registers gated; launches the schedule's; n_compactions and
+     relevel_ms both ways; K1, K2, K4, K5 on the incremental run's
+     buckets;
+  MD1. the flagship run config through `run.py --distributed` as a world
+     of one rank over NCCL: R2's state bit for bit and R2's launches;
+  MD2. (a) the sphere cell's 2^20 sample over two ranks on the card
+     (gloo), 50 KDK steps: the coefficients every step against one rank's,
+     the sphere's 2T/VC and |dE/E| gates, 51 K1 and 51 K2 launches on
+     each rank; (b) the flagship run config through `run.py --ndev 2`, 10
+     big steps: OUTLOG and the level populations against MD1's, each file
+     written once, and a restart from its own PSP snapshot; with two cards
+     or more (a) also runs over NCCL on two cards; K1, K2, K4, K5 at a
+     rank's shapes;
   PS1. P1 against its plain version on the probe's sample with edge rows,
      stream1 and stream2, with the stated tolerances;
   PS2. the probe's run: producer + P1, P1 alone, the producer, the
-     yardstick and K9 at the same particles by CUDA events, each bound.
+     yardstick and K9 at the same particles by CUDA events, each bound;
+  EN1. exp_tpu_torch.bench_energy direct at the script's settings (500 big
+     steps of the composite, 6 snapshots, a 65,536 subsample's true energy
+     by a direct pair sum over every particle, and at each of the last 20
+     big steps), gated by tests/test_energy_artifacts.py:42-66; one 65,536
+     x 1,048,576 pair sum timed, the peak memory;
+  EN2. bench_energy ab, arms A, B and C (100 big steps at dtime, 200 at
+     dtime / 2, 100 relevelling every second big step), gated by
+     tests/test_energy_artifacts.py:69-87, with arm A again at dtime (1 +
+     1e-6) reported beside them.  The two gates of EN_SINGLE_DRAW are
+     printed with the others, not failed on: one draw of each spreads
+     wider than its bound on the card.
 
-Prints one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
-...}.  Any failure raises and exits non-zero before the last line.  Needs
+Prints one JSON line {"kernels": [...]} before EN1 and, last, {"ok": true,
+"device": ...}.  Any failure raises and exits non-zero before the last line.  Needs
 a CUDA device and the repository around it.
 """
 
@@ -1939,8 +1970,9 @@ def driver_path(dev, sphere_tables, comp, xe, ve, me):
     config from CM1's ICs (`comp`, composite_path's set-up), held against
     the bare MultistepRunner bit for bit; the single-rate driver on phase
     5's sample (xe, ve, me); the driver's own time beside the bare paths'.
-    Returns R4's times and the work directory (its body and model files),
-    which the caller cleans up."""
+    Returns R4's times, the work directory (its body and model files),
+    which the caller cleans up, and R2's state after DRIVER_NBIG big steps
+    with its launches."""
     import os
     import tempfile
 
@@ -2030,6 +2062,7 @@ def driver_path(dev, sphere_tables, comp, xe, ve, me):
     if not psp_ok:
         raise AssertionError(f"R2: OUT.flag.{DRIVER_NBIG:05d} does not read "
                              "back equal to the state")
+    r2 = {"state": states[DRIVER_NBIG], "launches": dict(launches)}
 
     # the bare runner on CM1's forces from the same bodies
     runner = bc.make_runner(comp["halo"], comp["disk"])
@@ -2164,7 +2197,7 @@ def driver_path(dev, sphere_tables, comp, xe, ve, me):
     r4c.update(driver_step_ms=t_drv * 1e3, kdk_step_ms=t_kdk * 1e3)
     print("R4 driver overhead (host clock, not gated): " + json.dumps(r4c),
           flush=True)
-    return r4c, work
+    return r4c, work, r2
 
 def _finite_buckets(sim):
     import torch
@@ -3103,6 +3136,495 @@ def phasestream_path(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# RI1, EN1, EN2, MD1, MD2: the incremental relevel, the energy bars and the
+# multi-rank runs
+# ---------------------------------------------------------------------------
+
+# RI1: the composite from CM1's ICs, RI_NBIG big steps with a relevel
+# each under 'incremental' and under 'sortfull' (relevel_path).  The same
+# configuration through the plain versions on a CPU at 65,536 + 16,384
+# particles (its 10 relevels: 2 moved the movers only, 8 compacted) gave
+# the same live sets and x, v, acc, pot equal bit for bit; the card's K1
+# and K4 add block partials of other rows after a relevel that moved
+# rows, so the two runs may part by rounding, and the gate is taken in
+# lockstep: each relevel both ways from one state.
+RI_NBIG = 10
+# MD2(a): the sphere cell's 2^20 sample split 2 x 2^19 over two ranks on
+# the one card (gloo), STEPS KDK steps; the coefficients of every step
+# within MD2A_COEF_RTOL of max|c| of the one-rank run's.  The same pair
+# through the plain versions on a CPU at 131,072 particles (the sample's
+# first eighth, 2 gloo ranks against one) stayed within 7.0e-7 of max|c|
+# at every step, 1-6 f32 ulps of the largest term, with no growth over
+# the 50 steps (|dE/E| 1.786156e-7 both ways): each step adds the two
+# ranks' f32 partials once.  5e-6 holds that with a 7x margin and fails a
+# rank that drops or doubles 1e-5 of the mass.
+MD2A_COEF_RTOL = 5e-6
+# MD2(b): the flagship run config (R2's, with OutMulti) through `run.py
+# --ndev 2`, DRIVER_NBIG big steps, against MD1's one-rank run.  The same
+# pair through the plain versions on a CPU at 65,536 + 16,384 particles
+# (`run.py --cpu` and `--cpu --ndev 2` on write_bodies' files of
+# bench_composite.prepare(65536, 16384)) gave OUTLOG's mass, L, KE, PE,
+# VC, E and 2T/VC columns within 1.8e-6 of each other (energies 8.5e-7),
+# R and V (sums of +- terms near 0) within 3.5e-9 absolutely, and the
+# same level populations.  The f32 sums run over 16x more rows here, and
+# rounding sends particles near a level boundary to the other level
+# (CM2's note); the bounds hold the CPU's figures with a 5-30x margin, and
+# the level share allows ~26 disk particles.  The L columns are held over
+# the largest |L| of their block (bench_multirank.outlog_difference): on
+# the card, over each column's own largest value, the disk's L(x) and L(y)
+# (near-0 remainders of terms as large as its L(z)) read 7.8e-6, 9.3e-7
+# and 9.0e-6 for DiskHalo seeds 3, 4 and 5, 1.1x from the bound, while
+# every other column stayed near the CPU's figures.
+MD2B_LOG_RTOL = 1e-5
+MD2B_LOG_ATOL = 1e-7
+MD2B_LEVEL_SHARE = 1e-4
+#: big steps of MD2(b)'s restart from its own PSP snapshot
+MD2B_RESTART_NBIG = 3
+
+
+def _bucket_rows(tag, kernels, st, launches):
+    """kernels-line rows of the composite's kernels on the buckets `st`
+    (phase CM3's way, without the profiler): each against its plain
+    version on every bucket, a launch on each level's bucket timed by CUDA
+    events behind a spin kernel, averaged over a big step's launches (level
+    l launches 2^l times), its plain version's time and the bound the same
+    way; `launches` are the wrapper counts of the phase's run."""
+    from exp_tpu_torch import bench_kernels as bk
+
+    rows, bad = [], []
+    for name, wrapper, src, line, comps, fn, plain, work, check in kernels:
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0,
+               "operations": 0}
+        nl, err = 0, 0.0
+        for c in comps:
+            for l, b in enumerate(st[c]):
+                ok, e = check(fn(b), plain(b))
+                err = max(err, e)
+                if not ok:
+                    bad.append(f"{name} {c} level {l}")
+                byts, ops_ = work(b)
+                w = 2 ** l
+                nl += w
+                tot["ms"] += w * bk.queued_ms(lambda: fn(b), CM3_LEVEL_REPS)
+                tot["plain_ms"] += w * cuda_ms(lambda: plain(b), 1)
+                tot["bound_ms"] += w * bound_ms(byts, ops_)[0]
+                tot["bytes"] += w * byts
+                tot["operations"] += w * ops_
+        rows.append({
+            "name": name.replace("[composite]", f"[{tag}]"), "route": "cuda",
+            "source": f"exp_tpu_torch/csrc/{src}", "replaces": line,
+            "launches": launches[wrapper], "max_abs_err": err,
+            "ms": tot["ms"] / nl, "plain_ms": tot["plain_ms"] / nl,
+            "bound_ms": tot["bound_ms"] / nl,
+            "bound_by": bound_ms(tot["bytes"], tot["operations"])[1],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes this function",
+            "launches_per_bigstep": nl})
+    if bad:
+        raise AssertionError(f"{tag}: kernels disagree with their plain "
+                             f"versions on the buckets {bad}")
+    return rows
+
+
+def _by_indx(st, n):
+    """Every field of component n's live rows, ordered by identity."""
+    import torch
+
+    f = {k: torch.cat([getattr(b, k) for b in st[n]])
+         for k in ("x", "v", "acc", "pot", "mass", "indx")}
+    live = f["mass"] > 0
+    order = torch.argsort(f["indx"][live])
+    return {k: a[live][order] for k, a in f.items()}
+
+
+def _regs_diff(ra, rb):
+    """max|d| / max|c| of two register sets, per component (the N halves:
+    after a relevel L and N coincide)."""
+    out = {}
+    for n in ra:
+        a = [c.reshape(-1) for c in ra[n][1]]
+        b = [c.reshape(-1) for c in rb[n][1]]
+        out[n] = max(float((x - y).abs().max() / y.abs().max().clamp_min(
+            1e-30)) for x, y in zip(a, b))
+    return out
+
+
+def relevel_path(dev, comp):
+    """RI1 on the card: the composite's 'incremental' relevel against
+    'sortfull' from CM1's ICs, RI_NBIG big steps.  In lockstep, each of
+    the incremental run's relevels is also taken by 'sortfull' from a copy
+    of the same state: the live sets must agree bucket by bucket, each
+    particle's x, v, acc and pot bit for bit (the relevel moves data, the
+    CPU run of the same configuration gave 0 difference), and the rebuilt
+    registers within K1's and K4's agreement bounds (their block partials
+    sum other rows).  The sortfull run is also taken on its own; the two
+    runs' end states are reported.  Returns the kernels-line rows of K1,
+    K2, K4 and K5 on the incremental run's buckets."""
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch import bench_composite as bc
+    from exp_tpu_torch.nbody.multistep import MultistepRunner
+
+    def runner(style):
+        return MultistepRunner({"halo": comp["halo"], "disk": comp["disk"]},
+                               bc.COUPLES, bc.DTIME, bc.M, dynparams=bc.DYN,
+                               cap_headroom=bc.CAP_HEADROOM, fused=True,
+                               rebucket_style=style)
+
+    runs, lock = {}, {"live_sets": True, "bit_equal": True,
+                      "regs_rel": {"halo": 0.0, "disk": 0.0}}
+    tol = {"halo": COEF_RTOL, "disk": CYL_COEF_RTOL}
+    shadow = runner("sortfull")
+    for style in ("incremental", "sortfull"):
+        r = runner(style)
+        bc.reset_launches()
+        st, regs, _, _ = r.init_state(bc.flat_systems(comp["ic"], dev))
+        rel = []
+        lk = {k: 0 for k in bc.kernel_launches()}  # the shadow's launches
+        for _ in range(RI_NBIG):
+            st, regs, coef, _ = r.bigstep(st, regs)
+            if style == "incremental":
+                # the same relevel by 'sortfull' from a copy of the state,
+                # its launches kept out of the run's count
+                before = bc.kernel_launches()
+                shadow.caps = dict(r.caps)
+                st_b, regs_b = shadow.relevel(_clone_state(st), regs)
+                for k, v in bc.kernel_launches().items():
+                    lk[k] += v - before[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, regs = r.relevel(st, regs)
+            torch.cuda.synchronize()
+            rel.append((time.perf_counter() - t0) * 1e3)
+            if style == "incremental":
+                for n in st:
+                    for l, (a, b) in enumerate(zip(st[n], st_b[n])):
+                        ia = torch.sort(a.indx[a.mass > 0]).values
+                        ib = torch.sort(b.indx[b.mass > 0]).values
+                        lock["live_sets"] &= bool(torch.equal(ia, ib))
+                    pa, pb = _by_indx(st, n), _by_indx(st_b, n)
+                    lock["bit_equal"] &= all(bool(torch.equal(pa[k], pb[k]))
+                                             for k in pa)
+                for n, d in _regs_diff(regs, regs_b).items():
+                    lock["regs_rel"][n] = max(lock["regs_rel"][n], d)
+        launches = {k: v - lk.get(k, 0) if style == "incremental" else v
+                    for k, v in bc.kernel_launches().items()}
+        want = {k: 0 for k in launches}
+        want.update(bc.expected_launches(r, RI_NBIG))
+        runs[style] = (r, st, coef, launches)
+        print(f"RI1 {style}: " + json.dumps({
+            "relevel_ms": float(np.median(rel)), "relevel_ms_all": rel,
+            "n_rebuilds": r.n_rebuilds, "n_compactions": r.n_compactions,
+            "n_fallbacks": r.n_fallbacks,
+            "level_counts": r.level_counts(st), "caps": r.caps,
+            "launches": launches, "expected_launches": want}), flush=True)
+        if launches != want:
+            raise AssertionError(f"RI1 {style}: launches {launches}, the "
+                                 f"schedule implies {want}")
+    print("RI1 lockstep, each relevel both ways from one state: "
+          + json.dumps({**lock, "regs_tolerance": tol}), flush=True)
+    if not (lock["live_sets"] and lock["bit_equal"]) or any(
+            lock["regs_rel"][n] > tol[n] for n in tol):
+        raise AssertionError(f"RI1: incremental differs from sortfull {lock}")
+    (ri, si, ci, li), (rs, ss, _, _) = runs["incremental"], runs["sortfull"]
+    end = {"bit_equal": True, "max_rel": {}, "levels_equal":
+           ri.level_counts(si) == rs.level_counts(ss)}
+    for n in ("halo", "disk"):
+        a, b = _by_indx(si, n), _by_indx(ss, n)
+        for k in ("x", "v", "acc", "pot"):
+            end["max_rel"][f"{n}.{k}"] = float(
+                (a[k] - b[k]).abs().max() / b[k].abs().max())
+            end["bit_equal"] &= bool(torch.equal(a[k], b[k]))
+    print("RI1 the two runs after {} big steps (reported): ".format(RI_NBIG)
+          + json.dumps(end), flush=True)
+    return _bucket_rows("RI1", _comp_kernels(comp["halo"], comp["disk"], ci),
+                        si, li)
+
+
+#: big steps at the end of EN1 with the subsample's true energy each
+EN1_TAIL = 20
+#: gates of tests/test_energy_artifacts.py that EN1 and EN2 print but do
+#: not fail on: each reads one draw of a quantity whose spread on the card
+#: is wider than its bound (`python -m exp_tpu_torch.bench_energy spread`
+#: and `direct --tail 20`, PERF.md's PR 17 section).  |dE_A - dE_B| read
+#: 1.7e-4, 1.7e-4 / 9.7e-5 and 2.2e-3 at 1M for DiskHalo seeds 3, 4 and 5,
+#: and 2.8e-6 / 2.1e-4 / 2.3e-4 at 262,144 for steps changed by 0, 1e-6
+#: and 2e-6 of themselves; EN1's last-row E_sub_dir moves by up to 1e-3
+#: between consecutive big steps of the last 20 (5.3e-4 to 2.2e-3).
+EN_SINGLE_DRAW = ("last E_sub_dir < 1e-3", "|dE_A - dE_B| < 1e-4")
+
+
+def energy_path(dev, comp):
+    """EN1 and EN2 on the card: bench_energy's `direct` (with the true
+    energy at each of its last EN1_TAIL big steps) and `ab` at the
+    scripts' settings on CM1's forces and ICs, each gated by
+    tests/test_energy_artifacts.py's gates but the EN_SINGLE_DRAW ones,
+    which are printed with the rest; both run before a failure of either
+    is raised."""
+    import torch
+
+    from exp_tpu_torch import bench_energy as be
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    d = be.run_direct(comp["halo"], comp["disk"], comp["ic"], dev,
+                      tail=EN1_TAIL,
+                      log=lambda s: print("EN1 " + s, flush=True))
+    sec = time.perf_counter() - t0
+    # one 65,536 x 1,048,576 pair sum on the ICs' sources
+    phi = be.make_phi_direct()
+    xs = torch.cat([torch.as_tensor(comp["ic"][k], dtype=torch.float32,
+                                    device=dev) for k in ("xh", "xd")])
+    ms = torch.cat([torch.as_tensor(comp["ic"][k], dtype=torch.float32,
+                                    device=dev) for k in ("mh", "md")])
+    xt = xs[::max(1, xs.shape[0] // be.NSUB)][:be.NSUB]
+    pair_ms = cuda_ms(lambda: phi(xt, xs, ms), 3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    failed = {"EN1": be.direct_gates(d)}
+    print("EN1 direct: " + json.dumps({
+        **{k: v for k, v in d.items() if k != "rows"},
+        "rows": [{k: r[k] for k in ("t", "E_rep", "E_sub_rep", "E_sub_dir",
+                                     "E_dir_est")} for r in d["rows"]],
+        "pair_sum_ms": pair_ms, "pairs": int(xt.shape[0]) * int(xs.shape[0]),
+        "peak_mem_bytes": peak, "sec": sec, "gates_failed": failed["EN1"]}),
+        flush=True)
+    t0 = time.perf_counter()
+    d = be.run_ab(comp["halo"], comp["disk"], comp["ic"], dev,
+                  log=lambda s: print("EN2 " + s, flush=True))
+    failed["EN2"] = be.ab_gates(d)
+    sec = time.perf_counter() - t0
+    # reported, not gated: arm A again at dtime (1 + 1e-6), the
+    # measurement's own sensitivity to a change far below B's
+    a2 = be.run_arm(comp["halo"], comp["disk"], comp["ic"], dev,
+                    be.DTIME * (1 + 1e-6), be.NBIG_AB, 1, be.NSUB, name="A'",
+                    log=lambda s: print("EN2 " + s, flush=True))
+    print("EN2 ab: " + json.dumps({
+        **d, "sec": sec, "gates_failed": failed["EN2"],
+        "A_at_dtime_1e-6_longer": {"dE_true": a2["dE_true"],
+                                   "E1": a2["E1"]},
+        "abs_dE_A_minus_A_prime": abs(d["A"]["dE_true"] - a2["dE_true"])}),
+        flush=True)
+    failed = {k: [g for g in v if g not in EN_SINGLE_DRAW]
+              for k, v in failed.items()}
+    failed = {k: v for k, v in failed.items() if v}
+    if failed:
+        raise AssertionError(f"energy bars: gates failed {failed}")
+
+
+def multi_path(dev, sphere_tables, comp, wd, r2, xe, ve, me):
+    """MD1 and MD2 on the card: a one-rank NCCL world of the YAML driver
+    against R2's state (`r2`: its state after DRIVER_NBIG big steps and
+    its launches), the sphere cell over two ranks on the one card (gloo)
+    against one rank, and the flagship through `run.py --ndev 2` against
+    MD1, with a restart (exp_tpu_torch/bench_multirank.py's worlds).  `wd`
+    holds R1's body and model files.  Returns the kernels-line rows of K1
+    and K2 at MD2(a)'s rows a rank and of K1, K2, K4 and K5 at MD2(b)'s
+    buckets of rank 0."""
+    import os
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from exp_tpu_torch import bench_composite as bc
+    from exp_tpu_torch import bench_multirank as bmr
+    from exp_tpu_torch.bench_extras import outlog_rows
+    from exp_tpu_torch.bench_sphere import sphere_force
+    from exp_tpu_torch.nbody.particles import ParticleSystem
+    from exp_tpu_torch.nbody.step import init_force_state, make_kdk_step
+    from exp_tpu_torch.ops import sphere_kernels as sk
+    from exp_tpu_torch.run import main as run_main
+
+    # MD1. a one-rank NCCL world of the driver on R2's config and bodies
+    cfg1 = os.path.join(wd, "md1.yml")
+    with open(cfg1, "w") as f:
+        yaml.safe_dump(bmr.flagship_run_config("md1"), f)
+    env = {"EXP_COORDINATOR": f"127.0.0.1:{bmr.free_port()}",
+           "EXP_NPROCS": "1", "EXP_PROCID": "0"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        sim = run_main([cfg1, "--distributed"])
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.synchronize()
+    launches = bc.kernel_launches()
+    diff = _bucket_diff(r2["state"], sim._ms_state)
+    print("MD1 one-rank NCCL world: " + json.dumps({
+        "sec": time.perf_counter() - t0, "launches": launches,
+        "r2_launches": r2["launches"],
+        "state_vs_r2": "equal bit for bit" if diff is None else
+        f"differs first in {diff}"}), flush=True)
+    if diff is not None:
+        raise AssertionError(f"MD1: the state differs from R2's in {diff}")
+    if launches != r2["launches"]:
+        raise AssertionError(f"MD1: launches {launches}, R2's "
+                             f"{r2['launches']}")
+    del sim
+
+    # MD2(a). the sphere cell's sample over two ranks on this card (gloo),
+    # and over NCCL on two cards where there are two
+    ncard = torch.cuda.device_count()
+    rows = []
+    worlds = [("gloo", [str(dev), str(dev)])]
+    if ncard >= 2:
+        worlds.append(("nccl", ["cuda:0", "cuda:1"]))
+    else:
+        print(f"MD2 over NCCL on two cards: not run ({ncard} card)",
+              flush=True)
+    force = sphere_force(sphere_tables, dev)
+    ps = ParticleSystem.from_arrays(xe, ve, me, device=dev)
+    ps, c, diag = init_force_state(force, ps)
+    ref = [c.clone()]
+    step = make_kdk_step(force, DT)
+    for _ in range(STEPS):
+        ps, c, diag = step(ps)
+        ref.append(c.clone())
+    ref = torch.stack(ref).cpu().numpy()
+    for backend, devs in worlds:
+        rep = bmr.sphere_world(sphere_tables, xe, ve, me, 2, STEPS, ref=ref,
+                               devs=devs, backend=backend)
+        rep["tolerance"] = MD2A_COEF_RTOL
+        print(f"MD2(a) sphere cell, 2 ranks ({backend}): " + json.dumps(rep),
+              flush=True)
+        if not rep["finite"] or not rep["ranks_equal_coefs"]:
+            raise AssertionError(f"MD2(a) {backend}: non-finite state or "
+                                 "the ranks' coefficients differ")
+        if not rep["coef_rel_err_max"] <= MD2A_COEF_RTOL:
+            raise AssertionError(f"MD2(a) {backend}: coefficients "
+                                 f"{rep['coef_rel_err_max']} from the "
+                                 "one-rank run's")
+        for key in ("virial0", "virial1"):
+            if not abs(rep[key] - 1.0) <= VIRIAL_TOL:
+                raise AssertionError(f"MD2(a): 2T/VC {key} = {rep[key]}")
+        if not rep["dE_rel"] < DRIFT_BOUND:
+            raise AssertionError(f"MD2(a): |dEtot/Etot| = {rep['dE_rel']}")
+        for r, cnt in enumerate(rep["launches"]):
+            for name, n in cnt.items():
+                want = STEPS + 1 if name in ("sphere_coef",
+                                             "sphere_accel") else 0
+                if n != want:
+                    raise AssertionError(f"MD2(a) rank {r}: {name} launched "
+                                         f"{n} times, expected {want}")
+        if backend == "gloo":
+            md2a_launches = rep["launches"][0]
+    # K1 and K2 at a rank's shape (its 2^19 rows), on this process
+    half = ParticleSystem.from_arrays(xe[:len(me) // 2], ve[:len(me) // 2],
+                                      me[:len(me) // 2], device=dev)
+    prm = force._kernel_params()
+    twT = force.accel_table(torch.as_tensor(ref[-1], device=dev))
+    n_in = int(((half.x.norm(dim=1) >= prm.rmin)
+                & (half.x.norm(dim=1) <= prm.rmax) & (half.mass > 0)).sum())
+    for name, src, line, fn, plain, (byts, ops), cmp in (
+            ("sphere_coef[MD2a rank]", "sphere_coef.cu",
+             "exp_tpu/ops/pallas_sphere.py:521",
+             lambda: sk.sphere_coef(half.x, half.mass, force.tabc_s,
+                                    force.Mp, prm),
+             lambda: sk.sphere_coef_plain(half.x, half.mass, force.tabc_s,
+                                          force.Mp, prm),
+             k1_work(half.n, n_in, 4, 10, prm.rows), "sphere_coef"),
+            ("sphere_accel[MD2a rank]", "sphere_accel.cu",
+             "exp_tpu/ops/pallas_sphere.py:398",
+             lambda: sk.sphere_accel(half.x, twT, force.fac32, prm),
+             lambda: sk.sphere_accel_plain(half.x, twT, force.fac32, prm),
+             k2_work(half.n, 4, prm.rows), "sphere_accel")):
+        out, out0 = fn(), plain()
+        if isinstance(out, tuple):
+            err = max(float((a - b).abs().max()) for a, b in zip(out, out0))
+        else:
+            err = float((out - out0).abs().max())
+        bms, by = bound_ms(byts, ops)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"exp_tpu_torch/csrc/{src}", "replaces": line,
+                     "launches": md2a_launches[cmp], "max_abs_err": err,
+                     "ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(plain, 3),
+                     "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     "library_note": "no single PyTorch call computes this "
+                                     "function"})
+    del half, ps, force
+
+    # MD2(b). the flagship through run.py --ndev 2 on this card against
+    # MD1's run, then a restart of the world from its own PSP snapshot
+    rep = bmr.flagship_world(wd, 2, ref_tag="md1")
+    rep["tolerance"] = {"outlog_rel": MD2B_LOG_RTOL,
+                        "outlog_abs_RV": MD2B_LOG_ATOL,
+                        "level_share": MD2B_LEVEL_SHARE}
+    print("MD2(b) run.py --ndev 2 flagship: " + json.dumps(rep), flush=True)
+    log2 = outlog_rows(os.path.join(wd, "many", "OUTLOG.flag"))
+    nlev = sum(1 for ln in open(os.path.join(wd, "many", "flag.levels"))
+               if not ln.startswith("#"))
+    reps = rep["runs"]["many"]["reports"]
+    if rep["rows"] != [DRIVER_NBIG + 1] * 2 or nlev != 2 * (DRIVER_NBIG + 1):
+        raise AssertionError(f"MD2(b): a file was not written once: OUTLOG "
+                             f"rows {rep['rows']}, {nlev} levels rows")
+    if not (rep["outlog_max_rel"] <= MD2B_LOG_RTOL
+            and rep["outlog_max_abs_RV"] <= MD2B_LOG_ATOL):
+        raise AssertionError(f"MD2(b): OUTLOG {rep['outlog_max_rel']} (R, V: "
+                             f"{rep['outlog_max_abs_RV']}) from MD1's")
+    if not rep["level_share_max"] <= MD2B_LEVEL_SHARE:
+        raise AssertionError(f"MD2(b): a level's population moved "
+                             f"{rep['level_share_max']} of its component "
+                             "from MD1's")
+    if len(reps) != 2:
+        raise AssertionError(f"MD2(b): {len(reps)} rank reports")
+    cfg3 = os.path.join(wd, "many_restart.yml")
+    with open(cfg3, "w") as f:
+        yaml.safe_dump(bmr.flagship_run_config(
+            "many", MD2B_RESTART_NBIG, infile=f"OUT.flag.{DRIVER_NBIG:05d}"),
+            f)
+    t0 = time.perf_counter()
+    bmr.run_cli(["--ndev", "2", cfg3])
+    log2b = outlog_rows(os.path.join(wd, "many", "OUTLOG.flag"))
+    etot = log2b[:, 12] + log2b[:, 13]
+    rep = {"sec": time.perf_counter() - t0, "rows": len(log2b),
+           "t_last": float(log2b[-1, 0]), "t_before": float(log2[-1, 0]),
+           "dE_rel": float(abs(etot[-1] - etot[0]) / abs(etot[0]))}
+    print("MD2(b) restart from OUT.flag.00010: " + json.dumps(rep),
+          flush=True)
+    if len(log2b) != DRIVER_NBIG + 1 + 1 + MD2B_RESTART_NBIG:
+        raise AssertionError(f"MD2(b) restart: {len(log2b)} OUTLOG rows")
+    if not log2b[-1, 0] > log2[-1, 0] + (MD2B_RESTART_NBIG - 0.5) * bc.DTIME:
+        raise AssertionError("MD2(b) restart: the time did not advance")
+    if not rep["dE_rel"] < DRIVER_DRIFT_BOUND:
+        raise AssertionError(f"MD2(b) restart: |dEtot/Etot| {rep['dE_rel']}")
+
+    # K4 and K5 (and K1, K2) at a rank's buckets: rank 0's row block of
+    # the ICs cut into its final capacities and live counts
+    r0 = next(r for r in reps if r["rank"] == 0)
+    ic = comp["ic"]
+    st = {}
+    for n, (kx, kv, km) in (("halo", ("xh", "vh", "mh")),
+                            ("disk", ("xd", "vd", "md"))):
+        half = len(ic[km]) // 2
+        x, v, m = ic[kx][:half], ic[kv][:half], ic[km][:half]
+        bs, k = [], 0
+        for cap, nl in zip(r0["caps"][n], r0["live"][n]):
+            xs = np.zeros((cap, 3))
+            ms = np.zeros(cap)
+            xs[:nl], ms[:nl] = x[k:k + nl], m[k:k + nl]
+            k += nl
+            bs.append(ParticleSystem.from_arrays(xs, np.zeros((cap, 3)), ms,
+                                                 device=dev))
+        st[n] = bs
+    coef = {"halo": comp["halo"].coefficients(
+        torch.cat([b.x for b in st["halo"]]),
+        torch.cat([b.mass for b in st["halo"]])),
+        "disk": comp["disk"].coefficients(
+        torch.cat([b.x for b in st["disk"]]),
+        torch.cat([b.mass for b in st["disk"]]))}
+    rows += _bucket_rows("MD2b rank", _comp_kernels(comp["halo"],
+                                                    comp["disk"], coef),
+                         st, r0["launches"])
+    return rows
+
 
 def main():
     import torch
@@ -3247,13 +3769,17 @@ def main():
     comp_rows, comp = composite_path(dev, tables, disk_tables)
     rows += comp_rows
     sweep_path(dev, tables, disk_tables, rows)
-    r4, work = driver_path(dev, tables, comp, xe, ve, me)
-    del comp
+    r4, work, r2 = driver_path(dev, tables, comp, xe, ve, me)
     extras_path(dev, work.name, r4)
-    work.cleanup()
     rows += forces_path(dev, xe, ve, me)
+    rows += relevel_path(dev, comp)
+    rows += multi_path(dev, tables, comp, work.name, r2, xe, ve, me)
+    work.cleanup()
     rows += phasestream_path(dev)
     print(json.dumps({"kernels": rows}), flush=True)
+    # the energy bars last: their runs are the longest
+    energy_path(dev, comp)
+    del comp, r2
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,9 +23,10 @@ Phi^{s,m}_mu = ... sin(...), with sqrt(2) for m>0 folded into U; density
 partner D = 4 pi rho; biorthogonality int Phi D dV = -delta; coefficients
 b = -4 pi sum_i m_i Phi(x_i).
 
-Differences from the JAX module: no multi-process cache wait (one process
-builds; the wait comes with the multi-device slice), and `h5py` is imported
-only by the cache reader and writer, so a machine without it builds fresh.
+Differences from the JAX module: in a world of several ranks rank 0 builds
+(or reads its cache) and broadcasts the tables, where exp_tpu's other
+processes wait for its cache file; and `h5py` is imported only by the cache
+reader and writer, so a machine without it builds fresh.
 """
 
 from __future__ import annotations
@@ -196,12 +197,20 @@ def build_empcyl_tables(
         numx: int = 256, numy: int = 128,
         rnum: int = 200, tnum: int = 80,
         disk_density=None, sech2: bool = True, density_key: str = None,
-        cachename: str | None = None, verbose: bool = False) -> EmpCylTables:
+        cachename: str | None = None, world=None, verbose: bool = False) -> EmpCylTables:
     """Build (or load from cache) the EOF disk basis tables.
 
     `disk_density`: optional rho(R, z) callable conditioning the basis (e.g.
     from disk_density_from_particles); pass `density_key` to distinguish it
-    in the cache key (custom densities never match the analytic cache)."""
+    in the cache key (custom densities never match the analytic cache).
+    `world`: a World of several ranks builds on rank 0 only."""
+    if world is not None and world.size > 1:
+        # rank 0 builds (or reads its cache) and broadcasts; the others
+        # never build (SLGridMP2.cc:280-382)
+        kw = {k: v for k, v in locals().items() if k != "world"}
+        from exp_tpu_torch.parallel.distributed import primary_build
+
+        return primary_build(world, lambda: build_empcyl_tables(**kw))
     if ncylodd is None:
         ncylodd = nmax // 3
     if disk_density is None:

@@ -19,8 +19,10 @@ int Phi_mn [4 pi sigma_mn' delta(z)] dV = -delta; coefficients
 b = -4 pi sum_i m_i Phi(x_i).  The `dens` table stores 4 pi sigma(R)
 (z-independent), so CylinderForce.density() returns SURFACE density.
 
-Differences from the JAX module: no multi-process cache wait (one process
-builds); `h5py` is imported only by the cache reader and writer.
+Differences from the JAX module: in a world of several ranks rank 0 builds
+(or reads its cache) and broadcasts the tables, where exp_tpu's other
+processes wait for its cache file; `h5py` is imported only by the cache
+reader and writer.
 """
 
 from __future__ import annotations
@@ -82,11 +84,21 @@ def build_flatdisk_tables(
         rcylmin: float = 1e-3, rcylmax: float = 20.0,
         numx: int = 256, numy: int = 128, knots: int = 400,
         numk: int = 256, hcyl: float | None = None,
-        cachename: str | None = None, verbose: bool = False,
+        cachename: str | None = None, world=None, verbose: bool = False,
         **model_kw) -> EmpCylTables:
     """Build (or load) razor-thin disk basis tables packed as EmpCylTables.
 
-    hcyl only sets the vertical grid mapping scale (default acyl/10)."""
+    hcyl only sets the vertical grid mapping scale (default acyl/10).
+    `world`: a World of several ranks builds on rank 0 only."""
+    if world is not None and world.size > 1:
+        # rank 0 builds (or reads its cache) and broadcasts; the others
+        # never build (SLGridMP2.cc:280-382)
+        kw = {k: v for k, v in locals().items()
+              if k not in ("world", "model_kw")}
+        from exp_tpu_torch.parallel.distributed import primary_build
+
+        return primary_build(
+            world, lambda: build_flatdisk_tables(**kw, **model_kw))
     if hcyl is None:
         hcyl = 0.1 * acyl
     params = dict(mmax=mmax, nmax=nmax, model=model, acyl=acyl, Mtot=Mtot,

@@ -22,8 +22,9 @@ sech^2(z/h) (the reference's slab model).
 
 The arithmetic is the JAX package's, operation by operation, so the same
 arguments give the same tables.  The HDF5 cache imports h5py only inside its
-functions.  The multi-process cache wait of the JAX package is not carried
-over (it comes with the multi-device port).
+functions.  In a world of several ranks rank 0 builds (or reads its cache)
+and broadcasts the tables, where the JAX package's other processes wait
+for its cache file.
 """
 
 from __future__ import annotations
@@ -126,7 +127,7 @@ def build_slab_tables(nmaxx: int = 4, nmaxy: int = 4, nmax: int = 6,
                       zmax: float = 0.1, h: float = 0.01, numz: int = 401,
                       knots: int = 800, type: str = "iso",
                       method: str = "greens",
-                      cachename: str | None = None) -> SlabTables:
+                      cachename: str | None = None, world=None) -> SlabTables:
     """Vertical basis tables.
 
     method='greens' (default): Green's-function pairs from conditioned
@@ -137,7 +138,15 @@ def build_slab_tables(nmaxx: int = 4, nmaxy: int = 4, nmax: int = 6,
     phi' -+ kappa phi = 0 at +-zmax, rhobar = 4 pi rho0, as a dense
     symmetric finite-difference generalized eigenproblem.
     type: background model 'iso' | 'const' | 'para' (both methods).
+    `world`: a World of several ranks builds on rank 0 only.
     """
+    if world is not None and world.size > 1:
+        # rank 0 builds (or reads its cache) and broadcasts; the others
+        # never build (SLGridMP2.cc:280-382)
+        kw = {k: v for k, v in locals().items() if k != "world"}
+        from exp_tpu_torch.parallel.distributed import primary_build
+
+        return primary_build(world, lambda: build_slab_tables(**kw))
     if method == "sl":
         return _build_slab_tables_sl(nmaxx=nmaxx, nmaxy=nmaxy, nmax=nmax,
                                      zmax=zmax, h=h, numz=numz,

@@ -16,9 +16,10 @@ mapped coordinate xi(r) (ops/coords.py).  The generalized tridiagonal
 eigenproblem of a P1 finite-volume scheme is solved by shift-invert
 Lanczos (scipy eigsh, sigma=0).
 
-Differences from the JAX module: no multi-process cache build (one process
-builds), and `h5py` is imported only by the cache reader and writer, so a
-machine without it can build tables fresh.
+Differences from the JAX module: in a world of several ranks rank 0 builds
+(or reads its cache) and broadcasts the tables, where exp_tpu's other
+processes wait for its cache file; and `h5py` is imported only by the cache
+reader and writer, so a machine without it can build tables fresh.
 """
 
 from __future__ import annotations
@@ -238,8 +239,17 @@ def build_sph_sl_tables(model: SphericalModelTable, lmax: int, nmax: int,
                         numr: int = 2000, rmin: float | None = None,
                         rmax: float | None = None, cmap: int = 1,
                         rmap: float = 0.067,
-                        cachename: str | None = None) -> SphSLTables:
-    """Build (or load from cache) the spherical SL basis tables."""
+                        cachename: str | None = None,
+                        world=None) -> SphSLTables:
+    """Build (or load from cache) the spherical SL basis tables.  `world`:
+    a World of several ranks builds on rank 0 only."""
+    if world is not None and world.size > 1:
+        # rank 0 builds (or reads its cache) and broadcasts; the others
+        # never build (SLGridMP2.cc:280-382)
+        kw = {k: v for k, v in locals().items() if k != "world"}
+        from exp_tpu_torch.parallel.distributed import primary_build
+
+        return primary_build(world, lambda: build_sph_sl_tables(**kw))
     rmin = model.rmin if rmin is None else max(rmin, model.rmin)
     rmax = model.rmax if rmax is None else min(rmax, model.rmax)
     if cmap == 2 and rmin <= 0:

@@ -224,14 +224,15 @@ def composite_run(runner, st, regs, diag0, nbig):
         "overrun": runner.overrun, "caps": runner.caps}
 
 
-def prepare(n_halo=N_HALO, n_disk=N_DISK, device=None, forces=None):
-    """Forces and ICs with their virial ratio; returns a dict of them and
-    the set-up times."""
+def prepare(n_halo=N_HALO, n_disk=N_DISK, device=None, forces=None,
+            seed=SEED):
+    """Forces and ICs (DiskHalo draw `seed`) with their virial ratio;
+    returns a dict of them and the set-up times."""
     device = resolve_device(device)
     t0 = time.perf_counter()
     halo, disk = forces if forces is not None else composite_forces(device)
     t1 = time.perf_counter()
-    ic = composite_ics(halo, disk, n_halo, n_disk)
+    ic = composite_ics(halo, disk, n_halo, n_disk, seed)
     vr = ics_virial(halo, disk, ic)
     return {"halo": halo, "disk": disk, "ic": ic, "virial": vr,
             "device": device, "tables_sec": t1 - t0,

@@ -208,8 +208,8 @@ class CylinderForce(nn.Module):
         return -4.0 * math.pi * sel.permute(2, 0, 1)
 
     def coefficients(self, x, mass, accum_dtype=torch.float32):
-        """Coefficients on this device; the all-reduce across devices comes
-        with the multi-device slice."""
+        """Coefficients of this device's particles; on a World the caller
+        sums them over the ranks (parallel.world_coefficients)."""
         return self.coefficients_local(x, mass, accum_dtype=accum_dtype)
 
     # ------------------------------------------------------------------

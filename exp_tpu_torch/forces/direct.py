@@ -25,8 +25,14 @@ chunks the sources as exp_tpu does — chunks of `chunk` when the source
 count is a multiple of it and larger, else all at once — and adds each
 chunk's sum to a target's running total in source order.  It also chunks
 the targets, so that the (targets, sources) temporaries of one chunk pair
-stay under `tmp_bytes`.  exp_tpu's ring over devices (its `axis_name`
-argument) is multi-device work, ROADMAP item 12.
+stay under `tmp_bytes`.
+
+Over the ranks of a World (`group`), the sum is exp_tpu's ring (its
+ppermute over `axis_name`; Direct.H): rank r adds, at pass i, the force of
+the source block of rank (r - i) mod size.  The blocks reach every rank
+once, by one all-reduce of a zero-padded buffer (the port's gather, which
+runs on every backend), and are then summed in the ring's order; ranks may
+hold blocks of different sizes.
 """
 
 from __future__ import annotations
@@ -110,7 +116,8 @@ class DirectForce(nn.Module):
         return None
 
     def coefficients(self, x, mass, accum_dtype=torch.float32):
-        """The 'coefficients' of the direct force are the sources."""
+        """The 'coefficients' of the direct force are this rank's sources
+        (the ring in `acceleration` brings the other ranks')."""
         return (x, mass)
 
     def _pair_mn(self, d, ms):
@@ -202,13 +209,26 @@ class DirectForce(nn.Module):
             pots.append(pot)
         return torch.cat(accs), torch.cat(pots)
 
-    def acceleration(self, coef, x, axis_name=None):
-        if axis_name is not None:
-            raise NotImplementedError(
-                "the direct force's ring over devices is not ported "
-                "(ROADMAP item 12)")
+    def acceleration(self, coef, x, group=None):
+        """Force of the sources `coef` = (xs, ms) on targets x; with a
+        World of several ranks, of every rank's sources, in ring order."""
         xs, ms = coef
-        return self._partial(xs, ms, x)
+        if group is None or group.size == 1:
+            return self._partial(xs, ms, x)
+        from exp_tpu_torch.parallel.distributed import allgather_rows
+
+        src, lens = allgather_rows(torch.cat([xs, ms[:, None]], dim=1),
+                                   group)
+        offs = [sum(lens[:k]) for k in range(group.size)]
+        acc = torch.zeros_like(x)
+        pot = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        for i in range(group.size):
+            k = (group.rank - i) % group.size
+            blk = src[offs[k]:offs[k] + lens[k]]
+            a, p = self._partial(blk[:, :3], blk[:, 3], x)
+            acc = acc + a
+            pot = pot + p
+        return acc, pot
 
     def density(self, coef, x):
         return torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)

@@ -28,9 +28,6 @@ from exp_tpu_torch.ops import sphere_kernels as sk
 from exp_tpu_torch.ops.special import (dlegendre_lm, legendre_lm,
                                        real_ylm_norm, sincos_m)
 
-#: the pallas_precision values the pallas backend does not run yet
-_UNPORTED_PRECISION = ("default", "mixed3")
-
 
 def _dsmall(dtype):
     """Radius floor guarding r -> 0 divisions; dtype-aware so that r^3 does
@@ -81,17 +78,22 @@ class SphereSL(nn.Module):
     explicit 'poly' above lmax 6 and any lmax above 10 raise
     NotImplementedError: no kernel is built there.
 
-    Precision on the 'pallas' backend ('pallas_precision'):
-      'mixed' (the default) and 'highest' run every pass in FP32 on the
-      CUDA cores, for 'spline' and 'hat' alike (exp_tpu runs 'hat' at
-      HIGHEST for every precision but 'default').  For the coefficient
-      pass this is at least as accurate as the TPU's one-pass bf16 under
-      'mixed'.  The coefficient -> table contraction is a torch matmul with
-      TF32 off: constructing a SphereSL on a CUDA device sets
+    Precision on the 'pallas' backend ('pallas_precision'): every knob
+      runs every pass in FP32 on the CUDA cores, for 'spline' and 'hat'
+      alike: the sphere's Hopper kernels (K1, K2, K3, K6) use no tensor
+      cores.  'mixed' (the default) and 'highest' are exp_tpu's FP32
+      passes (exp_tpu runs 'hat' at HIGHEST for every precision but
+      'default'); for 'default' (exp_tpu's one bf16 pass, a force error of
+      p50 1.2e-3) and 'mixed3' (its 3-pass bf16 split of the force pass,
+      within 2e-4 of 'mixed') the FP32 passes meet both contracts, and
+      give 'mixed''s values.  A tensor-core (bf16 or TF32) meaning of the
+      two is performance work.  'mixed3' with pallas_harmonics='poly'
+      raises ValueError, as in exp_tpu.  For the coefficient pass FP32 is
+      at least as accurate as the TPU's one-pass bf16 under 'mixed'.  The
+      coefficient -> table contraction is a torch matmul with TF32 off:
+      constructing a SphereSL on a CUDA device sets
       torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.
       allow_tf32 to False.
-      'default' (one bf16 pass) and 'mixed3' (the 3-pass bf16 split) raise
-      NotImplementedError until a Hopper meaning is given to them.
     """
 
     def __init__(self, grid: SLGridSph, fac, tabc, lmax: int, nmax: int,
@@ -207,13 +209,7 @@ class SphereSL(nn.Module):
 
     def _check_ported(self):
         """Raise NotImplementedError for a pallas setting no Hopper kernel
-        is built for: the bf16 precision knobs, and an lmax outside the
-        selected kernels' ranges."""
-        if self.pallas_precision in _UNPORTED_PRECISION:
-            raise NotImplementedError(
-                f"backend='pallas' with precision={self.pallas_precision} "
-                "needs a Hopper meaning for that pallas_precision, not "
-                "ported yet (every other knob runs FP32)")
+        is built for: an lmax outside the selected kernels' ranges."""
         setting = (f"lmax={self.lmax} (harmonics "
                    f"'{self.pallas_harmonics}', interp '{self._interp_eff}')")
         for kind in ("coef", "accel"):

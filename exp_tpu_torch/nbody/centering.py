@@ -35,14 +35,23 @@ import numpy as np
 import torch
 
 
-def _most_bound_centroid(x, v, mass, pot, k: int = 256):
+def _most_bound_centroid(x, v, mass, pot, k: int = 256, world=None):
     """Mass-weighted centroid c and angular momentum L (about c) of the k
-    most bound live rows, as (3,) tensors on the particles' device."""
+    most bound live rows, as (3,) tensors on the particles' device.  On a
+    World of several ranks the set is the global top k: each rank's own k
+    most bound rows are gathered, and the k most bound of those taken."""
     E = pot + 0.5 * torch.sum(v * v, dim=-1)
     # exclude padding (mass == 0) by pushing it to the end of the ranking
     E = torch.where(mass > 0, E, torch.full_like(E, float("inf")))
     kk = min(k, x.shape[0])
     idx = torch.topk(-E, kk).indices
+    if world is not None and world.size > 1:
+        from exp_tpu_torch.parallel.distributed import allgather_rows
+
+        cand, _ = allgather_rows(torch.cat([
+            E[idx, None], x[idx], v[idx], mass[idx, None]], dim=1), world)
+        E, x, v, mass = cand[:, 0], cand[:, 1:4], cand[:, 4:7], cand[:, 7]
+        idx = torch.topk(-E, min(k, cand.shape[0])).indices
     w = mass[idx]
     xi = x[idx]
     c = torch.sum(xi * w[:, None], dim=0) / torch.clamp(torch.sum(w),
@@ -207,9 +216,9 @@ class EJOrient:
     sigA: float = 0.0
     _log_started: bool = False
 
-    def update(self, ps, time=0.0) -> np.ndarray:
+    def update(self, ps, time=0.0, world=None) -> np.ndarray:
         c, L = _most_bound_centroid(ps.x, ps.v, ps.mass, ps.pot,
-                                    k=self.nkeep)
+                                    k=self.nkeep, world=world)
         # one device-to-host transfer of the six numbers
         cl = torch.cat([c, L]).detach().cpu().numpy().astype(np.float64)
         c1, L1 = cl[:3].copy(), cl[3:].copy()

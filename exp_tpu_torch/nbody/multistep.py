@@ -1,5 +1,5 @@
-"""Binary multistep (block-timestep) KDK integrator on one device (port of
-exp_tpu/nbody/multistep.py).
+"""Binary multistep (block-timestep) KDK integrator (port of
+exp_tpu/nbody/multistep.py), on one device or on each rank of a World.
 
 * Levels 0..M; level l steps with dt_l = dtime/2^l; one big step = 2^M fine
   substeps; level l is active at substeps ms with ms % 2^(M-l) == 0, so the
@@ -29,6 +29,25 @@ packed together and a separate int32 gather of `indx`, whichever of the
 JAX package's 'sortfull' and 'sortgather' is asked for: on the card a
 gather costs what the sort's payload would, so one engine serves both.
 
+'incremental' moves only the movers (exp_tpu's movers-only relevel): one
+mask finds the live rows whose level changed, a stable sort of those rows
+alone orders them by destination, leavers become holes in place (every
+column of the row zeroed, so a hole is a padding row: zero mass, indx 0),
+and each destination's arrivals are written at its fill pointer, the
+bucket's high-water mark.  The full compaction ('sortfull') runs instead
+whenever a destination's arrivals exceed its arrival buffer
+(`_arrival_caps`: pow2(cap/32), at least 1, at most cap; counted in
+`n_compactions`) or fill + buffer would pass a bucket's capacity; it resets
+the fill pointers to the live counts.  The buckets are changed in place.
+
+On a World of several ranks each rank runs the runner on its own rows and
+buckets (whose capacities may differ between ranks): every projection is
+summed over the ranks after its kernel, and so are the COM centers, the
+diagnostics and the level counts.  A relevel reduces the figures that
+choose its branch (the level counts, the movers, the overrun counts and
+whether each rank's buckets fit) before it takes one, so that every rank
+takes the same branch and meets the same collectives.
+
 Two-center forces and source-based (direct) forces run as in exp_tpu's
 substep: a two-center force is rebuilt each substep with the component's
 resolved center as its inner center and its COM over all buckets as its
@@ -46,9 +65,6 @@ assembled set, its registers unused), Hall weights on the assembled set,
 then the restriction's `c * mask + offset`, and the non-inertial frame
 correction (`pseudo`), subtracted once a kick.
 
-Not ported, each raising NotImplementedError with its ROADMAP item: the
-'incremental' rebucket (item 9b.2) and the multi-device all-reduce (item
-12).
 """
 
 from __future__ import annotations
@@ -60,9 +76,11 @@ import numpy as np
 import torch
 
 from exp_tpu_torch.nbody.particles import ParticleSystem
-from exp_tpu_torch.nbody.step import _diagnostics
+from exp_tpu_torch.nbody.step import _diagnostics, reduce_diag
+from exp_tpu_torch.parallel.distributed import (all_reduce, sum_host,
+                                                world_coefficients)
 
-REBUCKET_STYLES = ("sortfull", "sortgather")
+REBUCKET_STYLES = ("sortfull", "sortgather", "incremental")
 
 
 def mintvl_table(M: int) -> list[int]:
@@ -113,20 +131,22 @@ def unrotate(a, rot):
 
 
 def _project(force, feat: CompFeats, x, mass, t, center, accum_dtype,
-             rot=None):
-    """Coefficients of one bucket with the features applied.  A center of
-    None is the origin and a rot of None the identity: both are skipped,
-    so no position passes through an arithmetic it does not need."""
+             rot=None, world=None):
+    """Coefficients of one bucket with the features applied, summed over
+    the ranks of `world`.  A center of None is the origin and a rot of
+    None the identity: both are skipped, so no position passes through an
+    arithmetic it does not need."""
     xc = x if center is None else x - center[None, :]
     if rot is not None:
         xc = rotate(xc, rot)
     mw = mass * feat.adb(t) if feat.adiabatic else mass
     if feat.rtrunc < 1.0e19:    # Component.H:136: no contribution outside
         mw = mw * (torch.sum(xc * xc, dim=-1) < feat.rtrunc ** 2).to(mw.dtype)
-    return force.coefficients(xc, mw, accum_dtype=accum_dtype)
+    return world_coefficients(force, xc, mw, world, accum_dtype=accum_dtype)
 
 
-def _project_tc(force, feat: CompFeats, x, mass, t, center, accum_dtype):
+def _project_tc(force, feat: CompFeats, x, mass, t, center, accum_dtype,
+                world=None):
     """Two-center projection: positions stay raw (the force subtracts its
     own centers), the adiabatic ramp and the rtrunc cutoff about the
     resolved inner center (None: the origin), as exp_tpu's single-rate
@@ -135,7 +155,7 @@ def _project_tc(force, feat: CompFeats, x, mass, t, center, accum_dtype):
     if feat.rtrunc < 1.0e19:
         xr = x if center is None else x - center[None, :]
         mw = mw * (torch.sum(xr * xr, dim=-1) < feat.rtrunc ** 2).to(mw.dtype)
-    return force.coefficients(x, mw, accum_dtype=accum_dtype)
+    return world_coefficients(force, x, mw, world, accum_dtype=accum_dtype)
 
 
 def tmap(fn, *sets):
@@ -152,7 +172,18 @@ def source_names(forces):
     return {n for n, f in forces.items() if getattr(f, "needs_sources", False)}
 
 
-def _eff_forces(forces, state, ctr):
+def _com(bs, world=None):
+    """The mass-weighted center of a component's buckets, over the ranks of
+    `world` (one all-reduce of the mass and the moment together)."""
+    msum = sum(torch.sum(b.mass) for b in bs)
+    xsum = sum(torch.sum(b.mass[:, None] * b.x, dim=0) for b in bs)
+    if world is not None and world.size > 1:
+        mx = all_reduce(torch.cat([msum.reshape(1), xsum]), world)
+        msum, xsum = mx[0], mx[1:]
+    return xsum / msum
+
+
+def _eff_forces(forces, state, ctr, world=None):
     """Two-center (needs_centers) forces rebuilt with their centers: inner
     = the component's resolved center (None: the origin), outer = its
     instantaneous COM over all buckets (TwoCenter.cc:106-155).  Returns
@@ -162,13 +193,10 @@ def _eff_forces(forces, state, ctr):
         if not getattr(f, "needs_centers", False):
             continue
         tc.add(n)
-        bs = state[n]
-        x0 = bs[0].x
-        msum = sum(torch.sum(b.mass) for b in bs)
-        xsum = sum(torch.sum(b.mass[:, None] * b.x, dim=0) for b in bs)
+        x0 = state[n][0].x
         c1 = (torch.zeros(3, dtype=x0.dtype, device=x0.device)
               if ctr[n] is None else ctr[n].to(x0.dtype))
-        eff[n] = f.with_centers(c1, xsum / msum)
+        eff[n] = f.with_centers(c1, _com(state[n], world))
     return eff, tc
 
 
@@ -180,19 +208,20 @@ def _sources_of(bs):
 
 
 def _accel_at(x, t, comp_couples, forces, coef_full, ctr, rots,
-              externals=(), cast=True, tc=(), sources=None):
+              externals=(), cast=True, tc=(), sources=None, world=None):
     """Acceleration and potential at positions x from the coupled
     components' assembled coefficients (centers and rots as in _project),
     plus the external fields at time t.  A two-center force (in `tc`)
     takes the raw positions; a source component (in `sources`, name ->
     (x, mass)) sums over its particles.  cast: the coefficients in the
     positions' dtype first, as exp_tpu's runner does (its single-rate
-    driver passes them as they are)."""
+    driver passes them as they are).  A source force sums every rank's
+    sources of `world` (its ring)."""
     acc = pot = None
     sources = sources or {}
     for a in comp_couples:
         if a in sources:
-            aa, pp = forces[a].acceleration(sources[a], x)
+            aa, pp = forces[a].acceleration(sources[a], x, group=world)
         elif a in tc:
             cf = (tmap(lambda c: c.to(x.dtype), coef_full[a]) if cast
                   else coef_full[a])
@@ -252,25 +281,25 @@ def _assemble_extras(n, tot, ex):
     return tot
 
 
-def _com_centers(state, feats, centers):
+def _com_centers(state, feats, centers, world=None):
     """Expansion center per component: the instantaneous COM over all
-    buckets for `com_system` components, else the prescribed one (None:
-    the origin)."""
+    buckets (of every rank) for `com_system` components, else the
+    prescribed one (None: the origin)."""
     ctr = {}
     for n, bs in state.items():
         if feats[n].com_system:
-            msum = sum(torch.sum(b.mass) for b in bs)
-            xsum = sum(torch.sum(b.mass[:, None] * b.x, dim=0) for b in bs)
-            ctr[n] = xsum / msum
+            ctr[n] = _com(bs, world)
         else:
             ctr[n] = centers.get(n)
     return ctr
 
 
-def _sum_diag(bs):
-    """The diagnostics of a component's buckets, summed in bucket order."""
+def _sum_diag(bs, world=None):
+    """The diagnostics of a component's buckets, summed in bucket order,
+    then over the ranks of `world`."""
     parts = [_diagnostics(b) for b in bs]
-    return {k: sum(p[k] for p in parts) for k in parts[0]}
+    return reduce_diag({k: sum(p[k] for p in parts) for k in parts[0]},
+                       world)
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +436,7 @@ def flatten_buckets(buckets) -> ParticleSystem:
 def init_regs(forces: dict, couples: dict, state: dict, t0=0.0,
               centers=None, rots=None, feats=None,
               accum_dtype=torch.float32, prime_accel=True, with_diag=True,
-              externals=(), extras=None):
+              externals=(), extras=None, world=None):
     """Per-level registers and the acceleration at t0 (begin_run prime;
     exp_tpu's init_regs_sm on one device): returns (state, regs, coef_full,
     diag).  Both registers of a level hold its coefficients at t0; a
@@ -417,14 +446,15 @@ def init_regs(forces: dict, couples: dict, state: dict, t0=0.0,
     prime_accel=False skips the acceleration pass: the relevel uses it,
     since the rebucket carries each particle's acc and pot from the last
     closing kick at the same time.  The acceleration is written into the
-    buckets in place.  with_diag=False skips the diagnostics."""
+    buckets in place.  with_diag=False skips the diagnostics.  `world`:
+    each projection, center and diagnostic is summed over its ranks."""
     names = list(forces)
     feats = feats or {n: CompFeats() for n in names}
     centers = centers or {}
     rots = rots or {n: None for n in names}
     ex = extras or _NO_EXTRAS
-    ctr = _com_centers(state, feats, centers)
-    eff, tc = _eff_forces(forces, state, ctr)
+    ctr = _com_centers(state, feats, centers, world)
+    eff, tc = _eff_forces(forces, state, ctr, world)
     src = source_names(forces)
     regs, coef_full = {}, {}
     for n in names:
@@ -440,10 +470,11 @@ def init_regs(forces: dict, couples: dict, state: dict, t0=0.0,
             continue
         if n in tc:
             cs = [_project_tc(eff[n], feats[n], b.x, b.mass, t0, ctr[n],
-                              accum_dtype) for b in state[n]]
+                              accum_dtype, world) for b in state[n]]
         else:
             cs = [_project(forces[n], feats[n], b.x, b.mass, t0, ctr[n],
-                           accum_dtype, rot=rots[n]) for b in state[n]]
+                           accum_dtype, rot=rots[n], world=world)
+                  for b in state[n]]
         regs[n] = (list(cs), list(cs))
         tot = cs[0]
         for c in cs[1:]:
@@ -456,13 +487,13 @@ def init_regs(forces: dict, couples: dict, state: dict, t0=0.0,
             for b in state[n]:
                 acc, b.pot = _accel_at(b.x, t0, couples[n], eff, coef_full,
                                        ctr, rots, externals, tc=tc,
-                                       sources=srcs)
+                                       sources=srcs, world=world)
                 if n in ex["pseudo"]:
                     acc = acc - _pseudo_accel(ex["pseudo"][n], b.x, b.v,
                                               ctr[n])
                 b.acc = acc
         if with_diag:
-            diag[n] = _sum_diag(state[n])
+            diag[n] = _sum_diag(state[n], world)
     return state, regs, coef_full, diag
 
 
@@ -471,20 +502,22 @@ def init_regs(forces: dict, couples: dict, state: dict, t0=0.0,
 # ---------------------------------------------------------------------------
 
 class MultistepRunner:
-    """Host orchestration on one device: big steps and boundary relevels.
+    """Host orchestration: big steps and boundary relevels, on one device
+    or on this rank's rows of a World.
 
     `forces` maps component name -> force (SphereSL, CylinderForce, ...),
     `couples` name -> the names whose fields act on it.  The state is a
     dict name -> list of M+1 bucket ParticleSystems, the registers a dict
     name -> ([L_0..L_M], [N_0..N_M]).  `externals` are external fields
-    (forces/external.py), `wrappers` position wrappers (PeriodicBC)."""
+    (forces/external.py), `wrappers` position wrappers (PeriodicBC).
+    `world`: this rank's World (None: one device)."""
 
     def __init__(self, forces: dict, couples: dict, dtime: float, M: int,
                  accum_dtype=torch.float32, dynparams=None,
                  shiftlevl: int = 0, externals=(), feats=None,
                  cap_headroom: int = 1, fused: bool = False,
                  eqmotion: bool = True, rebucket_style: str = "sortfull",
-                 wrappers=()):
+                 wrappers=(), world=None):
         self.forces = forces
         self.couples = couples
         self.dtime = float(dtime)
@@ -499,23 +532,25 @@ class MultistepRunner:
         self.rebucket_style = str(rebucket_style)
         self.externals = tuple(externals)
         self.wrappers = tuple(wrappers)
-        if self.rebucket_style == "incremental":
-            raise NotImplementedError(
-                "rebucket_style='incremental' (the movers-only relevel) is "
-                "not ported (ROADMAP item 9b.2); 'sortfull' and 'sortgather' "
-                "run the port's one rebucket engine")
+        self.world = world
         if self.rebucket_style not in REBUCKET_STYLES:
             raise ValueError(f"rebucket_style={rebucket_style!r}: expected "
-                             f"one of {REBUCKET_STYLES + ('incremental',)}")
+                             f"one of {REBUCKET_STYLES}")
         self.caps: dict = {}
         #: per-component (offlo, offhi, nlive) from the last relevel: live
         #: particles requesting finer-than-finest / coarser-than-dtime steps
-        #: (multistep.cc:160-195)
+        #: (multistep.cc:160-195), over every rank
         self.overrun: dict = {}
-        #: relevels that rebuilt the registers, and those of them that grew
-        #: the capacities on the host fallback
+        #: relevels that rebuilt the registers, those of them that grew
+        #: the capacities on the host fallback, and the incremental
+        #: relevels whose arrivals overflowed a buffer and compacted
         self.n_rebuilds = 0
         self.n_fallbacks = 0
+        self.n_compactions = 0
+        #: per capacity signature, each component's bucket fill pointers
+        #: (high-water marks) for the incremental relevel; the live rows
+        #: are contiguous (fill == live counts) only after a compaction
+        self._fill: dict = {}
 
     # -- helpers ----------------------------------------------------------
 
@@ -541,7 +576,23 @@ class MultistepRunner:
                          centers=centers, rots=self._rots(rots),
                          feats=self.feats, accum_dtype=self.accum_dtype,
                          prime_accel=prime_accel, with_diag=with_diag,
-                         externals=self.externals, extras=extras)
+                         externals=self.externals, extras=extras,
+                         world=self.world)
+
+    def _arrival_caps(self, caps):
+        """Arrival-buffer rows of each bucket for the incremental relevel,
+        derived from its capacity: pow2(cap/32), at least 1, at most cap
+        (exp_tpu's _arrival_caps with a shard quantum of 1)."""
+        out = {}
+        for n, cs in caps.items():
+            ks = []
+            for cap in cs:
+                k = 1
+                while k < max(cap // 32, 1):
+                    k *= 2
+                ks.append(min(k, cap))
+            out[n] = tuple(ks)
+        return out
 
     # -- entry points -----------------------------------------------------
 
@@ -551,8 +602,10 @@ class MultistepRunner:
         (begin.cc:86-127's multistep prime): forces with every particle at
         level 0, levels from the dt criteria (unclamped: there is no
         previous level yet), then buckets and registers at those levels.
-        Returns (state, regs, coef_full, diag)."""
+        The incremental relevel's fill pointers start afresh.  Returns
+        (state, regs, coef_full, diag)."""
         ex = self._extras(extras_fn, t0)
+        self._fill = {}
         state = {n: bucketize(ps, self.M, headroom=self.cap_headroom)
                  for n, ps in flat.items()}
         st = {n: lb.buckets for n, lb in state.items()}
@@ -574,7 +627,7 @@ class MultistepRunner:
     def _substep(self, st, regs, t0, ms, centers, rots, ex):
         """Fine substep ms of the hierarchy, in place; returns coef_full.
         `ex` are the extras at this substep's drift time."""
-        M, names = self.M, list(self.forces)
+        M, names, world = self.M, list(self.forces), self.world
         mint = mintvl_table(M)
         dt = self.dtime / 2 ** M
         mfirst = mfirst_of(ms, M)
@@ -594,9 +647,9 @@ class MultistepRunner:
                     for wrp in self.wrappers:
                         b.x = wrp.wrap(b.x)
 
-        ctr = _com_centers(st, self.feats, centers)
+        ctr = _com_centers(st, self.feats, centers, world)
         # two-center inner = the resolved center, outer = the COM
-        eff, tc = _eff_forces(self.forces, st, ctr)
+        eff, tc = _eff_forces(self.forces, st, ctr, world)
         src = source_names(self.forces)
 
         # registers of the active levels: L <- N, N <- new, at the time of
@@ -610,11 +663,12 @@ class MultistepRunner:
                 t_lvl = t0 + dt * (ms + mint[l])
                 if n in tc:     # the force applies its centers itself
                     cnew = _project_tc(eff[n], self.feats[n], b.x, b.mass,
-                                       t_lvl, ctr[n], self.accum_dtype)
+                                       t_lvl, ctr[n], self.accum_dtype,
+                                       world)
                 else:
                     cnew = _project(self.forces[n], self.feats[n], b.x,
                                     b.mass, t_lvl, ctr[n], self.accum_dtype,
-                                    rot=rots[n])
+                                    rot=rots[n], world=world)
                 regs[n][0][l] = regs[n][1][l]
                 regs[n][1][l] = cnew
 
@@ -652,7 +706,7 @@ class MultistepRunner:
                 DT = dt * mint[l]
                 acc, pot = _accel_at(b.x, t_sub, self.couples[n], eff,
                                      coef_full, ctr, rots, self.externals,
-                                     tc=tc, sources=srcs)
+                                     tc=tc, sources=srcs, world=world)
                 # the non-inertial frame correction, once a kick
                 # (Component.H:913-921 AddAcc)
                 if n in ex["pseudo"]:
@@ -676,15 +730,18 @@ class MultistepRunner:
         for ms in range(2 ** self.M):
             ex = self._extras(extras_fn, t0 + dt * (ms + 1))
             coef = self._substep(st, regs, t0, ms, centers, rots, ex)
-        diag = {n: _sum_diag(bs) for n, bs in st.items()}
+        diag = {n: _sum_diag(bs, self.world) for n, bs in st.items()}
         return st, regs, coef, diag
 
-    def _assess(self, st):
+    def _assess(self, st, movers=False):
         """Flatten, dt criteria, new levels (live rows only), and one host
-        read of the per-level live counts, the number of live particles
-        that changed level and the overrun counts."""
+        read of this rank's per-level live counts, the number of live
+        particles that changed level and the overrun counts; with
+        `movers`, also the movers ordered by destination (a stable sort of
+        the movers alone) and each destination's arrivals.  Returns (flat,
+        levs, host figures by component, mover rows by component)."""
         M = self.M
-        flat, levs, stats = {}, {}, []
+        flat, levs, stats, order = {}, {}, [], {}
         for n, bs in st.items():
             ps = flatten_buckets(bs)
             dtr = dtreq_fn(ps, **self.dyn)
@@ -694,19 +751,28 @@ class MultistepRunner:
             flat[n], levs[n] = ps, lev.to(torch.int32)
             key = torch.where(live, lev, M + 1).long()
             counts = torch.bincount(key, minlength=M + 2)[:M + 1]
+            mover = (lev != ps.level) & live
             # overrun from the unclamped request (multistep.cc:160-195)
             nraw = _raw_levels(dtr, self.dtime)
-            stats.append(torch.cat([
-                counts, torch.stack([
-                    torch.sum((lev != ps.level) & live),
-                    torch.sum(live & (nraw > M)),
-                    torch.sum(live & (dtr > self.dtime)),
-                    torch.sum(live)]).long()]))
+            row = [counts, torch.stack([
+                torch.sum(mover), torch.sum(live & (nraw > M)),
+                torch.sum(live & (dtr > self.dtime)),
+                torch.sum(live)]).long()]
+            if movers:
+                midx = torch.nonzero(mover).squeeze(1)
+                mlev = levs[n].index_select(0, midx)
+                order[n] = midx.index_select(
+                    0, torch.sort(mlev, stable=True).indices)
+                row.append(torch.bincount(mlev.long(), minlength=M + 1))
+            stats.append(torch.cat(row))
         host = torch.stack(stats).cpu().numpy()
-        counts = {n: [int(c) for c in h[:M + 1]] for n, h in zip(st, host)}
-        nchanged = int(host[:, M + 1].sum())
-        over = {n: tuple(int(c) for c in h[M + 2:]) for n, h in zip(st, host)}
-        return flat, levs, counts, nchanged, over
+        figs = {}
+        for n, h in zip(st, host):
+            figs[n] = {"counts": [int(c) for c in h[:M + 1]],
+                       "nchanged": int(h[M + 1]),
+                       "over": tuple(int(c) for c in h[M + 2:M + 5]),
+                       "arrivals": [int(c) for c in h[M + 5:]]}
+        return flat, levs, figs, order
 
     def _rebucket(self, ps, lev, counts, caps):
         """The buckets of one component at fixed capacities: a stable sort
@@ -737,6 +803,29 @@ class MultistepRunner:
                 indx=ib, scale=blk[:, 11].contiguous()))
         return bs
 
+    def _move_incremental(self, bs, ps, lev, movers, arrivals, fill):
+        """The movers-only rebucket of one component, in place: leavers
+        become holes (every column of the row zeroed), then each
+        destination's arrivals, in the movers' order, are written at its
+        fill pointer."""
+        mover = (lev != ps.level) & (ps.mass > 0)
+        cols = [ps.x, ps.v, ps.acc, ps.mass, ps.pot, ps.scale, ps.indx]
+        moved = [c.index_select(0, movers) for c in cols]
+        off = start = 0
+        for l, b in enumerate(bs):
+            cap = b.x.shape[0]
+            kill = mover[off:off + cap]
+            off += cap
+            a, f = arrivals[l], fill[l]
+            for name, src in zip(("x", "v", "acc", "mass", "pot", "scale",
+                                  "indx"), moved):
+                t = getattr(b, name)
+                t.masked_fill_(kill[:, None] if t.dim() == 2 else kill, 0)
+                if a:
+                    t[f:f + a] = src[start:start + a]
+            start += a
+        return bs
+
     def relevel(self, st, regs, t0=0.0, centers=None, extras_fn=None,
                 rots=None):
         """Boundary relevel (NoSwitch discipline); returns (state, regs).
@@ -744,19 +833,64 @@ class MultistepRunner:
         The registers are rebuilt at the synchronised time, where every
         level's L and N coincide, so no tableau state is lost; acc and pot
         are carried through the rebucket.  When no live particle changed
-        level the state and registers are returned as they are.  When a
-        level outgrew its bucket, the buckets are rebuilt with grown
-        capacities (bucketize, the JAX package's host fallback)."""
+        level the state and registers are returned as they are.  Under
+        'incremental', when every fill pointer has a buffer's room and
+        every destination's arrivals fit their buffer, only the movers
+        move; otherwise, and under the other styles, the buckets are
+        compacted at fixed capacities, or, when a level outgrew its
+        bucket, rebuilt with grown capacities (bucketize, the JAX
+        package's host fallback).  On a World every figure that picks the
+        branch is summed over the ranks first."""
         ex = self._extras(extras_fn, t0)
-        flat, levs, counts, nchanged, over = self._assess(st)
-        self.overrun = over
+        M, sig = self.M, self._caps_sig(st)
+        names = list(st)
+        fill = self._fill.get(sig)
+        try_incr = self.rebucket_style == "incremental" and fill is not None
+        if try_incr:
+            Ks = self._arrival_caps(self.caps)
+            try_incr = all(fill[n][l] + Ks[n][l] <= self.caps[n][l]
+                           for n in names for l in range(M + 1))
+        flat, levs, figs, movers = self._assess(st, movers=try_incr)
+        fits = all(c <= self.caps[n][l] for n in names
+                   for l, c in enumerate(figs[n]["counts"]))
+        arr_ok = try_incr and all(
+            a <= Ks[n][l] for n in names
+            for l, a in enumerate(figs[n]["arrivals"]))
+        # one reduction of the figures that pick the branch, so that every
+        # rank of a world takes the same one
+        vec = np.array([v for n in names for v in
+                        figs[n]["counts"] + [figs[n]["nchanged"]]
+                        + list(figs[n]["over"])]
+                       + [not fits, not try_incr, not arr_ok], np.int64)
+        g = sum_host(vec, self.world)
+        k = len(names) * (M + 5)
+        per = g[:k].reshape(len(names), M + 5)
+        nchanged = int(per[:, M + 1].sum())
+        self.overrun = {n: tuple(int(v) for v in per[i, M + 2:])
+                        for i, n in enumerate(names)}
+        all_fit, all_try, all_arr = (int(v) == 0 for v in g[k:])
         if nchanged == 0:
+            if sig not in self._fill:
+                self._fill[sig] = {n: list(figs[n]["counts"]) for n in names}
             return st, regs
-        fits = all(c <= self.caps[n][l] for n, cs in counts.items()
-                   for l, c in enumerate(cs))
-        if fits:
-            st2 = {n: self._rebucket(flat[n], levs[n], counts[n], self.caps[n])
-                   for n in flat}
+        self.n_rebuilds += 1
+        if all_try:
+            if all_arr:
+                st2 = {n: self._move_incremental(
+                    st[n], flat[n], levs[n], movers[n],
+                    figs[n]["arrivals"], fill[n]) for n in names}
+                self._fill[sig] = {
+                    n: [f + a for f, a in zip(fill[n], figs[n]["arrivals"])]
+                    for n in names}
+                st2, regs2, _, _ = self._init(st2, t0, centers, rots,
+                                              prime_accel=False,
+                                              with_diag=False, extras=ex)
+                return st2, regs2
+            self.n_compactions += 1
+        if all_fit:
+            st2 = {n: self._rebucket(flat[n], levs[n], figs[n]["counts"],
+                                     self.caps[n]) for n in names}
+            self._fill[sig] = {n: list(figs[n]["counts"]) for n in names}
         else:
             self.n_fallbacks += 1
             state = {n: bucketize(replace(ps, level=levs[n]), self.M,
@@ -765,16 +899,17 @@ class MultistepRunner:
                      for n, ps in flat.items()}
             self.caps = {n: lb.caps for n, lb in state.items()}
             st2 = {n: lb.buckets for n, lb in state.items()}
-        self.n_rebuilds += 1
         st2, regs2, _, _ = self._init(st2, t0, centers, rots,
                                       prime_accel=False, with_diag=False,
                                       extras=ex)
         return st2, regs2
 
     def level_counts(self, st):
-        """Live particles per level of each component (one host read)."""
+        """Live particles per level of each component, over every rank
+        (one host read)."""
         cts = torch.stack([torch.sum(b.mass > 0) for bs in st.values()
                            for b in bs]).cpu().numpy()
+        cts = sum_host(cts.astype(np.int64), self.world)
         out, k = {}, 0
         for n, bs in st.items():
             out[n] = [int(c) for c in cts[k:k + len(bs)]]

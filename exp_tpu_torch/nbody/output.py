@@ -17,12 +17,14 @@ the reference's OutputContainer factory + writers (src/OutputContainer.cc:48-
              populations, orbit traces, radial shells, Lagrangian radii,
              the energy/angular-momentum calibration and ascii dumps.
 
-The files are exp_tpu's, byte for byte where the values are equal.  One
-process writes them all: exp_tpu's multi-process gather/write split and
-its process-0 gating come with the multi-device slice (ROADMAP item 12).
-OutVel needs analysis.field_basis (ROADMAP item 14) and raises
-NotImplementedError.  OutSamp writes the subsample covariance through
-nbody/pca.py.
+The files are exp_tpu's, byte for byte where the values are equal.  On a
+world of several ranks a due writer first runs `gather` on every rank (the
+collectives it needs: the phase-space gather of `sim.host_ps`, the level
+counts, the subsample projections), then `write` on rank 0 alone, which
+also alone creates the files (exp_tpu's gather/write split and its
+process-0 gating).  OutVel needs analysis.field_basis (ROADMAP item 14)
+and raises NotImplementedError.  OutSamp writes the subsample covariance
+through nbody/pca.py.
 
 Writers read the host copies the driver makes (`sim.host_ps`, and the
 coefficients and diagnostics it brings to the host once at an output
@@ -36,7 +38,7 @@ import time
 
 import numpy as np
 
-from exp_tpu_torch.nbody.particles import _host
+from exp_tpu_torch.nbody.particles import ParticleSystem, _host
 
 
 class Output:
@@ -49,10 +51,27 @@ class Output:
 
     def run(self, sim, istep, force=False):
         if force or (self.nint > 0 and istep % self.nint == 0):
-            self.write(sim, istep)
+            self.gather(sim)
+            if _primary(sim):
+                self.write(sim, istep)
+
+    def gather(self, sim):
+        """The collectives every rank takes part in before rank 0 writes;
+        nothing by default."""
 
     def write(self, sim, istep):
         raise NotImplementedError
+
+
+def _primary(sim):
+    """True on the rank that writes (every run on one device)."""
+    return getattr(sim, "is_primary", True)
+
+
+def _gather_all(sim):
+    """Every component's host phase space (a collective on a world)."""
+    for n in sim.components:
+        sim.host_ps(n)
 
 
 def _fresh(sim, path):
@@ -82,7 +101,7 @@ class OutLog(Output):
         cols = list(self.GLOBAL_COLS)
         for n in names:
             cols += [f"{n}:{c}" for c in comp_cols]
-        if not _fresh(sim, self.path):
+        if not _primary(sim) or not _fresh(sim, self.path):
             return                      # restart: append to the old log
         with open(self.path, "w") as f:
             f.write(f"# exp_tpu run {sim.runtag}; components: "
@@ -90,6 +109,16 @@ class OutLog(Output):
             f.write("# Columns: global totals then per-component sections; "
                     "energies G=1\n")
             f.write("|".join(f"{c:>16s}" for c in cols) + "\n")
+
+    def gather(self, sim):
+        if not hasattr(self, "_nlive"):
+            # live particles only — ps.n includes zero-mass padding rows
+            from exp_tpu_torch.parallel.distributed import sum_host
+
+            n = sum(int((c.ps.mass > 0).sum())
+                    for c in sim.components.values())
+            self._nlive = int(sum_host(np.array([n], np.int64),
+                                       getattr(sim, "world", None))[0])
 
     def write(self, sim, istep):
         d = sim.total_diag()
@@ -99,10 +128,6 @@ class OutLog(Output):
         L = np.asarray(d["L"])
         ke, pe, vc = float(d["KE"]), float(d["PE"]), float(d["VC"])
         ratio = -2.0 * ke / vc if vc != 0 else np.nan
-        if not hasattr(self, "_nlive"):
-            # live particles only — ps.n includes zero-mass padding rows
-            self._nlive = sum(int((c.ps.mass > 0).sum())
-                              for c in sim.components.values())
         nb = self._nlive
         row = [sim.time, mass, nb, *com, *mom, *L, ke, pe, vc, ke + vc,
                ratio, time.time() - self._wall0]
@@ -132,6 +157,9 @@ class OutCoef(Output):
             name = next(iter(sim.components))
         self.name = name
         comp = sim.components[name]
+        self.file = None
+        if not _primary(sim):
+            return
         from exp_tpu_torch.forces.cube import Cube
         from exp_tpu_torch.forces.cylinder import CylinderForce
         from exp_tpu_torch.io.coefs import (CubeCoefsFile, CylCoefsFile,
@@ -179,6 +207,9 @@ class OutChkpt(Output):
         # checkpoints (OutCHKPT.H:6-20)
         self.real4 = bool(real4)
 
+    def gather(self, sim):
+        _gather_all(sim)
+
     def _rotate(self):
         baks = [self.path + ".bak"] + [f"{self.path}.bak{i}"
                                        for i in range(1, self.nbak)]
@@ -213,8 +244,6 @@ def restore_checkpoint(sim, path=None, as_new=False):
     as_new: restore only the phase space, keep time/istep at zero and
     start fresh outputs (Global restart_as_new / ignore_info,
     parse.cc:243).  h5py is imported only for an HDF5 checkpoint."""
-    from exp_tpu_torch.nbody.particles import ParticleSystem
-
     path = path or os.path.join(sim.outdir, f"OUT.{sim.runtag}.chkpt")
     # PSP binary checkpoints also restart (the reference's native format)
     with open(path, "rb") as fh:
@@ -235,9 +264,7 @@ def restore_checkpoint(sim, path=None, as_new=False):
         for c in d.components:
             if c.name not in sim.components:
                 continue
-            state[c.name] = ParticleSystem.from_arrays(
-                c.x, c.v, c.mass, dtype=sim.compute_dtype, indx=c.indx,
-                device=sim.device)
+            state[c.name] = _restored(sim, c.x, c.v, c.mass, indx=c.indx)
         if state:
             sim._state.update(state)
         _reset_derived_state(sim)
@@ -251,15 +278,44 @@ def restore_checkpoint(sim, path=None, as_new=False):
         state = {}
         for n in sim.components:
             g = f[n]
-            state[n] = ParticleSystem.from_arrays(
-                g["x"][...], g["v"][...], g["mass"][...],
-                dtype=sim.compute_dtype,
+            state[n] = _restored(
+                sim, g["x"][...], g["v"][...], g["mass"][...],
                 indx=g["indx"][...] if "indx" in g else None,
-                scale=g["scale"][...] if "scale" in g else None,
-                device=sim.device)
+                scale=g["scale"][...] if "scale" in g else None)
     sim._state = state
     _reset_derived_state(sim)
     return sim
+
+
+def _restored(sim, x, v, mass, indx=None, scale=None):
+    """A component's restored state on the run's device; on a world of
+    several ranks this rank's row block of it, the global count padded to
+    a multiple of the world size with zero-mass rows."""
+    if not getattr(sim, "dist", False):
+        return ParticleSystem.from_arrays(x, v, mass, dtype=sim.compute_dtype,
+                                          indx=indx, scale=scale,
+                                          device=sim.device)
+    from exp_tpu_torch.parallel.distributed import (pad_global_count,
+                                                    ps_from_local, row_block)
+
+    w = sim.world
+    n = len(mass)
+    npad = pad_global_count(n, w) - n
+
+    def pad(a, fill=0.0):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        return np.concatenate([a, np.full((npad,) + a.shape[1:], fill,
+                                          a.dtype)])
+
+    lo, hi = row_block(n + npad, w)
+    ix = pad(indx, 0)
+    sc = pad(scale, -1.0)
+    return ps_from_local(pad(x)[lo:hi], pad(v)[lo:hi], pad(mass)[lo:hi], w,
+                         n + npad, lo, dtype=sim.compute_dtype,
+                         indx=None if ix is None else ix[lo:hi],
+                         scale=None if sc is None else sc[lo:hi])
 
 
 def _reset_derived_state(sim):
@@ -292,6 +348,9 @@ class OutPSN(Output):
         # counter starting at `nbeg`, incremented per file written
         # (OutPSQ.H:10-13); default keeps the step-number suffix.
         self._seq = None if nbeg is None else int(nbeg)
+
+    def gather(self, sim):
+        _gather_all(sim)
 
     def _suffix(self, istep):
         if self._seq is None:
@@ -415,15 +474,20 @@ class OutMulti(Output):
     def __init__(self, sim, nint=1, **kw):
         super().__init__(sim, nint)
         self.path = os.path.join(sim.outdir, f"{sim.runtag}.levels")
-        if not _fresh(sim, self.path):
+        if not _primary(sim) or not _fresh(sim, self.path):
             return
         with open(self.path, "w") as f:
             f.write("# time  component  counts per level 0..M\n")
 
+    def gather(self, sim):
+        self._counts = None
+        if sim._ms_runner is not None and sim._ms_state is not None:
+            self._counts = sim._ms_runner.level_counts(sim._ms_state)
+
     def write(self, sim, istep):
-        if sim._ms_runner is None or sim._ms_state is None:
+        counts = self._counts
+        if counts is None:
             return
-        counts = sim._ms_runner.level_counts(sim._ms_state)
         with open(self.path, "a") as f:
             for n, cs in counts.items():
                 f.write(f"{sim.time:.8g} {n} " +
@@ -451,17 +515,22 @@ class OutSamp(Output):
         self.nsamples = int(nsamples)
         self.path = os.path.join(sim.outdir,
                                  f"outsamp.{self.name}.{sim.runtag}.h5")
-        if _fresh(sim, self.path) and os.path.exists(self.path):
+        if (_primary(sim) and _fresh(sim, self.path)
+                and os.path.exists(self.path)):
             os.remove(self.path)
 
-    def write(self, sim, istep):
-        from exp_tpu_torch.nbody.pca import (subsample_coefficients,
-                                             write_covariance_h5)
+    def gather(self, sim):
+        from exp_tpu_torch.nbody.pca import subsample_coefficients
 
         ps = sim._state[self.name]
-        cs = subsample_coefficients(sim.components[self.name].force, ps.x,
-                                    ps.mass, nsamples=self.nsamples)
-        write_covariance_h5(self.path, sim.time, cs, name=self.name)
+        self._cs = subsample_coefficients(
+            sim.components[self.name].force, ps.x, ps.mass,
+            nsamples=self.nsamples, world=getattr(sim, "world", None))
+
+    def write(self, sim, istep):
+        from exp_tpu_torch.nbody.pca import write_covariance_h5
+
+        write_covariance_h5(self.path, sim.time, self._cs, name=self.name)
 
 
 class OrbTrace(Output):

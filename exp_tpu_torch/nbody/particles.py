@@ -1,6 +1,6 @@
 """Struct-of-arrays particle state and body-file I/O (port of
-exp_tpu/nbody/particles.py on one device; sharding comes with the
-multi-device slice, ROADMAP item 12).
+exp_tpu/nbody/particles.py); on a world of several ranks each rank holds a
+row block (parallel/distributed.py `read_bodies_distributed`).
 
 Body-file format matches the reference ascii convention
 (Component::read_bodies_and_distribute_ascii, src/Component.cc:1480-1520):

@@ -23,19 +23,31 @@ import torch
 
 
 def subsample_coefficients(force, x, mass, nsamples: int = 8,
-                           accum_dtype=torch.float32):
+                           accum_dtype=torch.float32, world=None):
     """Per-subsample coefficient estimates (nsamples, *coef_shape).
 
     Particles are assigned round-robin by row (the reference uses
     indx % sampT, SphericalBasis.cc:506).  Each subsample is scaled by
-    nsamples so every estimate is an unbiased full-mass estimator.
+    nsamples so every estimate is an unbiased full-mass estimator.  On a
+    World of several ranks the row is the global one (this rank's rows
+    follow the lower ranks' rows) and each estimate is summed over the
+    ranks.
     """
+    from exp_tpu_torch.parallel.distributed import (sum_host,
+                                                    world_coefficients)
+
     n = x.shape[0]
-    idx = torch.arange(n, device=x.device) % nsamples
+    first = 0
+    if world is not None and world.size > 1:
+        rows = np.zeros(world.size, np.int64)
+        rows[world.rank] = n
+        first = int(sum_host(rows, world)[:world.rank].sum())
+    idx = (torch.arange(n, device=x.device) + first) % nsamples
     outs = []
     for t in range(nsamples):
         w = torch.where(idx == t, mass * nsamples, torch.zeros_like(mass))
-        outs.append(force.coefficients(x, w, accum_dtype=accum_dtype))
+        outs.append(world_coefficients(force, x, w, world,
+                                       accum_dtype=accum_dtype))
     return torch.stack(outs)
 
 

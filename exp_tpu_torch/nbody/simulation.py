@@ -1,5 +1,5 @@
 """Simulation driver: config -> components -> run loop (port of
-exp_tpu/nbody/simulation.py on one device).
+exp_tpu/nbody/simulation.py), on one device or on each rank of a World.
 
 The orchestration layer — the analogue of the reference's expand.cc main
 loop + ComponentContainer + OutputContainer (src/expand.cc:169-575,
@@ -46,8 +46,20 @@ host transfer, the NaN guard and OutCoef take the pair as exp_tpu's
 tree_map does; a source (direct) component's coefficients are a (1,)
 zero, and the components it couples to read its positions and masses.
 
-Not ported, raising NotImplementedError with its ROADMAP item: the
-multi-process world (item 12).
+On a World of several ranks (parallel/distributed.py; run.py
+`--distributed` or `--ndev k`) each rank reads its row block of every body
+file and steps its own rows; coefficients, centers, diagnostics and level
+counts are summed over the ranks; rank 0 builds the basis tables and
+broadcasts them; the writers gather phase space on every rank and write
+once, from rank 0 (OUTLOG, OutCoef, the checkpoints, OutMulti's levels
+file, the PSP dumps, OutSamp, the orient logs), and a restart reads the
+checkpoint by row block.  The stop decision (wall clock, signals) is
+agreed by all ranks before a block.  EJ's most-bound set is a global top
+k of the ranks' candidates; Hall/PCA and OutSamp subsample by global row.
+What is not ported under a world raises NotImplementedError naming ROADMAP
+item 12b: the host operators, the adaptive basis rebuild (sphereSL
+`dtime`), and the writers OutVel, OutAscii, OutHDF5, OrbTrace, OutDiag,
+OutFrac and OutCalbr.
 """
 
 from __future__ import annotations
@@ -70,6 +82,12 @@ from exp_tpu_torch.nbody.multistep import (_NO_EXTRAS, CompFeats, _accel_at,
                                            rotate, source_names)
 from exp_tpu_torch.nbody.particles import ParticleSystem, _host, read_bodies
 from exp_tpu_torch.nbody.step import _diagnostics
+from exp_tpu_torch.parallel.distributed import (all_reduce, allgather_ps,
+                                                current_world, sum_host)
+
+#: output ids that do not run under a world of several ranks (ROADMAP 12b)
+_NOT_IN_WORLD = ("outvel", "outascii", "outhdf5", "orbtrace", "outdiag",
+                 "outfrac", "outcalbr")
 
 #: harmonic-restriction keys of the sphere and polar bases
 #: (SphericalBasis.cc:33-39; PolarBasis.cc:36-45, Cylinder.cc valid_keys)
@@ -134,13 +152,16 @@ def _fetch(tree):
 # Force factory
 # ---------------------------------------------------------------------------
 
-def build_force(fc, dtype, workdir=".", particles=None, device=None):
+def build_force(fc, dtype, workdir=".", particles=None, device=None,
+                world=None):
     """Instantiate a force from its config stanza (host-side table builds)
     on `device` (None: CUDA, raising when there is none).
 
     `particles`: optional (x, mass) host arrays of the owning component,
     used when a basis conditions on the snapshot itself (cylinder
-    `conditioning: particles`, the reference's accumulate_eof path)."""
+    `conditioning: particles`, the reference's accumulate_eof path).
+    `world`: on a World of several ranks the SL, EOF and slab tables are
+    built on rank 0 and broadcast."""
     p = dict(fc.parameters)
     device = resolve_device(device)
     if fc.id == "sphereSL":
@@ -176,7 +197,8 @@ def build_force(fc, dtype, workdir=".", particles=None, device=None):
         t = build_sph_sl_tables(model, lmax=lmax, nmax=nmax, numr=numr,
                                 rmin=None if rmin is None else float(rmin),
                                 rmax=None if rmax is None else float(rmax),
-                                cmap=cmap, rmap=rmap, cachename=cachename)
+                                cmap=cmap, rmap=rmap, cachename=cachename,
+                                world=world)
         return SphereSL.from_tables(
             t, scale=scale, dtype=dtype, backend=backend,
             pallas_precision=str(p.pop("pallas_precision", "mixed")),
@@ -228,7 +250,7 @@ def build_force(fc, dtype, workdir=".", particles=None, device=None):
             rcylmax=float(p.pop("rcylmax", 20.0)),
             numx=int(p.pop("ncylnx", 256)), numy=int(p.pop("ncylny", 128)),
             rnum=int(p.pop("rnum", 200)), tnum=int(p.pop("tnum", 80)),
-            cachename=cachename)
+            cachename=cachename, world=world)
         return CylinderForce.from_tables(
             t, dtype=dtype, backend=str(p.pop("backend", "xla")),
             pallas_precision=str(p.pop("pallas_precision", "default")),
@@ -254,7 +276,7 @@ def build_force(fc, dtype, workdir=".", particles=None, device=None):
             rcylmax=float(p.pop("rcylmax", 20.0)),
             numx=int(p.pop("numx", 256)), numy=int(p.pop("numy", 128)),
             knots=int(p.pop("knots", 400)), numk=int(p.pop("numk", 256)),
-            cachename=cachename)
+            cachename=cachename, world=world)
         return CylinderForce.from_tables(
             t, dtype=dtype, backend=str(p.pop("backend", "xla")),
             pallas_precision=str(p.pop("pallas_precision", "default")),
@@ -277,7 +299,7 @@ def build_force(fc, dtype, workdir=".", particles=None, device=None):
             # Green's-function pairs, the default)
             type=str(p.pop("type", "iso")),
             method=str(p.pop("method", "greens")),
-            cachename=cachename)
+            cachename=cachename, world=world)
         return SlabForce.from_tables(
             t, dtype=dtype, backend=str(p.pop("backend", "einsum")),
             device=device)
@@ -349,7 +371,8 @@ def build_force(fc, dtype, workdir=".", particles=None, device=None):
                 ForceConfig(id=cfg.get("id", base_id),
                             parameters=dict(cfg.get("parameters",
                                                     base_params))),
-                dtype, workdir, particles=particles, device=device)
+                dtype, workdir, particles=particles, device=device,
+                world=world)
 
         zero = torch.zeros(3, dtype=dtype, device=device)
         return TwoCenterForce(inner=mk(inner_cfg), outer=mk(outer_cfg),
@@ -411,20 +434,40 @@ class Component:
                          com_system=self.com_system)
 
 
+def _check_world(world):
+    """Refuse a process group of several ranks that `world` does not span:
+    each rank would step the whole system alone and write every file."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    n = dist.get_world_size()
+    if n > 1 and (world is None or world.size < n):
+        raise RuntimeError(
+            f"a process group of {n} ranks is up, but the run was given "
+            f"{'no World' if world is None else f'a World of {world.size}'}"
+            ": join it with parallel.init_distributed (or pass its World) "
+            "so that no rank runs alone")
+
+
 class Simulation:
     """Multi-component BFE N-body run on one device (None: CUDA, raising
-    when there is none)."""
+    when there is none), or on this rank's rows of a World (`world`;
+    default: the world `init_distributed` joined, if any), on the rank's
+    device."""
 
     def __init__(self, config: RunConfig, workdir=".", device=None,
-                 steps_per_block: int | None = None):
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                "the multi-process driver is not ported (ROADMAP item 12)")
+                 steps_per_block: int | None = None, world=None):
+        world = world if world is not None else current_world()
+        _check_world(world)
+        #: a world of several ranks; None on one device
+        self.world = world if world is not None and world.size > 1 else None
+        self.dist = self.world is not None
+        self.is_primary = not self.dist or self.world.is_primary
         self.config = config
         self.workdir = workdir
-        self.device = resolve_device(device)
+        self.device = (self.world.device if self.dist
+                       else resolve_device(device))
         g = config.glob
         self.dt = float(g.dtime)
         self.nsteps = int(g.nsteps)
@@ -438,7 +481,8 @@ class Simulation:
         elif getattr(g, "use_cwd", False):
             base = os.getcwd()
         self.outdir = os.path.join(base, g.outdir)
-        os.makedirs(self.outdir, exist_ok=True)
+        if self.is_primary:
+            os.makedirs(self.outdir, exist_ok=True)
         self.time = 0.0
         self.istep = 0
         self.compute_dtype = _torch_dtype(g.compute_dtype)
@@ -456,21 +500,35 @@ class Simulation:
             # bodyfile may be reference ascii OR a PSP binary snapshot
             # (sniffed by magic) — the name inside a multi-component PSP
             # defaults to this component's name
-            ps = read_bodies(os.path.join(workdir, cc.bodyfile),
-                             dtype=self.compute_dtype,
-                             component=cp.get("psp_component", cc.name),
-                             scale_dattr=cp.get("scale_dattr"),
-                             device=self.device)
-            if g.nbodmax and ps.n > g.nbodmax:
+            if self.dist:
+                # each rank parses only its row block (Component.H:202-204)
+                from exp_tpu_torch.parallel.distributed import (
+                    read_bodies_distributed)
+
+                ps = read_bodies_distributed(
+                    os.path.join(workdir, cc.bodyfile), self.world,
+                    dtype=self.compute_dtype,
+                    component=cp.get("psp_component", cc.name),
+                    scale_dattr=cp.get("scale_dattr"))
+            else:
+                ps = read_bodies(os.path.join(workdir, cc.bodyfile),
+                                 dtype=self.compute_dtype,
+                                 component=cp.get("psp_component", cc.name),
+                                 scale_dattr=cp.get("scale_dattr"),
+                                 device=self.device)
+            n_global = int(sum_host(np.array([ps.n], np.int64), self.world)[0])
+            if g.nbodmax and n_global > g.nbodmax:
                 raise ConfigError(
-                    f"component {cc.name}: {ps.n} bodies exceeds "
+                    f"component {cc.name}: {n_global} bodies exceeds "
                     f"nbodmax={g.nbodmax}")
             cond = None
             if (cc.force.id == "cylinder" and (cc.force.parameters or {})
                     .get("conditioning") == "particles"):
-                cond = (_host(ps.x), _host(ps.mass))
+                hp = allgather_ps(ps, self.world)
+                cond = (hp.x, hp.mass)
             force = build_force(cc.force, self.compute_dtype, workdir,
-                                particles=cond, device=self.device)
+                                particles=cond, device=self.device,
+                                world=self.world)
             c0 = Component(
                 name=cc.name, force=force, ps=ps, config=cc,
                 self_consistent=bool(cc.force.parameters.get(
@@ -554,6 +612,10 @@ class Simulation:
                                 outdir=self.outdir,
                                 seed=getattr(g, "random_seed", None))
             if op is not None:
+                if self.dist:
+                    raise NotImplementedError(
+                        f"External operator {e.get('id')!r} under a world "
+                        "of several ranks is not ported (ROADMAP item 12b)")
                 self.operators.append(op)
             else:
                 self.externals.append(build_external(
@@ -609,6 +671,12 @@ class Simulation:
         self._host_cache = {}           # name -> host ParticleSystem
         self._host_cache_step = {}      # name -> istep of the cached copy
 
+        if self.dist and any(c.basis_dtime > 0
+                             for c in self.components.values()):
+            raise NotImplementedError(
+                "the adaptive basis rebuild (sphereSL dtime) under a world "
+                "of several ranks is not ported (ROADMAP item 12b)")
+
         # multistep machinery (Global.multistep > 0)
         self.M = int(g.multistep)
         self._ms_runner = None
@@ -627,7 +695,7 @@ class Simulation:
                 feats={n: c.feats for n, c in self.components.items()},
                 fused=g.fused_bigstep, cap_headroom=g.cap_headroom,
                 eqmotion=self.eqmotion, externals=self.externals,
-                wrappers=self.wrappers)
+                wrappers=self.wrappers, world=self.world)
 
     def _component_extras(self, c, cc, workdir):
         """A component's EJ/nEJaccel/centerfile tracking, playback or NOISE
@@ -658,7 +726,8 @@ class Simulation:
             c.orient = EJOrient(nkeep=int(cp.get("nEJkeep", 256)),
                                 window=int(cp.get("EJwindow", 16)),
                                 damp=float(cp.get("EJdamp", 1.0)),
-                                logfile=logf, pseudo=c.pseudo)
+                                logfile=logf, pseudo=c.pseudo,
+                                write_log=self.is_primary)
             if g.infile and os.path.exists(logf):
                 # restart: reload the regression history
                 c.orient.load_log(logf)
@@ -764,10 +833,11 @@ class Simulation:
         forces = {n: c.force for n, c in self.components.items()}
         centers = centers or {}
         rots = rots or {n: None for n in state}
+        world = self.world
         bs = {n: [ps] for n, ps in state.items()}
-        ctr = _com_centers(bs, feats, centers)
+        ctr = _com_centers(bs, feats, centers, world)
         # two-center forces: inner = the resolved center, outer = the COM
-        eff, tc = _eff_forces(forces, bs, ctr)
+        eff, tc = _eff_forces(forces, bs, ctr, world)
         src = source_names(forces)
         coefs = {}
         for n, ps in state.items():
@@ -783,16 +853,17 @@ class Simulation:
             elif n in tc:
                 coefs[n] = _assemble_extras(n, _project_tc(
                     eff[n], feats[n], ps.x, ps.mass, t, ctr[n],
-                    self.accum_dtype), ex)
+                    self.accum_dtype, world), ex)
             else:
                 coefs[n] = _assemble_extras(n, _project(
                     forces[n], feats[n], ps.x, ps.mass, t, ctr[n],
-                    self.accum_dtype, rot=rots[n]), ex)
+                    self.accum_dtype, rot=rots[n], world=world), ex)
         srcs = {n: (state[n].x, state[n].mass) for n in src}
         accs, pots = {}, {}
         for n, ps in state.items():
             acc, pot = _accel_at(ps.x, t, self.couples[n], eff, coefs,
-                                 ctr, rots, cast=False, tc=tc, sources=srcs)
+                                 ctr, rots, cast=False, tc=tc, sources=srcs,
+                                 world=world)
             # non-inertial expansion-frame correction: subtracted from
             # self-gravity (AddAcc, Component.H:913-921) BEFORE externals
             # are added (AddAccExt applies no correction)
@@ -819,7 +890,8 @@ class Simulation:
         for n, ps in self._state.items():
             ps.v.add_(accs[n] * (dt * 0.5))         # half kick
             ps.acc, ps.pot = accs[n], pots[n]
-        return coefs, {n: _diagnostics(ps) for n, ps in self._state.items()}
+        return coefs, {n: _diagnostics(ps, self.world)
+                       for n, ps in self._state.items()}
 
     def prime(self):
         """Initial coefficient/force evaluation (begin_run, begin.cc:86-127),
@@ -833,7 +905,8 @@ class Simulation:
             self._rot_arrays())
         for n, ps in self._state.items():
             ps.acc, ps.pot = accs[n], pots[n]
-        diag = {n: _diagnostics(ps) for n, ps in self._state.items()}
+        diag = {n: _diagnostics(ps, self.world)
+                for n, ps in self._state.items()}
         self._capture_frozen(coefs)
         self._coefs, self._diag = self._to_host(coefs, diag)
         for o in self.outputs:
@@ -955,7 +1028,7 @@ class Simulation:
                 continue
             if multistep:
                 self._sync_flat_state()
-            c.orient.update(self._state[n], time=self.time)
+            c.orient.update(self._state[n], time=self.time, world=self.world)
             if c.ej_flags & 2:
                 self._centers[n] = c.orient.center
             if c.ej_flags & 1:
@@ -983,8 +1056,10 @@ class Simulation:
             center = self._center_arrays()[n]
             if c.com_system:
                 live = (m > 0).to(m.dtype)
-                center = (torch.sum((m * live)[:, None] * x, dim=0)
-                          / torch.clamp(torch.sum(m * live), min=1e-300))
+                mx = all_reduce(torch.cat([
+                    torch.sum((m * live)[:, None] * x, dim=0),
+                    torch.sum(m * live).reshape(1)]), self.world)
+                center = mx[:3] / torch.clamp(mx[3], min=1e-300)
             xc = x if center is None else x - center.to(x.dtype)[None, :]
             rot = self._rot_arrays()[n]
             if rot is not None:
@@ -995,7 +1070,8 @@ class Simulation:
                            < c.rtrunc ** 2).to(mw.dtype)
             cs = subsample_coefficients(c.force, xc, mw,
                                         nsamples=c.nsamples,
-                                        accum_dtype=self.accum_dtype)
+                                        accum_dtype=self.accum_dtype,
+                                        world=self.world)
             if c.pcaeof:
                 self._hall[n] = torch.as_tensor(
                     eof_smoothing_matrix(cs, tk_type=c.tk_type,
@@ -1079,7 +1155,8 @@ class Simulation:
     def _nreport_line(self):
         """Progress report every nreport steps (reference nreport,
         global.H:56: per-step counter print)."""
-        if self.nreport > 0 and self.istep % self.nreport == 0:
+        if (self.nreport > 0 and self.istep % self.nreport == 0
+                and self.is_primary):
             wall = time.time() - self._wall0
             print(f"[exp_tpu_torch] step {self.istep}  time {self.time:.6g}  "
                   f"wall {wall:.1f}s", flush=True)
@@ -1154,6 +1231,9 @@ class Simulation:
                 bad.append((n, offlo, nlive))
         if not bad:
             return
+        self.stop_requested = True
+        if not self.is_primary:
+            return
         for n, offlo, nlive in bad:
             print(f"[exp_tpu_torch] multistep overrun: component {n!r} has "
                   f"{offlo}/{nlive} ({100.0 * offlo / nlive:.1f}%) particles "
@@ -1161,7 +1241,6 @@ class Simulation:
                   f"{100 * max_mindt:.0f}%)")
         print("[exp_tpu_torch] stopping this run: decrease dtime, increase "
               "multistep, or both, and restart.  Writing a checkpoint.")
-        self.stop_requested = True
 
     def _run_multistep(self, nsteps=None):
         """Multistep main loop: one big step per dtime, then the boundary
@@ -1227,19 +1306,28 @@ class Simulation:
         print(f"[exp_tpu_torch] step {self.istep} timing: {parts}")
 
     def _check_stop(self):
-        """Wall-clock budget / SIGTERM stop; SIGHUP checkpoint dump."""
+        """Wall-clock budget / SIGTERM stop; SIGHUP checkpoint dump.  On a
+        world every rank takes the decision of any: the requests and the
+        wall-clock test are summed over the ranks first."""
+        over = (self.wall_limit is not None
+                and time.time() - self._wall0 > self.wall_limit)
+        if self.dist:
+            f = sum_host(np.array([self.dump_requested, self.stop_requested,
+                                   over], np.int64), self.world)
+            self.dump_requested, self.stop_requested, over = (
+                bool(v) for v in f)
         if self.dump_requested:
             self.dump_requested = False
             self._write_checkpoint()
         if self.stop_requested:
             self._write_checkpoint()
             return True
-        if self.wall_limit is not None and \
-                time.time() - self._wall0 > self.wall_limit:
-            print(f"[exp_tpu_torch] wall-clock limit reached at step "
-                  f"{self.istep}; checkpointing and stopping")
+        if over:
+            if self.is_primary:
+                print(f"[exp_tpu_torch] wall-clock limit reached at step "
+                      f"{self.istep}; checkpointing and stopping")
             self._write_checkpoint()
-            if self.restart_cmd:
+            if self.restart_cmd and self.is_primary:
                 import subprocess
 
                 print(f"[exp_tpu_torch] launching restart_cmd: "
@@ -1290,8 +1378,12 @@ class Simulation:
         writer due at it."""
         if self._host_cache_step.get(name) != self.istep:
             ps = self._state[name]
-            self._host_cache[name] = ParticleSystem(
-                **{f: _host(getattr(ps, f)) for f in _PS_FIELDS})
+            if self.dist:
+                # collective: every rank gathers, in rank order
+                self._host_cache[name] = allgather_ps(ps, self.world)
+            else:
+                self._host_cache[name] = ParticleSystem(
+                    **{f: _host(getattr(ps, f)) for f in _PS_FIELDS})
             self._host_cache_step[name] = self.istep
         return self._host_cache[name]
 
@@ -1300,6 +1392,10 @@ class Simulation:
     # ------------------------------------------------------------------
 
     def _make_output(self, oc):
+        if self.dist and oc.id in _NOT_IN_WORLD:
+            raise NotImplementedError(
+                f"output {oc.id!r} under a world of several ranks is not "
+                "ported (ROADMAP item 12b)")
         from exp_tpu_torch.nbody.output import (OrbTrace, OutAscii, OutCalbr,
                                                 OutChkpt, OutCoef, OutDiag,
                                                 OutFrac, OutHDF5, OutLog,

@@ -2,8 +2,10 @@
 
 One step = half-kick -> drift -> coefficients -> acceleration -> half-kick,
 with the conserved-quantity diagnostics of the reference's OutLog (KE, PE,
-Clausius virial VC, 2T/VC) computed from the new state.  The coefficient
-all-reduce across devices comes with the multi-device slice.
+Clausius virial VC, 2T/VC) computed from the new state.  With a World of
+several ranks (`world`), each rank steps its own rows: the coefficients
+are summed over the ranks once a step, after the kernel, and so are the
+diagnostics (exp_tpu's psum over `axis_name`).
 
 Unlike the JAX step, which returns a new state, this step updates the
 ParticleSystem in place and returns the same object: x and v by in-place
@@ -15,10 +17,16 @@ from __future__ import annotations
 
 import torch
 
+from exp_tpu_torch.parallel.distributed import (all_reduce,
+                                                world_coefficients)
 
-def _diagnostics(ps):
+_DIAG_KEYS = ("KE", "PE", "VC", "mass", "mom", "com", "L")
+
+
+def _diagnostics(ps, world=None):
     """KE, PE, VC (Clausius virial), momentum, centre of mass, angular
-    momentum and mass, as 0-d / (3,) tensors on the state's device."""
+    momentum and mass, as 0-d / (3,) tensors on the state's device; summed
+    over the ranks of `world` in one all-reduce."""
     m = ps.mass
     ke = 0.5 * torch.sum(m * torch.sum(ps.v * ps.v, dim=-1))
     pe = 0.5 * torch.sum(m * ps.pot)           # self-energy: 1/2 sum m phi
@@ -26,34 +34,61 @@ def _diagnostics(ps):
     mom = torch.sum(m[:, None] * ps.v, dim=0)
     com = torch.sum(m[:, None] * ps.x, dim=0)
     ang = torch.sum(m[:, None] * torch.linalg.cross(ps.x, ps.v), dim=0)
-    return {"KE": ke, "PE": pe, "VC": vc, "mass": torch.sum(m),
-            "mom": mom, "com": com, "L": ang}
+    d = {"KE": ke, "PE": pe, "VC": vc, "mass": torch.sum(m),
+         "mom": mom, "com": com, "L": ang}
+    return reduce_diag(d, world)
 
 
-def _step_body(force, dt, ps, accum_dtype=torch.float32):
+def reduce_diag(d, world=None):
+    """A diagnostics dict summed over the ranks of `world`, in one
+    all-reduce of its values packed together."""
+    if world is None or world.size == 1:
+        return d
+    flat = all_reduce(torch.cat([d[k].reshape(-1) for k in _DIAG_KEYS]),
+                      world)
+    out, k = {}, 0
+    for key in _DIAG_KEYS:
+        n = d[key].numel()
+        out[key] = flat[k:k + n].reshape(d[key].shape)
+        k += n
+    return out
+
+
+def _accel(force, coef, x, world):
+    """A source (direct) force takes the world for its ring."""
+    if getattr(force, "needs_sources", False):
+        return force.acceleration(coef, x, group=world)
+    return force.acceleration(coef, x)
+
+
+def _step_body(force, dt, ps, accum_dtype=torch.float32, world=None):
     ps.v.add_(ps.acc * dt * 0.5)                     # half kick (in place)
     ps.x.add_(ps.v * dt)                             # drift (in place)
-    coef = force.coefficients(ps.x, ps.mass, accum_dtype=accum_dtype)
-    acc, pot = force.acceleration(coef, ps.x)
+    coef = world_coefficients(force, ps.x, ps.mass, world,
+                              accum_dtype=accum_dtype)
+    acc, pot = _accel(force, coef, ps.x, world)
     ps.v.add_(acc * dt * 0.5)                        # half kick (in place)
     ps.acc, ps.pot = acc, pot
-    return ps, coef, _diagnostics(ps)
+    return ps, coef, _diagnostics(ps, world)
 
 
-def make_kdk_step(force, dt, accum_dtype=torch.float32):
-    """A KDK step: step(ps) -> (ps, coef, diag), updating ps in place."""
+def make_kdk_step(force, dt, accum_dtype=torch.float32, world=None):
+    """A KDK step: step(ps) -> (ps, coef, diag), updating ps in place;
+    `world`: this rank's World (its rows of the state)."""
     def step(ps):
-        return _step_body(force, dt, ps, accum_dtype=accum_dtype)
+        return _step_body(force, dt, ps, accum_dtype=accum_dtype,
+                          world=world)
     return step
 
 
-def init_force_state(force, ps, accum_dtype=torch.float32):
+def init_force_state(force, ps, accum_dtype=torch.float32, world=None):
     """Initial coefficients, acceleration and potential (the reference's
     begin_run prime, src/begin.cc:86-127); sets ps.acc and ps.pot in place
     and returns (ps, coef, diag)."""
-    coef = force.coefficients(ps.x, ps.mass, accum_dtype=accum_dtype)
-    ps.acc, ps.pot = force.acceleration(coef, ps.x)
-    return ps, coef, _diagnostics(ps)
+    coef = world_coefficients(force, ps.x, ps.mass, world,
+                              accum_dtype=accum_dtype)
+    ps.acc, ps.pot = _accel(force, coef, ps.x, world)
+    return ps, coef, _diagnostics(ps, world)
 
 
 def energies(diag):

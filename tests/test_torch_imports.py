@@ -60,7 +60,9 @@ def test_import_loads_no_jax_or_exp_tpu():
         "exp_tpu_torch.cli._common, exp_tpu_torch.nbody.centering, "
         "exp_tpu_torch.nbody.pca, exp_tpu_torch.nbody.noise, "
         "exp_tpu_torch.forces.external, exp_tpu_torch.ic.ellipsoid, "
-        "exp_tpu_torch.analysis.coefs, exp_tpu_torch.bench_extras\n"
+        "exp_tpu_torch.analysis.coefs, exp_tpu_torch.bench_extras, "
+        "exp_tpu_torch.parallel, exp_tpu_torch.parallel.distributed, "
+        "exp_tpu_torch.bench_energy, exp_tpu_torch.bench_multirank\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exp_tpu' or m.startswith('exp_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -215,3 +217,29 @@ def test_driver_entry_points_without_device_raise_when_no_cuda(
             call()
     sim = main([str(tmp_path / "c.yml"), "--device", "cpu"])
     assert sim.device == torch.device("cpu") and sim.istep == 1
+
+
+def test_multi_rank_entry_points_without_device_raise_when_no_cuda(
+        monkeypatch, tmp_path):
+    """run.py --ndev and --distributed, init_distributed, bench_energy and
+    bench_multirank run on cards unless the CPU is named: with no card
+    they refuse."""
+    from exp_tpu_torch.bench_energy import run_direct
+    from exp_tpu_torch.bench_multirank import world_devices
+    from exp_tpu_torch.parallel.distributed import init_distributed
+    from exp_tpu_torch.run import main
+
+    cfg = tmp_path / "c.yml"
+    cfg.write_text("Global:\n  nsteps: 1\n")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    for argv in ([str(cfg), "--ndev", "2"], [str(cfg), "--distributed"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_distributed(num_processes=1, process_id=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_direct(None, None, {"mh": [], "md": []}, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        world_devices(2)
+    assert world_devices(2, "cpu") == (["cpu", "cpu"], "gloo")

@@ -272,11 +272,41 @@ def test_direct_matches(halo, kind, chunked):
     close(pp, pj)
 
 
-def test_direct_ring_waits_for_multi_device():
-    f = DirectForce()
-    x = torch.zeros((4, 3), dtype=F64)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        f.acceleration((x, torch.ones(4, dtype=F64)), x, axis_name="p")
+def test_direct_ring_waits_for_multi_device(monkeypatch):
+    """The ring over a World's ranks (exp_tpu's ppermute ring): rank r adds
+    the source block of rank (r - i) mod size at pass i.  The blocks of a
+    3-rank world are handed in by a stand-in for the gather (the 2-rank
+    gloo world runs in tests/test_torch_distributed.py); each rank's sum
+    is the three partial sums in its ring order, bit for bit, and within
+    1e-12 of the one-rank sum over all sources."""
+    from exp_tpu_torch.parallel import distributed as pdist
+    from exp_tpu_torch.parallel.distributed import World
+
+    rng = np.random.default_rng(4)
+    blocks = [(torch.tensor(rng.normal(size=(n, 3))),
+               torch.tensor(rng.uniform(0.5, 1.5, n))) for n in (7, 5, 9)]
+    src = torch.cat([torch.cat([xs, ms[:, None]], 1) for xs, ms in blocks])
+    monkeypatch.setattr(pdist, "allgather_rows",
+                        lambda t, world: (src, [7, 5, 9]))
+    f = DirectForce(eps=0.05)
+    x = torch.tensor(rng.normal(size=(6, 3)))
+    xa = torch.cat([b[0] for b in blocks])
+    ma = torch.cat([b[1] for b in blocks])
+    a1, p1 = f.acceleration((xa, ma), x)
+    for r in range(3):
+        a, p = f.acceleration(blocks[r], x, group=World(rank=r, size=3))
+        acc = torch.zeros_like(x)
+        pot = torch.zeros(6, dtype=F64)
+        for i in range(3):
+            aa, pp = f.acceleration(blocks[(r - i) % 3], x)
+            acc, pot = acc + aa, pot + pp
+        assert torch.equal(a, acc) and torch.equal(p, pot), r
+        np.testing.assert_allclose(a.numpy(), a1.numpy(), rtol=1e-12,
+                                   atol=1e-12 * float(a1.abs().max()))
+        np.testing.assert_allclose(p.numpy(), p1.numpy(), rtol=1e-12)
+    # a one-rank world sums its own sources only
+    a, p = f.acceleration(blocks[0], x, group=World())
+    assert torch.equal(a, f.acceleration(blocks[0], x)[0])
 
 
 def test_interp_matches_jnp_interp():

@@ -229,7 +229,7 @@ def both_runs(setup):
     return out
 
 
-def _compare_states(j, p, counts_j, counts_p, what):
+def _compare_states(j, p, counts_j, counts_p, what, dtime=2e-3):
     assert counts_p == counts_j, (what, counts_j, counts_p)
     np.testing.assert_array_equal(p["indx"], j["indx"])
     bad = np.nonzero(p["level"] != j["level"])[0]
@@ -237,7 +237,7 @@ def _compare_states(j, p, counts_j, counts_p, what):
         jps = replace(JParticleSystem.from_arrays(j["x"], j["v"], j["mass"],
                                                   dtype=jnp.float64),
                       acc=jnp.asarray(j["acc"]), pot=jnp.asarray(j["pot"]))
-        r = np.log2(2e-3 / np.asarray(j_dtreq_fn(jps, **DYN))[bad])
+        r = np.log2(dtime / np.asarray(j_dtreq_fn(jps, **DYN))[bad])
         pytest.fail(f"{what}: {bad.size} particles change level; their "
                     f"log2(dtime/dtreq) lie {np.abs(r - np.round(r))} from "
                     "a level boundary")
@@ -345,14 +345,18 @@ def _equal(a, b):
 
 def test_rebucket_styles_bit_exact(setup):
     """'sortfull' and 'sortgather' give the same state bit for bit
-    (tests/test_multistep.py:166-190); 'incremental' is refused."""
+    (tests/test_multistep.py:166-190); 'incremental' runs, and holds the
+    same live particles bucket by bucket (test_incremental_relevel_*
+    hold their data); another style is refused."""
     _, force, x, v, mass = setup
     a, _ = _run(force, x, v, mass, rebucket_style="sortfull")
     b, _ = _run(force, x, v, mass, rebucket_style="sortgather")
     _equal(a, b)
-    with pytest.raises(NotImplementedError, match="incremental"):
-        MultistepRunner({"h": force}, {"h": ["h"]}, 2e-3, 2,
-                        rebucket_style="incremental")
+    c, _ = _run(force, x, v, mass, rebucket_style="incremental")
+    for ba, bc in zip(a["h"], c["h"]):
+        np.testing.assert_array_equal(
+            np.sort(ba.indx[ba.mass > 0].numpy()),
+            np.sort(bc.indx[bc.mass > 0].numpy()))
     with pytest.raises(ValueError, match="rebucket_style"):
         MultistepRunner({"h": force}, {"h": ["h"]}, 2e-3, 2,
                         rebucket_style="other")
@@ -422,16 +426,18 @@ def test_indx_stays_int32_and_overflow_falls_back(setup):
 
 
 def test_unported_features_raise(setup):
-    """The incremental rebucket (item 9b.2) raises; external fields,
+    """Nothing of the runner is refused now: the incremental rebucket
+    (item 9b.2) is accepted with its fresh fill pointers; external fields,
     position wrappers and the playback/Hall/restriction/pseudo extras are
     accepted (item 10b)."""
     from exp_tpu_torch.forces.external import PeriodicBC, UserLogPot
 
     _, force, x, v, mass = setup
 
-    with pytest.raises(NotImplementedError, match="item 9b.2"):
-        MultistepRunner({"h": force}, {"h": ["h"]}, 2e-3, 2,
+    r = MultistepRunner({"h": force}, {"h": ["h"]}, 2e-3, 2,
                         rebucket_style="incremental")
+    assert r.rebucket_style == "incremental" and r._fill == {}
+    assert r.n_compactions == 0
     r = MultistepRunner({"h": force}, {"h": ["h"]}, 2e-3, 2,
                         externals=(UserLogPot(),),
                         wrappers=(PeriodicBC(L=100.0, btype="vvv"),))
@@ -449,3 +455,96 @@ def test_unported_features_raise(setup):
         "restrict": {"h": (torch.ones_like(pb), torch.zeros_like(pb))}})
     assert torch.equal(coef["h"], pb)
     assert all(torch.isfinite(b.x).all() for b in st["h"])
+
+
+# the incremental relevel's tests step at dtime 1e-2, where ~10 particles
+# change level at each relevel (at 2e-3 almost none do, and the first
+# mover overflows a 4-row bucket's 1-row buffer)
+DT_INC = 1e-2
+
+
+def _inc_run(force, x, v, mass, style, nbig=4, runner=None):
+    r = runner or MultistepRunner({"h": force}, {"h": ["h"]}, DT_INC, 2,
+                                  accum_dtype=F64, dynparams=DYN,
+                                  cap_headroom=2, fused=True,
+                                  rebucket_style=style)
+    st, regs, _, _ = r.init_state({"h": _flat(x, v, mass)})
+    for _ in range(nbig):
+        st, regs, _, _ = r.bigstep(st, regs)
+        st, regs = r.relevel(st, regs)
+    return r, st
+
+
+def test_incremental_relevel_equivalence(setup):
+    """tests/test_multistep.py:193-229: the movers-only relevel carries the
+    same live particles and per-particle data as the full sort, bucket by
+    bucket, to rtol 1e-12 (order differs; holes are zero-mass padding
+    rows), with an atol of 1e-12 of each field's largest value: a bucket's
+    coefficients are f64 sums of its rows in another order, and a
+    component that cancels to ~1e-6 of its field's scale then differs by
+    ~1e-11 of itself.  At least one relevel moved only the movers."""
+    _, force, x, v, mass = setup
+    r_inc, a = _inc_run(force, x, v, mass, "incremental")
+    r_ref, b = _inc_run(force, x, v, mass, "sortfull")
+    sig = r_inc._caps_sig(a)
+    assert r_inc.n_rebuilds > r_inc.n_compactions + r_inc.n_fallbacks
+    assert sum(r_inc._fill[sig]["h"]) > sum(r_inc.level_counts(a)["h"]), \
+        "no hole left: the incremental path did not run"
+    for l in range(3):
+        pa, pb = a["h"][l], b["h"][l]
+        la, lb = pa.mass > 0, pb.mass > 0
+        assert int(la.sum()) == int(lb.sum()), l
+        ia = np.argsort(pa.indx[la].numpy())
+        ib = np.argsort(pb.indx[lb].numpy())
+        for f in ("x", "v", "acc", "mass", "pot", "indx"):
+            va = getattr(pa, f)[la].numpy()[ia]
+            vb = getattr(pb, f)[lb].numpy()[ib]
+            np.testing.assert_allclose(
+                va, vb, rtol=1e-12, atol=1e-12 * float(np.abs(vb).max()),
+                err_msg=f"level {l} {f}")
+        # a hole carries no identity: no dead row holds a live one's indx
+        assert not pa.indx[~la].any(), l
+
+
+def test_incremental_relevel_fallback(setup):
+    """tests/test_multistep.py:232-256: with 1-row arrival buffers every
+    relevel that moves more than one particle into a level overflows and
+    compacts; nobody is lost and the compaction resets the fill pointers
+    to the live counts."""
+    _, force, x, v, mass = setup
+    r = MultistepRunner({"h": force}, {"h": ["h"]}, DT_INC, 2,
+                        accum_dtype=F64, dynparams=DYN, cap_headroom=2,
+                        fused=True, rebucket_style="incremental")
+    r._arrival_caps = lambda caps: {n: tuple(1 for _ in cs)
+                                    for n, cs in caps.items()}
+    r, st = _inc_run(force, x, v, mass, None, nbig=3, runner=r)
+    assert LevelBuckets(st["h"], r.caps["h"]).n_live == len(mass)
+    np.testing.assert_array_equal(_live_indx(st), np.arange(1, len(mass) + 1))
+    assert r.n_compactions >= 1
+    assert r._fill[r._caps_sig(st)]["h"] == r.level_counts(st)["h"]
+
+
+def test_incremental_matches_jax(setup):
+    """The port's incremental relevel against exp_tpu's on one mesh
+    device, particle by particle after 4 x (bigstep + relevel): the same
+    level counts, fill pointers and compactions; x, v, acc, pot to the
+    runners' RTOL."""
+    t, force, x, v, mass = setup
+    fj = JSphereSL.from_tables(t, dtype=jnp.float64, backend="gather")
+    mesh = Mesh(np.array(jax.devices()[:1]), ("p",))
+    jr = JRunner({"h": fj}, {"h": ["h"]}, DT_INC, 2, mesh,
+                 accum_dtype=jnp.float64, dynparams=DYN, cap_headroom=2,
+                 fused=True, rebucket_style="incremental")
+    js, jregs, _, _ = jr.init_state(
+        {"h": JParticleSystem.from_arrays(x, v, mass, dtype=jnp.float64)})
+    for _ in range(4):
+        js, jregs, _, _ = jr.bigstep(js, jregs)
+        js, jregs = jr.relevel(js, jregs)
+    pr, ps = _inc_run(force, x, v, mass, "incremental")
+    assert pr.caps == jr.caps
+    assert pr.n_compactions == getattr(jr, "n_compactions", 0)
+    sig = pr._caps_sig(ps)
+    assert pr._fill[sig] == {n: list(f) for n, f in jr._fill[sig].items()}
+    _compare_states(_by_indx(js["h"]), _by_indx(ps["h"]),
+                    jr.level_counts(js), pr.level_counts(ps),
+                    "4 x (bigstep + incremental relevel)", dtime=DT_INC)

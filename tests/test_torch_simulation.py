@@ -23,6 +23,7 @@ Each flow runs both drivers on one config, written twice with its own
 """
 
 import os
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -246,8 +247,10 @@ def test_checkpoint_restart(rundir):
 def test_cli_main(rundir, capsys, monkeypatch):
     """:126 — `python -m exp_tpu_torch.run --cpu config.yml -n 4` echoes
     the config and reports particle-steps/s; its OUTLOG matches exp_tpu's
-    CLI run.  Without --cpu and with no card it refuses; --ndev 2 and
-    --distributed raise (ROADMAP item 12)."""
+    CLI run.  Without --cpu and with no card it refuses.  --ndev 2 (two
+    spawned ranks over gloo) and --distributed (a one-rank world from
+    EXP_COORDINATOR / EXP_NPROCS / EXP_PROCID) print the same OUTLOG
+    (ROADMAP item 12)."""
     from exp_tpu.run import main as jmain
     from exp_tpu_torch.run import main
 
@@ -262,9 +265,40 @@ def test_cli_main(rundir, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([pt, "-n", "1"])
-    for extra in (["--ndev", "2"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            main(["--cpu", pt] + extra)
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    monkeypatch.setenv("EXP_COORDINATOR", f"127.0.0.1:{s.getsockname()[1]}")
+    s.close()
+    monkeypatch.setenv("EXP_NPROCS", "1")
+    monkeypatch.setenv("EXP_PROCID", "0")
+    # --ndev 2 spawns its ranks: in a process of its own, killed with them
+    # after 300 s
+    import signal
+    import subprocess
+    import sys
+
+    p = configs(rundir, "nd2", f64(CONFIG))[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parent.parent),
+         os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.Popen([sys.executable, "-m", "exp_tpu_torch.run",
+                             "--cpu", p, "-n", "4", "--ndev", "2"], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    assert proc.returncode == 0, out[-4000:]
+    main(["--cpu", configs(rundir, "dist", f64(CONFIG))[1], "-n", "4",
+          "--distributed"])
+    for tag in ("nd2", "dist"):
+        lw = table(rundir / f"t_{tag}" / "OUTLOG.trun")
+        close(lw, lt, TEXT8)
 
 
 def test_self_consistent_false_freezes_coefficients(rundir):
@@ -882,8 +916,24 @@ def test_unported_features_raise(rundir, case):
 
 
 def test_multi_process_world_raises(rundir, monkeypatch):
-    """The multi-process driver (ROADMAP item 12) refuses to start."""
+    """A process group of several ranks that no World of its size joined
+    refuses to start (each rank would run the whole system alone); a World
+    of one rank without a group is the one-device driver, and what item
+    12 does not port under a world of several ranks raises
+    NotImplementedError naming item 12b (the 2-rank driver runs in
+    tests/test_torch_distributed.py)."""
+    from exp_tpu_torch.config import OutputConfig
+    from exp_tpu_torch.parallel.distributed import World
+
+    p = configs(rundir, "mp", CONFIG)[1]
+    sim = TSim.from_file(p, device="cpu", world=World())
+    assert sim.world is None and sim.is_primary and not sim.dist
+    sim.dist = True
+    for oid in ("outascii", "orbtrace", "outhdf5"):
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            sim._make_output(OutputConfig(id=oid, parameters={}))
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TSim.from_file(configs(rundir, "mp", CONFIG)[1], device="cpu")
+    for kw in ({}, {"world": World()}):
+        with pytest.raises(RuntimeError, match="no rank runs alone"):
+            TSim.from_file(p, device="cpu", **kw)

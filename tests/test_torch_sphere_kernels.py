@@ -158,13 +158,35 @@ def tables_7_11():
     (dict(pallas_precision="mixed3"), "mixed3"),
 ])
 def test_unported_settings_raise(setup, tables_7_11, kw, match):
-    """The pallas backend refuses what no Hopper kernel is built for: the
-    bf16 precision knobs, 'poly' above lmax 6 (K1, K6) and any lmax above
-    10 (K3, K2).  The same harmonics and interp run one degree inside those
-    ranges, and every setting runs on the XLA-style backends."""
+    """The pallas backend refuses what no Hopper kernel is built for:
+    'poly' above lmax 6 (K1, K6) and any lmax above 10 (K3, K2).  The same
+    harmonics and interp run one degree inside those ranges, and every
+    setting runs on the XLA-style backends.  The precision knobs 'default'
+    and 'mixed3' run on the FP32 kernels (their plain versions here): the
+    same values as 'mixed' bit for bit, and exp_tpu's pallas path with the
+    same knob (interpret mode) within tests/test_spherical_force.py:297's
+    bars, a row's max|da| / |a| < 2e-4 and pot rtol 2e-4 / atol 1e-6."""
     kw = dict(kw)
     lmax = kw.pop("lmax", None)
     tp = setup[2] if lmax is None else tables_7_11[lmax]
+    if "pallas_precision" in kw:
+        _, t, _, _, fp, x, mass, cj = setup
+        f = SphereSL.from_tables(tp, backend="pallas", device="cpu", **kw)
+        xt, mt = torch.from_numpy(x), torch.from_numpy(mass)
+        assert torch.equal(f.coefficients(xt, mt), fp.coefficients(xt, mt))
+        a, p = f.acceleration(torch.tensor(cj), xt[:4096])
+        a1, p1 = fp.acceleration(torch.tensor(cj), xt[:4096])
+        assert torch.equal(a, a1) and torch.equal(p, p1)
+        fj = JSphereSL.from_tables(t, dtype=jnp.float32, backend="pallas",
+                                   **kw)
+        aj, pj = fj.acceleration(jnp.asarray(cj), jnp.asarray(x[:4096]))
+        aj = np.asarray(aj)
+        err = (np.abs(a.numpy() - aj).max(1)
+               / np.maximum(np.linalg.norm(aj, axis=1), 1e-8))
+        assert err.max() < 2e-4, err.max()
+        np.testing.assert_allclose(p.numpy(), np.asarray(pj), rtol=2e-4,
+                                   atol=1e-6)
+        return
     with pytest.raises(NotImplementedError, match=match):
         SphereSL.from_tables(tp, backend="pallas", device="cpu", **kw)
     # the same settings on the XLA-style backends are not kernel choices
