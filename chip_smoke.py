@@ -46,7 +46,12 @@ from run configs, with and without its extras:
     torch, no TPU kernel) at the same sizes;
   the multistep relevel's movers-only style, the composite's energy bars
     and the multi-rank runs (a one-rank NCCL world, two ranks on the
-    card), through K1, K2, K4 and K5.
+    card), through K1, K2, K4 and K5;
+  the analysis library (exp_tpu_torch/analysis, io/readers.py): snapshots
+    read back through createReader and projected by Basis, fields
+    rendered by FieldGenerator, FieldBasis, BiorthWake, cross_validate,
+    diskeof, the kinematic series, MSSA and Koopman, through K1, K2, K4
+    and K5, and K7/K8 and K9/K10 once each.
 
 Phases:
 
@@ -194,6 +199,28 @@ Phases:
      written once, and a restart from its own PSP snapshot; with two cards
      or more (a) also runs over NCCL on two cards; K1, K2, K4, K5 at a
      rank's shapes;
+  AN1. 16 snapshots of phase 5's 2^20 sample (each x (1 + 0.01 sin 0.3t))
+     written as PSP files and read back through createReader, equal bit
+     for bit; Basis.factory on a sphereSL stanza (lmax 4, nmax 10,
+     pallas) and create_from_snapshots, one K1 a snapshot, each
+     snapshot's coefficients against K1's plain version (COEF_RTOL) and
+     an f64 gather Basis (tests/test_spherical_force.py:270-294's bounds,
+     the fields too); FieldGenerator slices (256^2) and volumes (64^3) at
+     4 times, one K2 a time and grid, against the plain version; the
+     monopole's power; FieldBasis (4 K1 a snapshot); BiorthWake's halves
+     against the full field; cross_validate at 256 points
+     (tests/test_analysis.py:152-154's bounds);
+  AN2. CM1's 262,144 disk particles turned by 0.05 t rad, 8 snapshots:
+     create_from_snapshots through K4 (one a snapshot) against its plain
+     version, a 256^2 slice through K5 against its plain version,
+     diskeof accumulate / rotate / rotated_grids with
+     tests/test_diskeof.py:35-68's gates, the bess / lagu / ring series;
+  AN3. expMSSA (window 8) and Koopman on AN1's series, every eigentriple
+     giving the series back; VTK/PVD files of AN1's slices; a cube (nmax
+     6) and a slab (the bench's) Basis at 2^20 through K7/K8 and K9/K10
+     once each, against their plain versions; the host-clock times (a
+     snapshot's read, upload and projection, a render a time, MSSA,
+     cross_validate) and the peak device memory, printed;
   PS1. P1 against its plain version on the probe's sample with edge rows,
      stream1 and stream2, with the stated tolerances;
   PS2. the probe's run: producer + P1, P1 alone, the producer, the
@@ -3626,6 +3653,566 @@ def multi_path(dev, sphere_tables, comp, wd, r2, xe, ve, me):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# AN1, AN2, AN3: the analysis library (exp_tpu_torch/analysis, io/readers)
+# ---------------------------------------------------------------------------
+
+# AN1: AN_SNAPS snapshots of phase 5's 2^20 equilibrium sample, snapshot t
+# at x (1 + 0.01 sin(0.3 t)) as tests/test_analysis.py:37 jitters its own,
+# written as PSP files and read back through createReader; the sphereSL
+# stanza of phase 3's tables (the model's file, lmax 4, nmax 10, numr 2000,
+# backend pallas); slices of AN_SLICE^2 and volumes of AN_VOL^3 points at
+# AN_TIMES of the snapshots' times; FieldBasis on AN_FB_SNAPS snapshots;
+# cross_validate at AN_NTEST points, Plummer eps AN_EPS.
+AN_SNAPS = 16
+AN_TIMES = 4
+AN_SLICE = 256
+AN_VOL = 64
+AN_FB_SNAPS = 2
+AN_NTEST, AN_EPS = 256, 5e-3
+# the pallas Basis against an f64 gather Basis of the same stanza, at
+# tests/test_spherical_force.py:270-294's pallas-vs-gather bounds:
+# coefficients max|dc|/max|c|, acc (rtol, atol), pot (rtol, atol), on the
+# first AN_GATHER_PTS particles of snapshot 0
+AN_GATHER_COEF = 5e-5
+AN_GATHER_ACC = (2e-3, 2e-5)
+AN_GATHER_POT = (2e-4, 1e-6)
+AN_GATHER_PTS = 4096
+# tests/test_analysis.py:152-154's cross-validation bounds
+AN_FERR_MED, AN_PERR_MED = 0.08, 0.02
+# the wake's monopole + band against the full field of the same
+# coefficients: two K2 sums against one, f32 (1e-5 of max|pot|)
+AN_WAKE_RTOL = 1e-5
+# AN2: CM1's disk, AN_DISK_SNAPS snapshots, snapshot t turned by 0.05 t
+# about z; slices of AN_SLICE^2 points at z = 0.001 over |x|, |y| <= 0.1;
+# diskeof's gates as tests/test_diskeof.py:35-68: the series against K4's
+# pass (rtol, atol), Urot orthogonal and each harmonic's amplitude kept
+AN_DISK_SNAPS = 8
+AN_EOF_RTOL, AN_EOF_ATOL = 2e-3, 2e-5
+AN_ROT_TOL = 1e-12
+# AN3: expMSSA's window; every eigentriple (T - window + 1 of them) gives
+# the series back to f64 rounding of the SVD
+AN_WINDOW = 8
+AN_MSSA_REC = 1e-10
+# the cube (the bench's nmax 6) and slab (the bench's tables) stanzas on
+# AN_PERIODIC_N rows of their benches' samples
+AN_PERIODIC_N = 1_048_576
+
+
+def _plain(*sites):
+    """A context in which each kernel wrapper (module, name) is replaced by
+    its plain version, `name + '_plain'`: an analysis entry point then
+    gives the plain versions' answer on the same inputs, on the card, and
+    counts no launch."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = [(mod, name, getattr(mod, name)) for mod, name in sites]
+        for mod, name, _ in saved:
+            setattr(mod, name, getattr(mod, name + "_plain"))
+        try:
+            yield
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    return swapped()
+
+
+def _want_launches(tag, launches, want):
+    """Fail unless each kernel launched `want`'s count (0 if unnamed)."""
+    bad = {k: v for k, v in launches.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{tag}: launches {bad}, expected {want} and "
+                             "0 for the rest")
+
+
+def _field_check(tag, out, ref, acc_tol, pot_tol, rel):
+    """max|d| of the fields (dens, pot, acc) `out` against `ref`, each
+    element within atol + rtol |ref| (atol times the largest |ref| when
+    `rel`); the density (plain torch on both sides) to 1e-12 of its
+    largest.  Returns the largest |d| of acc and pot."""
+    import numpy as np
+
+    (d, p, a), (d0, p0, a0) = out, ref
+    da, dp = np.abs(a - a0), np.abs(p - p0)
+    sa = np.abs(a0).max() if rel else 1.0
+    sp = np.abs(p0).max() if rel else 1.0
+    ok = (np.isfinite(a).all() and np.isfinite(p).all()
+          and np.isfinite(d).all()
+          and (da <= acc_tol[1] * sa + acc_tol[0] * np.abs(a0)).all()
+          and (dp <= pot_tol[1] * sp + pot_tol[0] * np.abs(p0)).all()
+          and np.abs(d - d0).max() <= 1e-12 * np.abs(d0).max())
+    if not ok:
+        raise AssertionError(f"{tag}: max|da| {da.max()}, max|dpot| "
+                             f"{dp.max()}, max|ddens| "
+                             f"{np.abs(d - d0).max()}")
+    return max(float(da.max()), float(dp.max()))
+
+
+def _an_row(name, src, line, launches, err, fn, plain, work, reps=20):
+    """A kernels-line row: the kernel's device ms by launches queued behind
+    a spin kernel (bench_kernels.queued_ms), beside `event_ms` by CUDA
+    events around launches in a row, which at these sizes times the host's
+    enqueue; its plain version's by CUDA events."""
+    from exp_tpu_torch import bench_kernels as bk
+
+    bms, by = bound_ms(*work)
+    return {"name": name, "route": "cuda",
+            "source": f"exp_tpu_torch/csrc/{src}", "replaces": line,
+            "launches": launches, "max_abs_err": err,
+            "ms": bk.queued_ms(fn, reps), "event_ms": cuda_ms(fn, reps),
+            "plain_ms": cuda_ms(plain, 3),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "library_note": "no single PyTorch call computes this function",
+            "bytes": work[0], "operations": work[1]}
+
+
+def analysis_path(dev, comp, disk_tables, xe, ve, me):
+    """Phases AN1-AN3 on the card: the analysis library's user path
+    (exp_tpu_torch/analysis, io/readers.py) through K1, K2, K4 and K5, and
+    K7/K8 and K9/K10 once each.  `comp` is CM1's dict (its disk ICs),
+    `disk_tables` D1's, (xe, ve, me) phase 5's sample.  Returns the
+    kernels-line rows of K1, K2, K4 and K5 at the analysis's shapes."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch import bench_composite as bc
+    from exp_tpu_torch.analysis import diskeof, kincoefs
+    from exp_tpu_torch.analysis.basis import Basis, upload
+    from exp_tpu_torch.analysis.crossval import cross_validate
+    from exp_tpu_torch.analysis.edmd import Koopman
+    from exp_tpu_torch.analysis.field import (FieldGenerator, write_pvd,
+                                              write_vtk)
+    from exp_tpu_torch.analysis.field_basis import FieldBasis
+    from exp_tpu_torch.analysis.mssa import expMSSA
+    from exp_tpu_torch.analysis.wake import BiorthWake
+    from exp_tpu_torch.basis.model import hernquist_model
+    from exp_tpu_torch.forces.cylinder import CylinderForce
+    from exp_tpu_torch.io.psp import PSPComponent, PSPDump, write_psp
+    from exp_tpu_torch.io.readers import createReader
+    from exp_tpu_torch.ops import cyl_kernels as ck
+    from exp_tpu_torch.ops import sphere_kernels as sk
+
+    f64 = torch.float64
+    rows, host = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_analysis_")
+    wd = work.name
+    n = len(me)
+
+    # AN1. the snapshots as PSP files, read back through createReader
+    times = np.arange(AN_SNAPS) * 0.1
+    jit = [1.0 + 0.01 * float(np.sin(0.3 * t)) for t in range(AN_SNAPS)]
+    t0 = time.perf_counter()
+    for i, s in enumerate(jit):
+        write_psp(os.path.join(wd, f"OUT.an.{i:05d}"), PSPDump(
+            time=float(times[i]), components=[PSPComponent(
+                name="halo", info="name: halo\n", mass=me, x=xe * s, v=ve,
+                pot=np.zeros(n))]))
+    host["psp_write_s_per_snapshot"] = (time.perf_counter() - t0) / AN_SNAPS
+    reads, differ = [], []
+
+    def snapshots():
+        for i, s in enumerate(jit):
+            p = os.path.join(wd, f"OUT.an.{i:05d}")
+            t1 = time.perf_counter()
+            snap = createReader("psp", p)
+            x, v, m = snap.GetParticles("halo")
+            reads.append(time.perf_counter() - t1)
+            if not (snap.time == times[i] and np.array_equal(x, xe * s)
+                    and np.array_equal(v, ve) and np.array_equal(m, me)):
+                differ.append(i)
+            os.remove(p)
+            yield x, m
+
+    hernquist_model(rmin=1e-3, rmax=20.0).to_file(
+        os.path.join(wd, "halo.model"))
+    stanza = ("id: sphereSL\nparameters: {modelname: halo.model, Lmax: 4, "
+              "nmax: 10, numr: 2000, cmap: 1, rmapping: 1.0, "
+              "backend: %s}\n")
+    t0 = time.perf_counter()
+    basis = Basis.factory(stanza % "pallas", workdir=wd, device=dev)
+    gather = Basis.factory(stanza % "gather", workdir=wd, device=dev)
+    host["basis_factory_s"] = (time.perf_counter() - t0) / 2
+    force, prm = basis.force, basis.force._kernel_params()
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    coefs = basis.create_from_snapshots(snapshots(), times=times)
+    torch.cuda.synchronize()
+    host["create_from_snapshots_s"] = time.perf_counter() - t0
+    k1_launches = bc.kernel_launches()
+    print("AN1 create_from_snapshots: " + json.dumps({
+        "snapshots": AN_SNAPS, "rows": n, "launches": k1_launches,
+        "psp_read_s": reads, "differ": differ}), flush=True)
+    if differ:
+        raise AssertionError(f"AN1: snapshots {differ} read back differ "
+                             "from what was written")
+    _want_launches("AN1 create_from_snapshots", k1_launches,
+                   {"sphere_coef": AN_SNAPS})
+    A = coefs.as_array()
+    xd, vd, md = (torch.as_tensor(a, device=dev) for a in (xe, ve, me))
+    k1_err = k1_rel = g_rel = 0.0
+    for i, s in enumerate(jit):
+        with _plain((sk, "sphere_coef")):
+            c0 = basis.create_coefficients(xd * s, md)
+        cg = gather.create_coefficients(xd * s, md)
+        k1_err = max(k1_err, float(np.abs(A[i] - c0).max()))
+        k1_rel = max(k1_rel, float(np.abs(A[i] - c0).max()
+                                   / np.abs(c0).max()))
+        g_rel = max(g_rel, float(np.abs(A[i] - cg).max() / np.abs(cg).max()))
+    P = coefs.power()
+    mono = bool(np.all(P[:, 0] > 10 * P[:, 1:].sum(axis=1)))
+    print(f"AN1 coefficients: K1 vs plain max|dc|/max|c| = {k1_rel:.3e} "
+          f"(tolerance {COEF_RTOL:.0e}); vs the f64 gather Basis "
+          f"{g_rel:.3e} (tolerance {AN_GATHER_COEF:.0e}); monopole power "
+          f"over 10x the rest at every time: {mono}", flush=True)
+    if not (k1_rel <= COEF_RTOL and g_rel <= AN_GATHER_COEF and mono
+            and np.isfinite(A).all()):
+        raise AssertionError(f"AN1: coefficients K1 {k1_rel}, gather "
+                             f"{g_rel}, monopole {mono}")
+    # the fields at particle positions against the f64 gather Basis
+    pts = xe[:AN_GATHER_PTS]
+    d, p, a = basis.get_fields(A[0], pts)
+    d0, p0, a0 = gather.get_fields(A[0], pts)
+    g_ok = (np.allclose(a, a0, rtol=AN_GATHER_ACC[0], atol=AN_GATHER_ACC[1])
+            and np.allclose(p, p0, rtol=AN_GATHER_POT[0],
+                            atol=AN_GATHER_POT[1]))
+    print(f"AN1 fields vs the f64 gather Basis at {AN_GATHER_PTS} "
+          f"particles: max|da| {np.abs(a - a0).max():.3e}, max|dpot| "
+          f"{np.abs(p - p0).max():.3e} (acc rtol/atol {AN_GATHER_ACC}, pot "
+          f"{AN_GATHER_POT}): {g_ok}", flush=True)
+    if not g_ok:
+        raise AssertionError("AN1: the pallas fields disagree with the "
+                             "gather Basis's")
+    # per snapshot: read, upload and project, on the host clock
+    x1, m1 = xe * jit[0], me
+    up, pr = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xu, mu = upload(dev, x1, m1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        force.coefficients(xu, mu, accum_dtype=f64)
+        torch.cuda.synchronize()
+        up.append(t1 - t0)
+        pr.append(time.perf_counter() - t1)
+    host.update({"psp_read_s_median": float(np.median(reads)),
+                 "upload_s_median": float(np.median(up)),
+                 "project_s_median": float(np.median(pr))})
+
+    # slices and volumes: one K2 a time and grid
+    ft = [float(t) for t in times[::AN_SNAPS // AN_TIMES][:AN_TIMES]]
+    fgs = {"slice": FieldGenerator(ft, [-2, -2, 0], [2, 2, 0],
+                                   [AN_SLICE, AN_SLICE, 0]),
+           "volume": FieldGenerator(ft, [-2, -2, -2], [2, 2, 2],
+                                    [AN_VOL] * 3)}
+    rendered, k2 = {}, {}
+    for kind, fg in fgs.items():
+        bc.reset_launches()
+        t0 = time.perf_counter()
+        rendered[kind] = (fg.slices if kind == "slice" else fg.volumes)(
+            basis, coefs)
+        host[f"{kind}_render_s_per_time"] = (time.perf_counter() - t0) \
+            / AN_TIMES
+        launches = bc.kernel_launches()
+        _want_launches(f"AN1 {kind}s", launches, {"sphere_accel": AN_TIMES})
+        pts = fg._mesh()[0]
+        err = 0.0
+        for t in ft:
+            f = rendered[kind][t]
+            out = (f["dens"].ravel(), f["potl"].ravel(), np.stack(
+                [f["accx"].ravel(), f["accy"].ravel(), f["accz"].ravel()],
+                -1))
+            with _plain((sk, "sphere_accel")):
+                ref = basis.get_fields(coefs.interpolate(t), pts)
+            err = max(err, _field_check(f"AN1 {kind} t={t}", out, ref,
+                                        (ACC_RTOL, ACC_ATOL),
+                                        (POT_RTOL, POT_ATOL), False))
+        k2[kind] = (launches["sphere_accel"], err, pts)
+        print(f"AN1 {kind}s ({len(pts)} points x {AN_TIMES} times): "
+              f"launches {launches}, K2 vs plain max|d| {err:.3e} "
+              f"(tolerance acc rtol {ACC_RTOL:.0e} atol {ACC_ATOL:.0e}, pot "
+              f"rtol {POT_RTOL:.0e} atol {POT_ATOL:.0e})", flush=True)
+
+    # FieldBasis: 'dens' and vx, vy, vz, one K1 each a snapshot
+    fb = FieldBasis(force)
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    fser = fb.create_from_snapshots(
+        [(xe * jit[i], ve, me) for i in range(AN_FB_SNAPS)])
+    host["fieldbasis_s_per_snapshot"] = (time.perf_counter() - t0) \
+        / AN_FB_SNAPS
+    launches = bc.kernel_launches()
+    _want_launches("AN1 FieldBasis", launches,
+                   {"sphere_coef": 4 * AN_FB_SNAPS})
+    fb_rel = float(np.abs(fser["dens"] - A[:AN_FB_SNAPS]).max()
+                   / np.abs(A[:AN_FB_SNAPS]).max())
+    fin = all(np.isfinite(v).all() for v in fser.values())
+    print(f"AN1 FieldBasis ({AN_FB_SNAPS} snapshots): launches {launches}, "
+          f"'dens' vs create_from_snapshots max|dc|/max|c| {fb_rel:.3e}, "
+          f"finite {fin}", flush=True)
+    if not (fin and fb_rel <= COEF_RTOL):
+        raise AssertionError(f"AN1 FieldBasis: finite {fin}, dens {fb_rel}")
+
+    # BiorthWake: the monopole and the l >= 1 band (two K2)
+    spts = k2["slice"][2]
+    bc.reset_launches()
+    d0, dw, p0, pw = BiorthWake(force).reconstruct(A[0], spts, L1=1)
+    launches = bc.kernel_launches()
+    _want_launches("AN1 BiorthWake", launches, {"sphere_accel": 2})
+    df, pf, _ = basis.get_fields(A[0], spts)
+    w_err = float(np.abs(p0 + pw - pf).max() / np.abs(pf).max())
+    wd_err = float(np.abs(d0 + dw - df).max() / np.abs(df).max())
+    print(f"AN1 BiorthWake: launches {launches}, |pot0 + pot_wake - pot| "
+          f"{w_err:.3e} of max|pot| (tolerance {AN_WAKE_RTOL:.0e}), dens "
+          f"{wd_err:.3e}", flush=True)
+    if not (w_err <= AN_WAKE_RTOL and wd_err <= 1e-12):
+        raise AssertionError(f"AN1 BiorthWake: pot {w_err}, dens {wd_err}")
+
+    # cross_validate on snapshot 0 at 2^20 (one K1, one K2; the direct sum
+    # on the host)
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    cv = cross_validate(force, xe, me, ntest=AN_NTEST, eps=AN_EPS)
+    host["cross_validate_s"] = time.perf_counter() - t0
+    launches = bc.kernel_launches()
+    _want_launches("AN1 cross_validate", launches,
+                   {"sphere_coef": 1, "sphere_accel": 1})
+    print("AN1 cross_validate: " + json.dumps({
+        "ferr_all_med": cv["ferr_all_med"], "perr_all_med":
+        cv["perr_all_med"], "bounds": [AN_FERR_MED, AN_PERR_MED],
+        "launches": launches}), flush=True)
+    if not (cv["ferr_all_med"] < AN_FERR_MED
+            and cv["perr_all_med"] < AN_PERR_MED):
+        raise AssertionError(f"AN1 cross_validate: {cv}")
+
+    # K1 and K2 at the analysis's shapes
+    x32 = torch.as_tensor(xe * jit[0], dtype=torch.float32, device=dev)
+    m32 = torch.as_tensor(me, dtype=torch.float32, device=dev)
+    tab, r = force._radial_table(), x32.norm(dim=1) + 1e-10
+    n_in = int(((r >= prm.rmin * prm.scale) & (r <= prm.rmax * prm.scale)
+                & (m32 > 0)).sum())
+    rows.append(_an_row(
+        "sphere_coef[AN1 snapshot]", "sphere_coef.cu",
+        "exp_tpu/ops/pallas_sphere.py:521", k1_launches["sphere_coef"],
+        k1_err, lambda: sk.sphere_coef(x32, m32, tab, force.Mp, prm),
+        lambda: sk.sphere_coef_plain(x32, m32, tab, force.Mp, prm),
+        k1_work(n, n_in, prm.lmax, prm.nmax, prm.rows)))
+    twT = force.accel_table(torch.as_tensor(A[0], device=dev))
+    for kind, (cnt, err, pts) in k2.items():
+        p32 = torch.as_tensor(pts, dtype=torch.float32, device=dev)
+        rows.append(_an_row(
+            f"sphere_accel[AN1 {kind}]", "sphere_accel.cu",
+            "exp_tpu/ops/pallas_sphere.py:398", cnt, err,
+            lambda p32=p32: sk.sphere_accel(p32, twT, force.fac32, prm),
+            lambda p32=p32: sk.sphere_accel_plain(p32, twT, force.fac32,
+                                                  prm),
+            k2_work(len(pts), prm.lmax, prm.rows)))
+    del xd, vd, md, x32, m32, gather
+
+    # AN2. the disk: CM1's disk particles, turned a little each snapshot
+    ic = comp["ic"]
+    xk, vk, mk = ic["xd"], ic["vd"], ic["md"]
+
+    def turn(x, ang):
+        c, s = np.cos(ang), np.sin(ang)
+        return np.stack([c * x[:, 0] - s * x[:, 1], s * x[:, 0]
+                         + c * x[:, 1], x[:, 2]], -1)
+
+    dsnaps = [(turn(xk, 0.05 * t), mk) for t in range(AN_DISK_SNAPS)]
+    dtimes = np.arange(AN_DISK_SNAPS) * 0.1
+    disk = Basis(CylinderForce.from_tables(disk_tables, backend="pallas",
+                                           device=dev), name="disk")
+    dforce, dp = disk.force, disk.force._kernel_params()
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    dcoefs = disk.create_from_snapshots(dsnaps, times=dtimes)
+    host["disk_create_from_snapshots_s"] = time.perf_counter() - t0
+    k4_launches = bc.kernel_launches()
+    _want_launches("AN2 create_from_snapshots", k4_launches,
+                   {"cyl_coef": AN_DISK_SNAPS})
+    DA = dcoefs.as_array()
+    k4_err = k4_rel = 0.0
+    for i, (x, m) in enumerate(dsnaps):
+        with _plain((ck, "cyl_coef")):
+            c0 = disk.create_coefficients(x, m)
+        k4_err = max(k4_err, float(np.abs(DA[i] - c0).max()))
+        k4_rel = max(k4_rel, float(np.abs(DA[i] - c0).max()
+                                   / np.abs(c0).max()))
+    print(f"AN2 create_from_snapshots ({AN_DISK_SNAPS} x {len(mk)}): "
+          f"launches {k4_launches}, K4 vs plain max|dc|/max|c| = "
+          f"{k4_rel:.3e} (tolerance {CYL_COEF_RTOL:.0e})", flush=True)
+    if not (k4_rel <= CYL_COEF_RTOL and np.isfinite(DA).all()):
+        raise AssertionError(f"AN2: K4 vs plain {k4_rel}")
+    dfg = FieldGenerator([0.0], [-0.1, -0.1, 1e-3], [0.1, 0.1, 1e-3],
+                         [AN_SLICE, AN_SLICE, 0])
+    dpts = dfg._mesh()[0]
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    dout = disk.get_fields(DA[0], dpts)
+    host["disk_get_fields_s"] = time.perf_counter() - t0
+    k5_launches = bc.kernel_launches()
+    _want_launches("AN2 get_fields", k5_launches, {"cyl_accel": 1})
+    with _plain((ck, "cyl_accel")):
+        dref = disk.get_fields(DA[0], dpts)
+    k5_err = _field_check("AN2 get_fields", dout, dref,
+                          (CYL_ACC_RTOL, CYL_ACC_ATOL_REL),
+                          (CYL_POT_RTOL, CYL_POT_ATOL_REL), True)
+    print(f"AN2 get_fields ({len(dpts)} points): launches {k5_launches}, "
+          f"K5 vs plain max|d| {k5_err:.3e} (|a| up to "
+          f"{np.abs(dref[2]).max():.3e})", flush=True)
+    # diskeof on the same snapshots
+    t0 = time.perf_counter()
+    _, cc, ss, D = diskeof.accumulate(
+        dforce, ((t, m, x) for t, (x, m) in zip(dtimes, dsnaps)))
+    svals, Urot, rotC, rotS = diskeof.rotate(cc, ss, D)
+    dg, pg = diskeof.rotated_grids(dforce, Urot, rotC, rotS, 2, 0.1, 64)
+    host["diskeof_s"] = time.perf_counter() - t0
+    eof_ok = (np.allclose(cc, DA[:, 0], rtol=AN_EOF_RTOL, atol=AN_EOF_ATOL)
+              and np.allclose(ss, DA[:, 1], rtol=AN_EOF_RTOL,
+                              atol=AN_EOF_ATOL))
+    M1, nord = D.shape[0], D.shape[1]
+    orth = max(float(np.abs(Urot[m] @ Urot[m].T - np.eye(nord)).max())
+               for m in range(M1))
+    amp = max(float(np.abs(np.linalg.norm(rotC[:, m], axis=1)
+                           - np.linalg.norm(cc[:, m], axis=1)).max()
+                    / np.linalg.norm(cc[:, m], axis=1).max())
+              for m in range(M1))
+    psd = all(np.allclose(D[m], D[m].T) and np.linalg.eigvalsh(D[m]).min()
+              > -1e-10 * np.abs(D[m]).max() for m in range(M1))
+    print(f"AN2 diskeof ({AN_DISK_SNAPS} snapshots): series vs K4's pass "
+          f"max|d| {max(np.abs(cc - DA[:, 0]).max(), np.abs(ss - DA[:, 1]).max()):.3e}"
+          f" (rtol {AN_EOF_RTOL:.0e} atol {AN_EOF_ATOL:.0e}): {eof_ok}; "
+          f"|Urot Urot^T - I| {orth:.3e}, amplitude {amp:.3e} (tolerance "
+          f"{AN_ROT_TOL:.0e}); D symmetric PSD {psd}; grids finite "
+          f"{bool(np.isfinite(dg).all() and np.isfinite(pg).all())}",
+          flush=True)
+    if not (eof_ok and orth <= AN_ROT_TOL and amp <= AN_ROT_TOL and psd
+            and np.isfinite(dg).all() and np.isfinite(pg).all()):
+        raise AssertionError("AN2: diskeof's gates")
+    # the kinematic series of the same particles (host NumPy)
+    t0 = time.perf_counter()
+    kin = (kincoefs.bess_coefs(mk, xk, vk, 0.1, mmax=4, nmax=10)
+           + kincoefs.lagu_coefs(mk, xk, vk, bc.ACYL, mmax=4, nmax=10)
+           + kincoefs.ring_coefs(mk, xk, vk, 0.0, 0.1, 20, mmin=1, mmax=4))
+    host["kincoefs_s"] = time.perf_counter() - t0
+    if not all(np.isfinite(k).all() for k in kin):
+        raise AssertionError("AN2: non-finite kinematic series")
+    print(f"AN2 kincoefs bess/lagu/ring: shapes "
+          f"{[list(k.shape) for k in kin]}", flush=True)
+    xk32 = torch.as_tensor(dsnaps[0][0], dtype=torch.float32, device=dev)
+    mk32 = torch.as_tensor(mk, dtype=torch.float32, device=dev)
+    kx = 3 if dp.interp == "spline" else 2
+    nk_in = int(((xk32.norm(dim=1) <= dp.rmax_grid) & (mk32 > 0)).sum())
+    rows.append(_an_row(
+        "cyl_coef[AN2 snapshot]", "cyl_coef.cu",
+        "exp_tpu/ops/pallas_cylinder.py:164", k4_launches["cyl_coef"],
+        k4_err, lambda: ck.cyl_coef(xk32, mk32, dp),
+        lambda: ck.cyl_coef_plain(xk32, mk32, dp),
+        k4_work(len(mk), nk_in, dp.mmax, dp.xrows, dp.ncy, kx)))
+    Ct = ck.contract_coef_tables(torch.as_tensor(DA[0], device=dev),
+                                 dforce.tab3, dp.xrows, dp.ncy)
+    dp32 = torch.as_tensor(dpts, dtype=torch.float32, device=dev)
+    rows.append(_an_row(
+        "cyl_accel[AN2 slice]", "cyl_accel.cu",
+        "exp_tpu/ops/pallas_cylinder.py:257", k5_launches["cyl_accel"],
+        k5_err, lambda: ck.cyl_accel(dp32, Ct, dp),
+        lambda: ck.cyl_accel_plain(dp32, Ct, dp),
+        k5_work(len(dpts), dp.mmax, dp.xrows, dp.ncy, kx)))
+    del xk32, mk32, dp32, Ct, disk, dforce
+
+    # AN3. the host side: MSSA and Koopman on AN1's series, VTK files
+    t0 = time.perf_counter()
+    npc = AN_SNAPS - AN_WINDOW + 1
+    mssa = expMSSA({"halo": coefs}, window=AN_WINDOW, numpc=npc)
+    rec = mssa.reconstruct_coefs(coefs).as_array()
+    host["mssa_s"] = time.perf_counter() - t0
+    rec_err = float(np.abs(rec - A).max() / np.abs(A).max())
+    t0 = time.perf_counter()
+    koop = Koopman({"halo": coefs}, numev=npc - 1, window=AN_WINDOW)
+    kr = koop.reconstruction()
+    host["koopman_s"] = time.perf_counter() - t0
+    print(f"AN3 expMSSA (window {AN_WINDOW}, {mssa.nkeys} channels, "
+          f"{npc} eigentriples): every group gives the series back to "
+          f"{rec_err:.3e} of max|c| (tolerance {AN_MSSA_REC:.0e}); "
+          f"Koopman reconstruction {list(kr.shape)} finite "
+          f"{bool(np.isfinite(kr).all())}", flush=True)
+    if not (rec_err <= AN_MSSA_REC and np.isfinite(kr).all()):
+        raise AssertionError(f"AN3: MSSA reconstruction {rec_err}")
+    t0 = time.perf_counter()
+    paths = []
+    for i, t in enumerate(ft):
+        p = os.path.join(wd, f"an_{i:05d}.vtk")
+        write_vtk(p, rendered["slice"][t], fgs["slice"].pmin,
+                  fgs["slice"].pmax, axes=(0, 1))
+        paths.append((t, p))
+    write_pvd(os.path.join(wd, "an.pvd"), paths)
+    host["vtk_write_s_per_time"] = (time.perf_counter() - t0) / AN_TIMES
+    with open(paths[0][1]) as fh:
+        body = fh.read().split("LOOKUP_TABLE default\n")[1].split()[:8]
+    first = rendered["slice"][ft[0]]["dens"].ravel(order="F")[:8]
+    vtk_ok = np.allclose([float(v) for v in body], first, rtol=1e-6)
+    print(f"AN3 VTK/PVD: {len(paths)} files of {AN_SLICE}^2 points, the "
+          f"first values read back within %.6e rounding: {vtk_ok}",
+          flush=True)
+    if not vtk_ok:
+        raise AssertionError("AN3: the VTK file does not hold the slice")
+    # the cube and the slab through Basis: K7/K8 and K9/K10 once each
+    from exp_tpu_torch import bench_cube, bench_slab
+    from exp_tpu_torch.ops import cube_kernels as cuk
+    from exp_tpu_torch.ops import slab_kernels as slk
+
+    for case, conf, sample, wrappers, ctol, ftol in (
+            ("cube", {"id": "cube", "parameters": {
+                "nmaxx": bench_cube.NMAX, "nmaxy": bench_cube.NMAX,
+                "nmaxz": bench_cube.NMAX, "backend": "pallas"}},
+             bench_cube.cube_sample(AN_PERIODIC_N, perturbed=True),
+             (cuk, "cube_coef", "cube_accel"), CUBE_COEF_RTOL["perturbed"],
+             CUBE_FORCE_RTOL),
+            ("slab", {"id": "slabSL", "parameters": {
+                "nmaxx": bench_slab.NMAXXY, "nmaxy": bench_slab.NMAXXY,
+                "nmaxz": bench_slab.NMAX, "zmax": bench_slab.ZMAX,
+                "hslab": bench_slab.H, "backend": "pallas"}},
+             bench_slab.slab_sample(AN_PERIODIC_N), (slk, "slab_coef",
+                                                     "slab_accel"),
+             SLAB_COEF_RTOL, SLAB_FORCE_RTOL)):
+        mod, kc, ka = wrappers
+        x, _, m = sample
+        b = Basis.factory(conf, workdir=wd, device=dev)
+        bc.reset_launches()
+        t0 = time.perf_counter()
+        c = b.create_coefficients(x, m)
+        f = b.get_fields(c, x[:65536])
+        host[f"{case}_coef_and_fields_s"] = time.perf_counter() - t0
+        launches = bc.kernel_launches()
+        _want_launches(f"AN3 {case}", launches, {kc: 1, ka: 1})
+        with _plain((mod, kc), (mod, ka)):
+            c0 = b.create_coefficients(x, m)
+            f0 = b.get_fields(c0, x[:65536])
+        c_rel = float(np.abs(c - c0).max() / np.abs(c0).max())
+        a_rel = float(np.abs(f[2] - f0[2]).max() / np.abs(f0[2]).max())
+        p_rel = float(np.abs(f[1] - f0[1]).max() / np.abs(f0[1]).max())
+        print(f"AN3 {case} Basis ({len(m)} rows): launches {launches}, "
+              f"coefficients vs plain {c_rel:.3e} (tolerance {ctol:.0e}), "
+              f"acc {a_rel:.3e}, pot {p_rel:.3e} of their largest "
+              f"(tolerance {ftol:.0e})", flush=True)
+        if not (c_rel <= ctol and a_rel <= ftol and p_rel <= ftol
+                and all(np.isfinite(v).all() for v in f)):
+            raise AssertionError(f"AN3 {case}: coefficients {c_rel}, acc "
+                                 f"{a_rel}, pot {p_rel}")
+        del b
+    host["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    print("AN3 host clock: " + json.dumps(host), flush=True)
+    work.cleanup()
+    return rows
+
+
 def main():
     import torch
 
@@ -3775,6 +4362,7 @@ def main():
     rows += relevel_path(dev, comp)
     rows += multi_path(dev, tables, comp, work.name, r2, xe, ve, me)
     work.cleanup()
+    rows += analysis_path(dev, comp, disk_tables, xe, ve, me)
     rows += phasestream_path(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     # the energy bars last: their runs are the longest

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+__version__ = "0.1.0"
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `device` when given, else CUDA.

@@ -171,6 +171,12 @@ class CylinderForce(nn.Module):
                 + table[i00 + self.numy] * fx * (1 - fy)
                 + table[i00 + self.numy + 1] * fx * fy)
 
+    def _bilinear(self, table, R, z):
+        """The flat lookup as per-particle rows (N, mmax+1, nmax), read by
+        analysis.diskeof; not on the force's own path."""
+        v = self._bilinear_flat(table, R, z)
+        return v.reshape(v.shape[0], self.mmax + 1, self.nmax)
+
     def _trig(self, phi, dtype):
         m = torch.arange(self.mmax + 1, dtype=dtype, device=phi.device)
         ang = phi[:, None] * m
@@ -227,8 +233,10 @@ class CylinderForce(nn.Module):
         Bc = (coef[0][:, :, None] * eye[:, None, :]).reshape(M1 * nn, M1)
         Bs = (coef[1][:, :, None] * eye[:, None, :]).reshape(M1 * nn, M1)
         B = torch.cat([Bc, Bs], dim=1)                   # (M1*nn, 2*M1)
-        C = torch.cat([self.pot_t @ B, self.rfrc_t @ B, self.zfrc_t @ B],
-                      dim=1)                             # (G, 6*M1)
+        # coefficients in another dtype than the tables: promote, as jnp
+        C = torch.cat([self.pot_t.to(B.dtype) @ B,
+                       self.rfrc_t.to(B.dtype) @ B,
+                       self.zfrc_t.to(B.dtype) @ B], dim=1)  # (G, 6*M1)
         return torch.cat([C, torch.roll(C, -1, dims=0),
                           torch.roll(C, -self.numy, dims=0),
                           torch.roll(C, -self.numy - 1, dims=0)], dim=1)

@@ -331,7 +331,8 @@ class SphereSL(nn.Module):
         ys = (self.fac[None] * P * sinm[:, None, :]).reshape(-1, nlm)
         Y2 = torch.cat([yc * w[:, None], ys * w[:, None]], dim=1)
         W, _ = self._hat_weights(rs)
-        G = W @ self.tabc
+        # points in another dtype than the tables: promote, as jnp does
+        G = W @ self.tabc.to(W.dtype)
         big = Y2.T.to(accum_dtype) @ G.to(accum_dtype)
         big = big.reshape(2, lmax + 1, lmax + 1, lmax + 1, nmax)
         lsel = torch.arange(lmax + 1, device=x.device)
@@ -407,8 +408,9 @@ class SphereSL(nn.Module):
         if self.backend == "matmul":
             W, dW = self._hat_weights(rs, deriv=True)
             sh = (x.shape[0], lmax + 1, self.nmax)
-            potd = (W @ self.tabc).reshape(sh)
-            dpot = (dW @ self.tabc).reshape(sh)
+            tabc = self.tabc.to(W.dtype)
+            potd = (W @ tabc).reshape(sh)
+            dpot = (dW @ tabc).reshape(sh)
         else:
             potd, dpot = g.get_pot_dpot(rs, deriv=deriv)
 

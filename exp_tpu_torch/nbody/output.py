@@ -22,9 +22,9 @@ world of several ranks a due writer first runs `gather` on every rank (the
 collectives it needs: the phase-space gather of `sim.host_ps`, the level
 counts, the subsample projections), then `write` on rank 0 alone, which
 also alone creates the files (exp_tpu's gather/write split and its
-process-0 gating).  OutVel needs analysis.field_basis (ROADMAP item 14)
-and raises NotImplementedError.  OutSamp writes the subsample covariance
-through nbody/pca.py.
+process-0 gating).  OutVel writes the velocity-field coefficients through
+analysis/field_basis.py, on one rank.  OutSamp writes the subsample
+covariance through nbody/pca.py.
 
 Writers read the host copies the driver makes (`sim.host_ps`, and the
 coefficients and diagnostics it brings to the host once at an output
@@ -496,12 +496,44 @@ class OutMulti(Output):
 
 class OutVel(Output):
     """Velocity-field coefficient snapshots (the reference's OutVel over
-    expui FieldBasis): needs analysis.field_basis, ROADMAP item 14."""
+    expui FieldBasis): the component's 'dens', vx, vy and vz coefficients
+    (analysis.field_basis, f32 sums as exp_tpu's) appended to an HDF5 file
+    as one group a dump.  One rank only: a world of several ranks refuses
+    it (ROADMAP item 12b)."""
 
     def __init__(self, sim, nint=10, name=None, **kw):
-        raise NotImplementedError(
-            "output outvel needs analysis.field_basis, which is not ported "
-            "(ROADMAP item 14)")
+        super().__init__(sim, nint)
+        self.name = name or next(iter(sim.components))
+        from exp_tpu_torch.analysis.field_basis import FieldBasis
+
+        self.fb = FieldBasis(sim.components[self.name].force)
+        self.path = os.path.join(sim.outdir,
+                                 f"outvel.{self.name}.{sim.runtag}.h5")
+        if (_primary(sim) and _fresh(sim, self.path)
+                and os.path.exists(self.path)):
+            os.remove(self.path)
+
+    def gather(self, sim):
+        import torch
+
+        from exp_tpu_torch.analysis.basis import download
+
+        ps = sim._state[self.name]
+        self._coefs = download(self.fb.coefficients(
+            ps.x, ps.v, ps.mass, accum_dtype=torch.float32))
+
+    def write(self, sim, istep):
+        import h5py
+
+        mode = "a" if os.path.exists(self.path) else "w"
+        with h5py.File(self.path, mode) as f:
+            if "fields" not in f.attrs:
+                f.attrs["fields"] = list(self._coefs.keys())
+                f.attrs["name"] = self.name
+            g = f.create_group(f"snap{len(f.keys()):08d}")
+            g.attrs["Time"] = sim.time
+            for k, c in self._coefs.items():
+                g.create_dataset(k, data=np.asarray(c))
 
 
 class OutSamp(Output):

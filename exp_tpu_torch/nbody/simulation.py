@@ -155,15 +155,23 @@ def _fetch(tree):
 def build_force(fc, dtype, workdir=".", particles=None, device=None,
                 world=None):
     """Instantiate a force from its config stanza (host-side table builds)
-    on `device` (None: CUDA, raising when there is none).
+    on `device` (None: CUDA, raising when there is none).  The force keeps
+    that device as its `device` attribute, which a force without tables
+    (shells, direct) has no other way to tell.
 
     `particles`: optional (x, mass) host arrays of the owning component,
     used when a basis conditions on the snapshot itself (cylinder
     `conditioning: particles`, the reference's accumulate_eof path).
     `world`: on a World of several ranks the SL, EOF and slab tables are
     built on rank 0 and broadcast."""
-    p = dict(fc.parameters)
     device = resolve_device(device)
+    force = _build_force(fc, dtype, workdir, particles, device, world)
+    force.device = device
+    return force
+
+
+def _build_force(fc, dtype, workdir, particles, device, world):
+    p = dict(fc.parameters)
     if fc.id == "sphereSL":
         from exp_tpu_torch.basis.model import SphericalModelTable
         from exp_tpu_torch.basis.slgrid import build_sph_sl_tables

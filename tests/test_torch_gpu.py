@@ -1434,3 +1434,63 @@ def test_direct_f32_matches_f64(cuda, kind):
     (a32, p32), (a64, p64) = out[torch.float32], out[torch.float64]
     assert float((a32.double() - a64).abs().max() / a64.abs().max()) < 1e-4
     assert float((p32.double() - p64).abs().max() / p64.abs().max()) < 1e-5
+
+
+@pytest.mark.gpu
+def test_analysis_basis_on_card_matches_cpu(cuda, tmp_path):
+    """The analysis library on a `backend: pallas` sphereSL stanza (Lmax 4,
+    nmax 10) on the card against the same Basis on the CPU (the kernels'
+    plain versions): create_from_snapshots launches K1 once a snapshot,
+    agreeing to max|dc|/max|c| < 1e-5; get_fields launches K2 once,
+    acc rtol 1e-4 / atol 1e-6 and pot rtol 1e-5 / atol 1e-7 as the
+    kernels' own tests, the f64 density (plain torch) to 1e-10;
+    FieldBasis launches K1 once a field."""
+    from exp_tpu_torch.analysis.basis import Basis
+    from exp_tpu_torch.analysis.field_basis import FieldBasis
+
+    hernquist_model(rmin=1e-4, rmax=20.0, numr=1000).to_file(
+        tmp_path / "halo.model")
+    conf = {"id": "sphereSL", "parameters": {
+        "modelname": "halo.model", "Lmax": 4, "nmax": 10, "numr": 800,
+        "rmapping": 1.0, "backend": "pallas"}}
+    bc = Basis.factory(conf, workdir=str(tmp_path), device=cuda)
+    bh = Basis.factory(conf, workdir=str(tmp_path), device="cpu")
+    x, v, m = hernquist_sample_np(N, seed=2)
+    snaps = [(x * (1.0 + 0.01 * t), m) for t in range(3)]
+    before = dict(sk.launch_counts)
+    cc = bc.create_from_snapshots(snaps).as_array()
+    assert sk.launch_counts["sphere_coef"] == before["sphere_coef"] + 3
+    ch = bh.create_from_snapshots(snaps).as_array()
+    assert np.abs(cc - ch).max() / np.abs(ch).max() < 1e-5
+    pts = x[:4096]
+    dc, pc, ac = bc.get_fields(ch[0], pts)
+    assert sk.launch_counts["sphere_accel"] == before["sphere_accel"] + 1
+    dh, ph, ah = bh.get_fields(ch[0], pts)
+    np.testing.assert_allclose(ac, ah, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(pc, ph, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(dc, dh, rtol=1e-10, atol=1e-13)
+    FieldBasis(bc.force).coefficients(x, v, m)
+    assert sk.launch_counts["sphere_coef"] == before["sphere_coef"] + 7
+
+
+@pytest.mark.gpu
+def test_analysis_tableless_force_stays_on_card(cuda):
+    """A shells stanza (a force without tables) through Basis.factory with
+    no device runs on the card: the Basis, its uploads, the force's
+    coefficients and FieldBasis's stay on CUDA (cumulative masses to 1e-12
+    of the CPU Basis's: f64 sums in another order)."""
+    from exp_tpu_torch.analysis.basis import Basis, upload
+    from exp_tpu_torch.analysis.field_basis import FieldBasis
+
+    stanza = {"id": "shells", "parameters": {"rmax": 20.0, "nbins": 64}}
+    b = Basis.factory(stanza)
+    assert b.device.type == "cuda"
+    x, v, m = hernquist_sample_np(N, seed=3)
+    xd, md = upload(b.device, x, m)
+    assert xd.device.type == md.device.type == "cuda"
+    assert b.force.coefficients(xd, md).device.type == "cuda"
+    fc = FieldBasis(b.force).coefficients(x, v, m)
+    assert all(c.device.type == "cuda" for c in fc.values())
+    ch = Basis.factory(stanza, device="cpu").create_coefficients(x, m)
+    cc = b.create_coefficients(x, m)
+    np.testing.assert_allclose(cc, ch, rtol=1e-12, atol=1e-12 * ch.max())

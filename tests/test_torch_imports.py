@@ -62,7 +62,15 @@ def test_import_loads_no_jax_or_exp_tpu():
         "exp_tpu_torch.forces.external, exp_tpu_torch.ic.ellipsoid, "
         "exp_tpu_torch.analysis.coefs, exp_tpu_torch.bench_extras, "
         "exp_tpu_torch.parallel, exp_tpu_torch.parallel.distributed, "
-        "exp_tpu_torch.bench_energy, exp_tpu_torch.bench_multirank\n"
+        "exp_tpu_torch.bench_energy, exp_tpu_torch.bench_multirank, "
+        "exp_tpu_torch.analysis, exp_tpu_torch.analysis.basis, "
+        "exp_tpu_torch.analysis.field, exp_tpu_torch.analysis.field_basis, "
+        "exp_tpu_torch.analysis.crossval, exp_tpu_torch.analysis.wake, "
+        "exp_tpu_torch.analysis.diskeof, exp_tpu_torch.analysis.kincoefs, "
+        "exp_tpu_torch.analysis.mssa, exp_tpu_torch.analysis.edmd, "
+        "exp_tpu_torch.analysis.orbit, exp_tpu_torch.analysis.units, "
+        "exp_tpu_torch.analysis.util, exp_tpu_torch.io.readers, "
+        "exp_tpu_torch.probe_analysis\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exp_tpu' or m.startswith('exp_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -191,6 +199,15 @@ def test_composite_and_probe_entry_points_without_device_raise_when_no_cuda(
             call()
     with pytest.raises(RuntimeError, match="times the card"):
         bench_composite(8, 8, device="cpu")
+
+
+def test_analysis_probe_refuses_without_cuda(monkeypatch, capsys):
+    """The analysis probe exits 1 with no CUDA device and prints no result."""
+    from exp_tpu_torch import probe_analysis
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe_analysis.main() == 1
+    assert capsys.readouterr().out == ""
 
 
 def test_driver_entry_points_without_device_raise_when_no_cuda(

@@ -223,6 +223,32 @@ def test_run_and_outputs_f64(rundir):
         close(cf.read_all()[1], cj.read_all()[1], F64)
 
 
+def test_outvel_matches_exp_tpu(rundir):
+    """OutVel (tests/test_simulation.py::test_outvel_writer) on both
+    drivers in f64 for 4 steps, every 2: the same groups, field names,
+    times, and each snapshot's 'dens', vx, vy, vz coefficients to F32_COEF
+    of the largest (both project in float32 accumulation); finite."""
+    import h5py
+
+    txt = f64(CONFIG) + ("  - id: outvel\n"
+                         "    parameters: {nint: 2, name: halo}\n")
+    sj, st = both(rundir, "outvel", txt, nsteps=4)
+    name = "outvel.halo.trun.h5"
+    with h5py.File(rundir / "t_outvel" / name) as ft, \
+            h5py.File(rundir / "j_outvel" / name) as fj:
+        assert list(ft.attrs["fields"]) == list(fj.attrs["fields"]) == [
+            "dens", "vx", "vy", "vz"]
+        assert ft.attrs["name"] == fj.attrs["name"] == "halo"
+        assert sorted(ft.keys()) == sorted(fj.keys())
+        assert len(ft.keys()) >= 2
+        for g in ft.keys():
+            assert ft[g].attrs["Time"] == fj[g].attrs["Time"]
+            for k in fj.attrs["fields"]:
+                a, b = ft[g][k][()], fj[g][k][()]
+                assert a.dtype == b.dtype and np.isfinite(a).all()
+                close(a.ravel(), b.ravel(), 0.0, floor=F32_COEF)
+
+
 def test_checkpoint_restart(rundir):
     """:106 — the port restores its own and exp_tpu's checkpoint at step 10
     to the same state, and both continue alike (F64)."""
@@ -908,11 +934,17 @@ REFUSED = {
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_unported_features_raise(rundir, case):
+    """OutVel runs on one rank (test_outvel_matches_exp_tpu) and still
+    refuses a world of several ranks, naming ROADMAP item 12b."""
+    from exp_tpu_torch.config import OutputConfig
+
     where, what = REFUSED[case]
     txt = CONFIG + what
     p = configs(rundir, f"ref_{case}", txt)[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1[0-9]"):
-        TSim.from_file(p, device="cpu")
+    sim = TSim.from_file(p, device="cpu")
+    sim.dist = True
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
+        sim._make_output(OutputConfig(id=case, parameters={"nint": 2}))
 
 
 def test_multi_process_world_raises(rundir, monkeypatch):
