@@ -51,7 +51,13 @@ from run configs, with and without its extras:
     read back through createReader and projected by Basis, fields
     rendered by FieldGenerator, FieldBasis, BiorthWake, cross_validate,
     diskeof, the kinematic series, MSSA and Koopman, through K1, K2, K4
-    and K5, and K7/K8 and K9/K10 once each.
+    and K5, and K7/K8 and K9/K10 once each;
+  what a world of several ranks runs since ROADMAP item 12b: the host
+    operators, the adaptive sphereSL rebuild and the writers OutAscii,
+    OrbTrace, OutDiag, OutFrac, OutCalbr and OutVel, through K1 and K2;
+  the remaining ICs (exp_tpu_torch/bench_ics.py): the QP halo of gensph
+    --qp, the Zang disk of zangics under its flatdisk basis and the 2D disk
+    + halo of gendisk2d --nhalo, through K1, K2, K4 and K5.
 
 Phases:
 
@@ -221,13 +227,36 @@ Phases:
      once each, against their plain versions; the host-clock times (a
      snapshot's read, upload and projection, a render a time, MSSA,
      cross_validate) and the peak device memory, printed;
+  WX1. (after MD2) the sphere run config on phase 5's 2^20 sample with
+     scatterMFP, generateRelaxation, the halo's sphereSL rebuilt every
+     0.01 and OutAscii, OrbTrace, OutDiag, OutFrac and OutCalbr
+     (bench_multirank.extras_run_config), 20 steps through `run.py` on one
+     rank and `run.py --ndev 2` (gloo, both ranks on the card): every file
+     written by each, each file against one rank's (bench_multirank.
+     file_difference) at MD2(b)'s tolerances, K1 and K2 launched once a
+     step on every rank and the launches at each rebuild; K1 and K2 at a
+     rank's rows on tables rebuilt from the binned sample;
+  WX2. OutVel's gather over two ranks on the card (each rank's
+     projections summed) against one rank's, at MD2(a)'s bound (the card
+     has no h5py: OutVel's and OutHDF5's files are held by the CPU tests);
+  IC1. (after AN3) the QP halo of gensph --qp at 2^20 (its DF on the
+     card), its 2T/VC in the model's field (tests/test_qpdistf.py:66), 50
+     KDK steps under phase 3's force with its launches and drift gated, K1
+     and K2 against their plain versions on its rows;
+  IC2. the Zang disk of zangics at 262,144 under the 'zang' flatdisk basis
+     (mmax 4, nmax 8), 20 KDK steps with z and vz exactly 0, its launches
+     and drift gated, K4 and K5 against their plain versions;
+  IC3. the 2D disk + halo of gendisk2d --nhalo (786,432 + 262,144, lmax 4
+     nmax 10, mmax 4 nmax 8, pallas): -2T/VC (tests/test_diskhalo2d.py:77),
+     the disk's z = vz = 0, 4 big steps at M=2 finite with the schedule's
+     launches, K1, K2, K4 and K5 against their plain versions on its rows;
   PS1. P1 against its plain version on the probe's sample with edge rows,
      stream1 and stream2, with the stated tolerances;
   PS2. the probe's run: producer + P1, P1 alone, the producer, the
      yardstick and K9 at the same particles by CUDA events, each bound;
   EN1. exp_tpu_torch.bench_energy direct at the script's settings (500 big
      steps of the composite, 6 snapshots, a 65,536 subsample's true energy
-     by a direct pair sum over every particle, and at each of the last 20
+     by a direct pair sum over every particle, and at each of the last 5
      big steps), gated by tests/test_energy_artifacts.py:42-66; one 65,536
      x 1,048,576 pair sum timed, the peak memory;
   EN2. bench_energy ab, arms A, B and C (100 big steps at dtime, 200 at
@@ -1753,16 +1782,21 @@ def _comp_kernels(halo, disk, coef):
     TPU site, components whose buckets it runs on, fn(b) -> kernel call,
     plain(b), work(b) -> (bytes, operations), check(out, out0) -> (ok,
     max abs error)); the force kernels take the tables of the assembled
-    coefficients `coef` of a substep."""
+    coefficients `coef` of a substep.  A force given as None leaves its
+    two kernels out."""
     import torch
 
     from exp_tpu_torch.ops import cyl_kernels as ck
     from exp_tpu_torch.ops import sphere_kernels as sk
 
-    hp, dp = halo._kernel_params(), disk._kernel_params()
-    twT = halo.accel_table(coef["halo"])
-    Ct = ck.contract_coef_tables(coef["disk"], disk.tab3, dp.xrows, dp.ncy)
-    kx = 3 if dp.interp == "spline" else 2
+    if halo is not None:
+        hp = halo._kernel_params()
+        twT = halo.accel_table(coef["halo"])
+    if disk is not None:
+        dp = disk._kernel_params()
+        Ct = ck.contract_coef_tables(coef["disk"], disk.tab3, dp.xrows,
+                                     dp.ncy)
+        kx = 3 if dp.interp == "spline" else 2
 
     def sph_in(b):
         rs = b.x.norm(dim=1) / hp.scale
@@ -1789,7 +1823,7 @@ def _comp_kernels(halo, disk, coef):
             return ok, max(float(da.max()), float(dp_.max()))
         return check
 
-    return [
+    sphere = [
         ("sphere_coef[composite]", "sphere_coef", "sphere_coef.cu",
          "exp_tpu/ops/pallas_sphere.py:521", ("halo",),
          lambda b: sk.sphere_coef(b.x, b.mass, halo.tabc_s, halo.Mp, hp),
@@ -1802,7 +1836,8 @@ def _comp_kernels(halo, disk, coef):
          lambda b: sk.sphere_accel(b.x, twT, halo.fac32, hp),
          lambda b: sk.sphere_accel_plain(b.x, twT, halo.fac32, hp),
          lambda b: k2_work(b.x.shape[0], hp.lmax, hp.rows),
-         accel_check(ACC_RTOL, ACC_ATOL, POT_RTOL, POT_ATOL, False)),
+         accel_check(ACC_RTOL, ACC_ATOL, POT_RTOL, POT_ATOL, False))]
+    cyl = [
         ("cyl_coef[composite]", "cyl_coef", "cyl_coef.cu",
          "exp_tpu/ops/pallas_cylinder.py:164", ("disk",),
          lambda b: ck.cyl_coef(b.x, b.mass, dp),
@@ -1816,8 +1851,9 @@ def _comp_kernels(halo, disk, coef):
          lambda b: ck.cyl_accel_plain(b.x, Ct, dp),
          lambda b: k5_work(b.x.shape[0], dp.mmax, dp.xrows, dp.ncy, kx),
          accel_check(CYL_ACC_RTOL, CYL_ACC_ATOL_REL, CYL_POT_RTOL,
-                     CYL_POT_ATOL_REL, True)),
-    ]
+                     CYL_POT_ATOL_REL, True))]
+    return ((sphere if halo is not None else [])
+            + (cyl if disk is not None else []))
 
 
 def composite_path(dev, sphere_tables, disk_tables):
@@ -3216,7 +3252,8 @@ def _bucket_rows(tag, kernels, st, launches):
     version on every bucket, a launch on each level's bucket timed by CUDA
     events behind a spin kernel, averaged over a big step's launches (level
     l launches 2^l times), its plain version's time and the bound the same
-    way; `launches` are the wrapper counts of the phase's run."""
+    way; `launches` are the wrapper counts of the phase's run.  A
+    component `st` does not hold is left out."""
     from exp_tpu_torch import bench_kernels as bk
 
     rows, bad = [], []
@@ -3225,7 +3262,7 @@ def _bucket_rows(tag, kernels, st, launches):
                "operations": 0}
         nl, err = 0, 0.0
         for c in comps:
-            for l, b in enumerate(st[c]):
+            for l, b in enumerate(st.get(c, ())):
                 ok, e = check(fn(b), plain(b))
                 err = max(err, e)
                 if not ok:
@@ -3370,8 +3407,10 @@ def relevel_path(dev, comp):
                         si, li)
 
 
-#: big steps at the end of EN1 with the subsample's true energy each
-EN1_TAIL = 20
+#: big steps at the end of EN1 with the subsample's true energy each (5 of
+#: the script's 20, to keep the whole script inside its 1200 s with WX1-WX2
+#: and IC1-IC3: each is a 65,536 x 1,048,576 pair sum, ~2.8 s)
+EN1_TAIL = 5
 #: gates of tests/test_energy_artifacts.py that EN1 and EN2 print but do
 #: not fail on: each reads one draw of a quantity whose spread on the card
 #: is wider than its bound (`python -m exp_tpu_torch.bench_energy spread`
@@ -4213,8 +4252,244 @@ def analysis_path(dev, comp, disk_tables, xe, ve, me):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# IC1, IC2, IC3: the remaining ICs (exp_tpu_torch/bench_ics.py)
+# ---------------------------------------------------------------------------
+
+# IC1's gate on the sample's 2T/VC in the model's own field
+# (tests/test_qpdistf.py:66) and its drift bound, the sphere path's for its
+# equilibrium sample of the same model under the same basis and steps
+IC1_VIRIAL_TOL = 0.06
+IC1_DRIFT_BOUND = DRIFT_BOUND
+# IC2's CPU drift: python -m exp_tpu_torch.bench_ics kdk --case IC2
+# --device cpu --threads 3 (262,144 particles, 20 steps of dt 1e-3, the
+# kernels' plain versions); the bound is three times it, as MF1's and
+# CM2's are
+IC2_CPU = {"dE_rel": 8.583483177473419e-05}
+# IC3's gate on the composite's 2T/VC (tests/test_diskhalo2d.py:77)
+IC3_VIRIAL_TOL = 0.05
+
+
+def ic_path(dev, force):
+    """Phases IC1-IC3 on the card (exp_tpu_torch/bench_ics.py): the QP
+    halo under phase 3's `force` (the sphere cell's basis), the Zang disk
+    under its flatdisk basis (the first flatdisk tables through K4 and
+    K5), and the 2D disk + halo.  Returns the kernels-line rows of K1 and
+    K2 on IC1, K4 and K5 on IC2 and the four kernels on IC3."""
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch import bench_composite as bc
+    from exp_tpu_torch import bench_ics as bi
+    from exp_tpu_torch.basis.model import hernquist_model
+    from exp_tpu_torch.nbody.particles import ParticleSystem
+
+    rows = []
+
+    # IC1. gensph --qp: the QP halo at 2^20, its DF on the card
+    (x, v, m), info = bi.qp_halo(bi.QP_N, dev)
+    model = hernquist_model(rmin=1e-3, rmax=20.0)
+    r = np.linalg.norm(x, axis=1)
+    vir = float(np.sum(m * np.sum(v * v, 1))
+                / np.sum(m * r * model.get_dpot(r)))
+    xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    mt = torch.as_tensor(m, dtype=torch.float32, device=dev)
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    _, run = bi.kdk(force, x, v, m, bi.QP_STEPS, bi.QP_DT, dev)
+    torch.cuda.synchronize()
+    launches = bc.kernel_launches()
+    rep = {**info, "n": len(m), "virial_model": vir, **run,
+           "run_sec": time.perf_counter() - t0, "launches": launches,
+           "tolerance": {"virial_model": IC1_VIRIAL_TOL,
+                         "dE_rel": IC1_DRIFT_BOUND}}
+    print("IC1 gensph --qp: " + json.dumps(rep), flush=True)
+    if not abs(vir - 1.0) <= IC1_VIRIAL_TOL:
+        raise AssertionError(f"IC1: the sample's 2T/VC is {vir}")
+    if not run["finite"] or not run["dE_rel"] < IC1_DRIFT_BOUND:
+        raise AssertionError(f"IC1: finite {run['finite']}, |dE/E| "
+                             f"{run['dE_rel']}")
+    want = _want(launches, {"sphere_coef": bi.QP_STEPS + 1,
+                            "sphere_accel": bi.QP_STEPS + 1})
+    if launches != want:
+        raise AssertionError(f"IC1: launches {launches}, expected {want}")
+    rows += _mf_rows("IC1", _mf_sphere_check("IC1", force, xt, mt),
+                     launches, "the QP halo's 2^20 rows")
+    del xt, mt
+
+    # IC2. zangics: 262,144 bodies under the 'zang' flatdisk basis
+    t0 = time.perf_counter()
+    disk = bi.zang_force(dev)
+    t1 = time.perf_counter()
+    x, v, m = bi.zang_disk(bi.ZANG_N)
+    t2 = time.perf_counter()
+    bc.reset_launches()
+    ps, run = bi.kdk(disk, x, v, m, bi.ZANG_STEPS, bi.ZANG_DT, dev)
+    torch.cuda.synchronize()
+    launches = bc.kernel_launches()
+    flat = bool((ps.x[:, 2] == 0).all()) and bool((ps.v[:, 2] == 0).all())
+    bound = _mf_bound(IC2_CPU)
+    rep = {"tables_sec": t1 - t0, "sample_sec": t2 - t1, **run,
+           "run_sec": time.perf_counter() - t2, "z_vz_zero": flat,
+           "launches": launches, "cpu": IC2_CPU,
+           "tolerance": {"dE_rel": bound}}
+    print("IC2 zangics: " + json.dumps(rep), flush=True)
+    if not (run["finite"] and flat and run["dE_rel"] < bound):
+        raise AssertionError(f"IC2: finite {run['finite']}, z = vz = 0 "
+                             f"{flat}, |dE/E| {run['dE_rel']}")
+    want = _want(launches, {"cyl_coef": bi.ZANG_STEPS + 1,
+                            "cyl_accel": bi.ZANG_STEPS + 1})
+    if launches != want:
+        raise AssertionError(f"IC2: launches {launches}, expected {want}")
+    b = ParticleSystem.from_arrays(x, v, m, device=dev)
+    coef = {"disk": disk.coefficients(b.x, b.mass)}
+    rows += _bucket_rows("IC2", _comp_kernels(None, disk, coef),
+                         {"disk": [b]}, launches)
+    del disk, ps, b, coef
+
+    # IC3. gendisk2d --nhalo: the 2D disk + halo at the flagship's counts
+    t0 = time.perf_counter()
+    halo, disk = bi.disk2d_forces(dev)
+    t1 = time.perf_counter()
+    ics, vir = bi.disk2d_ics(halo, disk)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    flat = bool(np.all(ics.x_disk[:, 2] == 0)
+                and np.all(ics.v_disk[:, 2] == 0))
+    mh = np.maximum(ics.m_halo, 0.0)
+    st0 = {"halo": ParticleSystem.from_arrays(ics.x_halo, ics.v_halo, mh,
+                                              device=dev),
+           "disk": ParticleSystem.from_arrays(ics.x_disk, ics.v_disk,
+                                              ics.m_disk, device=dev)}
+    runner = bi.disk2d_runner(halo, disk)
+    bc.reset_launches()
+    t3 = time.perf_counter()
+    st, regs, _, _ = runner.init_state(st0)
+    for k in range(bi.D2_NBIG):
+        st, regs, _, _ = runner.bigstep(st, regs, k * runner.dtime)
+        st, regs = runner.relevel(st, regs, t0=(k + 1) * runner.dtime)
+    torch.cuda.synchronize()
+    launches = bc.kernel_launches()
+    want = _want(launches, bc.expected_launches(runner, bi.D2_NBIG))
+    finite = all(bool(torch.isfinite(t).all()) for bs in st.values()
+                 for bb in bs for t in (bb.x, bb.v, bb.acc, bb.pot))
+    rep = {"tables_sec": t1 - t0, "ics_sec": t2 - t1, "virial": vir,
+           "disk_z_vz_zero": flat, "n_oob": ics.diag["n_oob"],
+           "run_sec": time.perf_counter() - t3, "finite": finite,
+           "level_counts": runner.level_counts(st), "launches": launches,
+           "tolerance": {"virial": IC3_VIRIAL_TOL}}
+    print("IC3 gendisk2d --nhalo: " + json.dumps(rep), flush=True)
+    if not (abs(vir - 1.0) <= IC3_VIRIAL_TOL and flat and finite):
+        raise AssertionError(f"IC3: -2T/VC {vir}, disk z = vz = 0 {flat}, "
+                             f"finite {finite}")
+    if launches != want:
+        raise AssertionError(f"IC3: launches {launches}, expected {want}")
+    coef = {"halo": halo.coefficients(st0["halo"].x, st0["halo"].mass),
+            "disk": disk.coefficients(st0["disk"].x, st0["disk"].mass)}
+    rows += _bucket_rows("IC3", _comp_kernels(halo, disk, coef),
+                         {n: [b] for n, b in st0.items()}, launches)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# WX1, WX2: what a world of several ranks runs since ROADMAP item 12b
+# ---------------------------------------------------------------------------
+
+# WX1's files against one rank's: the value columns at MD2(b)'s OUTLOG
+# tolerance, OUTLOG's R and V at its absolute one, and the statistics over
+# a bin's members at its level-population share (bench_multirank.
+# file_difference); WX2's OutVel coefficients at MD2(a)'s coefficient
+# bound, each field's difference over the size of its terms
+# (bench_multirank.outvel_world: a velocity field's own max|c| cancels to
+# the sample's noise; over it the fields read 3.5e-6 to 5.3e-6 on an H100,
+# PERF.md §6)
+WX_FILES = ("OUTLOG.wx", "ORBTRACE.wx", "OUTDIAG.wx", "OUTFRAC.wx",
+            "OUTCALBR.wx", "wx.relx")
+
+
+def world_extras_path(dev, sphere_tables, wd, xe, ve, me):
+    """Phases WX1 and WX2 on the card: the extras run config
+    (bench_multirank.extras_run_config: both host operators, the adaptive
+    rebuild, OutAscii, OrbTrace, OutDiag, OutFrac, OutCalbr) on R3's
+    sphere.bods in `wd` through run.py on one rank and with --ndev 2
+    (gloo, both ranks on this card), file by file; OutVel's gather over
+    two ranks against one rank's.  Returns the kernels-line rows of K1 and
+    K2 at a rank's 2^19 rows under tables rebuilt from the sample, as the
+    run rebuilds them."""
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch import bench_multirank as bmr
+    from exp_tpu_torch.basis.model import model_from_particles
+    from exp_tpu_torch.basis.slgrid import build_sph_sl_tables
+    from exp_tpu_torch.bench_sphere import sphere_force
+
+    # WX1
+    rep = bmr.extras_world(wd, 2)
+    rep["tolerance"] = {"rel": MD2B_LOG_RTOL, "abs_RV": MD2B_LOG_ATOL,
+                        "bin": MD2B_LEVEL_SHARE}
+    print("WX1 run.py --ndev 2 extras: " + json.dumps(rep), flush=True)
+    nst = bmr.WX_STEPS
+    dumps = ["halo.wx.00000.ascii"]
+    for tag in ("one", "many"):
+        miss = set(WX_FILES + tuple(dumps)) - set(rep["files"][tag])
+        if miss:
+            raise AssertionError(f"WX1 {tag}: {sorted(miss)} not written")
+    if rep["files"]["one"] != rep["files"]["many"]:
+        raise AssertionError(f"WX1: the files differ: {rep['files']}")
+    tol = rep["tolerance"]
+    for f, d in rep["difference"].items():
+        if any(not d[k] <= tol[k] for k in tol):
+            raise AssertionError(f"WX1 {f}: {d} against one rank's")
+    reps = rep["runs"]["many"]["reports"]
+    if sorted(r["rank"] for r in reps) != [0, 1]:
+        raise AssertionError(f"WX1: rank reports {reps}")
+    for r in reps + rep["runs"]["one"]["reports"]:
+        ln = r["launches"]
+        if not ln["sphere_coef"] == ln["sphere_accel"] == nst + 1:
+            raise AssertionError(f"WX1 rank {r['rank']}: launches {ln}")
+        times = [b["time"] for b in r["rebuilds"]]
+        if len(times) != round(nst * DT / bmr.WX_REBUILD):
+            raise AssertionError(f"WX1 rank {r['rank']}: rebuilds at "
+                                 f"{times}")
+        for b in r["rebuilds"]:
+            k = round(b["time"] / DT) + 1
+            if not (b["launches"]["sphere_coef"]
+                    == b["launches"]["sphere_accel"] == k):
+                raise AssertionError(f"WX1 rank {r['rank']}: launches "
+                                     f"{b['launches']} at the rebuild at "
+                                     f"t = {b['time']}")
+    # K1 and K2 at a rank's rows under tables rebuilt from the sample
+    half = len(me) // 2
+    tabs = build_sph_sl_tables(model_from_particles(xe, me), lmax=4,
+                               nmax=10, numr=2000, cmap=1, rmap=1.0)
+    xt = torch.as_tensor(xe[:half], dtype=torch.float32, device=dev)
+    mt = torch.as_tensor(me[:half], dtype=torch.float32, device=dev)
+    r0 = next(r for r in reps if r["rank"] == 0)
+    rows = _mf_rows("WX1 rank", _mf_sphere_check(
+        "WX1 rank", sphere_force(tabs, dev), xt, mt), r0["launches"],
+        "a rank's 2^19 rows, tables rebuilt from the binned sample")
+    del xt, mt
+
+    # WX2. OutVel's gather over two ranks on this card
+    rep = bmr.outvel_world(sphere_tables, xe, ve, me, 2,
+                           devs=[str(dev), str(dev)], backend="gloo")
+    rep["tolerance"] = MD2A_COEF_RTOL
+    print("WX2 OutVel world gather: " + json.dumps(rep), flush=True)
+    if not max(rep["rel_err"].values()) <= MD2A_COEF_RTOL:
+        raise AssertionError(f"WX2: OutVel's coefficients "
+                             f"{rep['rel_err']} from one rank's")
+    return rows
+
+
 def main():
     import torch
+
+    t_start = time.perf_counter()
+
+    def clock(path):
+        print(f"clock: {path} at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4348,25 +4623,44 @@ def main():
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "library_note": "no single PyTorch call computes this function",
             "bytes": byts, "operations": ops})
+    clock("disk")
     disk_rows, disk_tables = disk_path(dev)
     rows += disk_rows
+    clock("cube")
     rows += cube_path(dev)
+    clock("slab")
     rows += slab_path(dev)
+    clock("sphere settings")
     rows += sphere_settings_path(dev, tables, xe, ve, me)
+    clock("composite")
     comp_rows, comp = composite_path(dev, tables, disk_tables)
     rows += comp_rows
+    clock("sweep")
     sweep_path(dev, tables, disk_tables, rows)
+    clock("driver")
     r4, work, r2 = driver_path(dev, tables, comp, xe, ve, me)
+    clock("extras")
     extras_path(dev, work.name, r4)
+    clock("forces")
     rows += forces_path(dev, xe, ve, me)
+    clock("relevel")
     rows += relevel_path(dev, comp)
+    clock("multi-rank")
     rows += multi_path(dev, tables, comp, work.name, r2, xe, ve, me)
+    clock("world extras")
+    rows += world_extras_path(dev, tables, work.name, xe, ve, me)
     work.cleanup()
+    clock("ICs")
+    rows += ic_path(dev, force)
+    clock("analysis")
     rows += analysis_path(dev, comp, disk_tables, xe, ve, me)
+    clock("phase stream")
     rows += phasestream_path(dev)
     print(json.dumps({"kernels": rows}), flush=True)
     # the energy bars last: their runs are the longest
+    clock("energy")
     energy_path(dev, comp)
+    clock("end")
     del comp, r2
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,35 @@
 """Shared helpers of the command-line tools (a jax-free copy of
-`load_model` from exp_tpu/cli/_common.py; the rest of that module comes
-with the CLI tools, ROADMAP item 14)."""
+`make_parser` and `load_model` from exp_tpu/cli/_common.py; the PSP
+sequence helpers come with the tools that use them, ROADMAP item 14b)."""
 
 from __future__ import annotations
+
+import argparse
+
+
+def make_parser(prog, desc):
+    """The tool's parser.  Every tool accepts --cpu: the parsed namespace's
+    `device` is then the CPU (the kernels' plain versions), else the CUDA
+    card; with no card and no --cpu the tool refuses (exits with a usage
+    error) before it does any work."""
+    ap = argparse.ArgumentParser(prog=f"exp_tpu_torch {prog}",
+                                 description=desc)
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (the kernels' plain versions)")
+    orig_parse = ap.parse_args
+
+    def parse_args(argv=None, namespace=None):
+        from exp_tpu_torch import resolve_device
+
+        a = orig_parse(argv, namespace)
+        try:
+            a.device = resolve_device("cpu" if a.cpu else None)
+        except RuntimeError as e:
+            ap.error(f"{e} (--cpu)")
+        return a
+
+    ap.parse_args = parse_args
+    return ap
 
 
 def load_model(name_or_file, rmin=1e-4, rmax=20.0, numr=2000):

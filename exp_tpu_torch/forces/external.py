@@ -18,7 +18,9 @@ Python entry points replace the reference's dlopen plugin registry
 ScatterMFP and GenerateRelaxation are host operators applied between
 blocks of the single-rate driver: they pull the state to NumPy, and
 ScatterMFP draws from NumPy's generator seeded as exp_tpu seeds it, so its
-draws are exp_tpu's.  PeriodicBC is a position wrapper applied after each
+draws are exp_tpu's.  On a world every rank applies them to the same
+gathered state with the same draws; GenerateRelaxation writes from the
+primary rank alone (`primary`).  PeriodicBC is a position wrapper applied after each
 drift.
 """
 
@@ -34,6 +36,16 @@ import torch
 def _t(t, x):
     """The time as a 0-d tensor of the positions' dtype and device."""
     return torch.as_tensor(t, dtype=x.dtype, device=x.device)
+
+
+def _sqrt0(a):
+    """sqrt(a) for a >= 0 whose gradient is 0, not NaN, where a = 0: the
+    radius of a particle at the origin, or the cylindrical radius of one
+    on the z axis (zero-mass padding rows sit at the origin).  Equal to
+    torch.sqrt(a) bit for bit wherever a > 0."""
+    pos = a > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, a, torch.ones_like(a))),
+                       torch.zeros_like(a))
 
 
 def _interp(x, xp, fp):
@@ -138,7 +150,8 @@ class UserHalo(ExternalField):
 class UserBar(ExternalField):
     """Rotating quadrupole bar with adiabatic amplitude ramp
     (src/user/UserBar.cc): Phi = -amp(t) (R/(R+b))^5-style quadrupole
-    cos(2(phi - Omega t)) truncated at length `length`."""
+    cos(2(phi - Omega t)) truncated at length `length`, written without
+    phi so that the force is finite at the origin and on the z axis."""
 
     amplitude: float = 0.1
     length: float = 0.5
@@ -148,18 +161,27 @@ class UserBar(ExternalField):
 
     def potential(self, x, t):
         t = _t(t, x)
-        R2 = x[:, 0] ** 2 + x[:, 1] ** 2
-        r2 = R2 + x[:, 2] ** 2
-        r = torch.sqrt(r2) + 1e-12
-        phi = torch.atan2(x[:, 1], x[:, 0])
+        xx, yy = x[:, 0], x[:, 1]
+        r2 = xx * xx + yy * yy + x[:, 2] ** 2
         amp = self.amplitude * 0.5 * (
             1.0 + torch.tanh((t - self.Ton) / self.DeltaT))
         b = self.length
         # smooth rational quadrupole profile (UserBar.cc:479-494
-        # fac = 1 + (r/b)^5): inner ~ r^2/b^3, outer ~ b^2/r^3, C-inf
+        # fac = 1 + (r/b)^5): inner ~ r^2/b^3, outer ~ b^2/r^3, C-inf.
+        # exp_tpu writes R2/r2 cos 2(phi - Omega t) with phi = atan2(y, x)
+        # and r = sqrt(r2) + 1e-12, whose gradients are NaN at the origin
+        # and on the z axis.  Here the angular factor is the polynomial
+        # ((x^2 - y^2) cos 2 Omega t + 2 x y sin 2 Omega t) / r2 and r
+        # comes from _sqrt0, so the force is finite everywhere (0 on the
+        # z axis) and equals exp_tpu's elsewhere to roundoff; r keeps the
+        # 1e-12 of exp_tpu's profile, which r2 ** 2.5 would drop (5e-12
+        # of the force at r ~ b)
+        r = _sqrt0(r2) + 1e-12
         shape = (r2 / b ** 3) / (1.0 + (r / b) ** 5)
-        return -amp * shape * (R2 / torch.clamp(r2, min=1e-20)) \
-            * torch.cos(2.0 * (phi - self.omega * t))
+        wt = 2.0 * self.omega * t
+        quad = (xx * xx - yy * yy) * torch.cos(wt) \
+            + 2.0 * xx * yy * torch.sin(wt)
+        return -amp * shape * quad / torch.clamp(r2, min=1e-20)
 
 
 @dataclass
@@ -222,7 +244,9 @@ class UserMW(ExternalField):
 
     def potential(self, x, t):
         t = _t(t, x)
-        r = torch.sqrt(torch.sum(x * x, dim=-1)) + 1e-12
+        # _sqrt0: a finite (zero) force at the origin, where exp_tpu's
+        # sqrt gives NaN
+        r = _sqrt0(torch.sum(x * x, dim=-1)) + 1e-12
         R2 = x[:, 0] ** 2 + x[:, 1] ** 2
         # NFW
         u = r / self.rs_halo
@@ -269,7 +293,9 @@ class UserDisk(ExternalField):
 
     def potential(self, x, t):
         t = _t(t, x)
-        R = torch.sqrt(x[:, 0] ** 2 + x[:, 1] ** 2)
+        # _sqrt0: a finite force on the z axis, where exp_tpu's sqrt
+        # gives NaN
+        R = _sqrt0(x[:, 0] ** 2 + x[:, 1] ** 2)
         Z = torch.abs(x[:, 2])
         n = self.tab.shape[0]
         tr = torch.clamp(R / self.dR, 0.0, n - 1.001)
@@ -283,7 +309,7 @@ class UserDisk(ExternalField):
              + tab[i, j + 1] * (1 - fr) * fz
              + tab[i + 1, j + 1] * fr * fz)
         # Keplerian continuation outside the table
-        r = torch.sqrt(R * R + Z * Z)
+        r = _sqrt0(R * R + Z * Z)
         p = torch.where((R < self.Rmax) & (Z < self.Zmax), p,
                         -self.mass / torch.clamp(r, min=1e-12))
         return _ramp(t, self.Ton, self.Toff, self.DeltaT) * p
@@ -375,15 +401,19 @@ class GenerateRelaxation:
 
     is_operator = True
 
-    def __init__(self, runtag="run", outdir=".", nscat=1, **kw):
+    def __init__(self, runtag="run", outdir=".", nscat=1, primary=True,
+                 **kw):
         self.path = os.path.join(outdir, f"{runtag}.relx")
         self.nscat = max(1, int(nscat))
+        self.primary = primary   # False: another rank writes the file
         self._e0 = {}            # per-component baselines, keyed by name
+        if not primary:
+            return
         with open(self.path, "w") as f:
             f.write("# time  component  <|dE/E|>  max|dE/E|" + chr(10))
 
     def apply(self, ps, dt, istep, time=0.0, name=""):
-        if istep % self.nscat:
+        if istep % self.nscat or not self.primary:
             return ps
         m = _np(ps.mass)
         live = m > 0
@@ -482,15 +512,17 @@ def build_external(conf: dict, workdir=".", dtype=torch.float32,
     return cls(**params)
 
 
-def build_operator(conf: dict, runtag="run", outdir=".", seed=None):
+def build_operator(conf: dict, runtag="run", outdir=".", seed=None,
+                   primary=True):
     """Factory for host operators (scatterMFP, generateRelaxation);
     returns None if the id is not an operator.  `seed` (Global
     random_seed, parse.cc:115-121) is the default RNG seed when the
-    operator's own parameters don't pin one."""
+    operator's own parameters don't pin one; `primary` False on the ranks
+    of a world that write no file."""
     cls = _OPERATORS.get(conf.get("id"))
     if cls is None:
         return None
     kw = dict(conf.get("parameters") or {})
     if seed is not None and "seed" not in kw:
         kw["seed"] = int(seed)
-    return cls(runtag=runtag, outdir=outdir, **kw)
+    return cls(runtag=runtag, outdir=outdir, primary=primary, **kw)

@@ -1,6 +1,6 @@
 """Triaxial ellipsoid force: exact Chandrasekhar homoeoid potential (port of
-the force half of exp_tpu/ic/ellipsoid.py, EllipsoidForce; its IC sampler
-is ROADMAP item 13).
+exp_tpu/ic/ellipsoid.py's EllipsoidForce, with its mass_inertia and
+monopole_quadrupole tables).
 
 The reference's EllipsoidForce (utils/ICs/EllipsoidForce.cc, the engine
 behind pst_model's bar): density stratified on similar ellipsoids
@@ -163,3 +163,58 @@ class EllipsoidForce:
             phi = self.potential(xg)
             (g,) = torch.autograd.grad(phi.sum(), xg)
         return -g, phi.detach()
+
+    def _np_eval(self, fn, pts, device):
+        """fn (density or potential) at host points, as NumPy, evaluated
+        in f64 on `device` (None: CUDA, raising when there is none)."""
+        from exp_tpu_torch import resolve_device
+
+        t = torch.as_tensor(np.asarray(pts, np.float64),
+                            device=resolve_device(device))
+        return fn(t).cpu().numpy()
+
+    def mass_inertia(self, device=None):
+        """Total mass and principal inertia by quadrature (MassInertia)."""
+        g, w = _gl_nodes(self.num)
+        z = [self.a[k] * g for k in range(3)]
+        Z0, Z1, Z2 = np.meshgrid(z[0], z[1], z[2], indexing="ij")
+        W = (w[:, None, None] * w[None, :, None] * w[None, None, :])
+        pts = np.stack([Z0.ravel(), Z1.ravel(), Z2.ravel()], 1)
+        dens = self._np_eval(self.density, pts, device).reshape(Z0.shape)
+        abc8 = 8.0 * float(np.prod(self.a))
+        M = abc8 * np.sum(W * dens)
+        I = [abc8 * np.sum(W * dens * (B * B + C * C))
+             for B, C in ((Z1, Z2), (Z0, Z2), (Z0, Z1))]
+        return float(M), np.asarray(I)
+
+    def monopole_quadrupole(self, numr=200, rmax=None, device=None):
+        """Spherically-averaged rho-bar(r) and the U22(r) quadrupole
+        amplitude tables (RhoBar/U22, EllipsoidForce.cc:239-280) used by
+        bar-amplitude diagnostics."""
+        rmax = rmax or 1.5 * self.a[0]
+        r = np.linspace(1e-4 * self.a[0], rmax, numr)
+        nphi, nth = 64, 32
+        phi = np.linspace(0, np.pi, nphi, endpoint=False)
+        gc, gw = _gl_nodes(nth)
+        cosx = np.asarray(gc)
+        sinx = np.sqrt(1 - cosx ** 2)
+        P, C = np.meshgrid(phi, cosx, indexing="ij")
+        S = np.sqrt(1 - C ** 2)
+        dirs = np.stack([S * np.cos(P), S * np.sin(P), C], -1)  # (np,nt,3)
+        pts = (r[:, None, None, None] * dirs[None]).reshape(-1, 3)
+        pot = self._np_eval(self.potential, pts, device).reshape(
+            numr, nphi, nth)
+        dens = self._np_eval(self.density, pts, device).reshape(
+            numr, nphi, nth)
+        wphi = np.pi / nphi
+        wth = np.asarray(gw)
+        numfac = 0.25 * np.sqrt(15.0 / (2.0 * np.pi))
+        u22 = numfac * 4.0 * np.sum(
+            pot * (sinx ** 2)[None, None, :] * np.cos(2 * phi)[None, :,
+                                                               None]
+            * wth[None, None, :] * wphi, axis=(1, 2))
+        # mean over the sphere: (1/4pi) * 4 * int_0^pi dphi int_0^1 dcos
+        # (z-reflection and phi -> phi+pi symmetry of the stratification)
+        rhobar = (1.0 / np.pi) * np.sum(
+            dens * wth[None, None, :] * wphi, axis=(1, 2))
+        return r, rhobar, u22

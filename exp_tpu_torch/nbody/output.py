@@ -23,8 +23,8 @@ collectives it needs: the phase-space gather of `sim.host_ps`, the level
 counts, the subsample projections), then `write` on rank 0 alone, which
 also alone creates the files (exp_tpu's gather/write split and its
 process-0 gating).  OutVel writes the velocity-field coefficients through
-analysis/field_basis.py, on one rank.  OutSamp writes the subsample
-covariance through nbody/pca.py.
+analysis/field_basis.py, each rank's rows projected and summed over the
+ranks as OutSamp's subsample covariance (nbody/pca.py) is.
 
 Writers read the host copies the driver makes (`sim.host_ps`, and the
 coefficients and diagnostics it brings to the host once at an output
@@ -72,6 +72,14 @@ def _gather_all(sim):
     """Every component's host phase space (a collective on a world)."""
     for n in sim.components:
         sim.host_ps(n)
+
+
+class _OneComponent(Output):
+    """A writer of one component's host phase space: its gather makes the
+    host copy `write` reads (`sim.host_ps`, a collective on a world)."""
+
+    def gather(self, sim):
+        sim.host_ps(self.name)
 
 
 def _fresh(sim, path):
@@ -265,6 +273,7 @@ def restore_checkpoint(sim, path=None, as_new=False):
             if c.name not in sim.components:
                 continue
             state[c.name] = _restored(sim, c.x, c.v, c.mass, indx=c.indx)
+            _restored_rows(sim, c.name, c.mass)
         if state:
             sim._state.update(state)
         _reset_derived_state(sim)
@@ -282,9 +291,17 @@ def restore_checkpoint(sim, path=None, as_new=False):
                 sim, g["x"][...], g["v"][...], g["mass"][...],
                 indx=g["indx"][...] if "indx" in g else None,
                 scale=g["scale"][...] if "scale" in g else None)
+            _restored_rows(sim, n, g["mass"])
     sim._state = state
     _reset_derived_state(sim)
     return sim
+
+
+def _restored_rows(sim, name, mass):
+    """A world's record of a restored component's global rows before the
+    padding (Simulation._nrows, the host operators' row set)."""
+    if getattr(sim, "dist", False):
+        sim._nrows[name] = len(mass)
 
 
 def _restored(sim, x, v, mass, indx=None, scale=None):
@@ -435,13 +452,17 @@ class OutHDF5(Output):
         import h5py
 
         self._count = 0
+        if not _primary(sim):
+            return
         if _fresh(sim, self.path):
-            self._count = 0
             with h5py.File(self.path, "w") as f:
                 f.attrs["runtag"] = sim.runtag
         else:                       # restart: continue the snapshot series
             with h5py.File(self.path, "r") as f:
                 self._count = int(f.attrs.get("count", 0))
+
+    def gather(self, sim):
+        _gather_all(sim)
 
     def write(self, sim, istep):
         import h5py
@@ -498,8 +519,9 @@ class OutVel(Output):
     """Velocity-field coefficient snapshots (the reference's OutVel over
     expui FieldBasis): the component's 'dens', vx, vy and vz coefficients
     (analysis.field_basis, f32 sums as exp_tpu's) appended to an HDF5 file
-    as one group a dump.  One rank only: a world of several ranks refuses
-    it (ROADMAP item 12b)."""
+    as one group a dump.  On a world each rank projects its own rows and
+    the sums are added over the ranks (parallel.all_reduce, as
+    world_coefficients does); no phase space is gathered."""
 
     def __init__(self, sim, nint=10, name=None, **kw):
         super().__init__(sim, nint)
@@ -517,10 +539,14 @@ class OutVel(Output):
         import torch
 
         from exp_tpu_torch.analysis.basis import download
+        from exp_tpu_torch.parallel.distributed import all_reduce
 
         ps = sim._state[self.name]
-        self._coefs = download(self.fb.coefficients(
-            ps.x, ps.v, ps.mass, accum_dtype=torch.float32))
+        c = self.fb.coefficients(ps.x, ps.v, ps.mass,
+                                 accum_dtype=torch.float32)
+        world = getattr(sim, "world", None)
+        self._coefs = download({k: all_reduce(v, world)
+                                for k, v in c.items()})
 
     def write(self, sim, istep):
         import h5py
@@ -565,7 +591,7 @@ class OutSamp(Output):
         write_covariance_h5(self.path, sim.time, self._cs, name=self.name)
 
 
-class OrbTrace(Output):
+class OrbTrace(_OneComponent):
     """Trace selected particle orbits to a text file (the reference's
     OrbTrace writer)."""
 
@@ -577,7 +603,7 @@ class OrbTrace(Output):
         self.idx = (list(orbitlist) if orbitlist
                     else list(range(1, int(norb) + 1)))
         self.path = os.path.join(sim.outdir, f"ORBTRACE.{sim.runtag}")
-        if not _fresh(sim, self.path):
+        if not _primary(sim) or not _fresh(sim, self.path):
             return
         with open(self.path, "w") as f:
             f.write("# time then (x y z u v w) per traced orbit: "
@@ -596,7 +622,7 @@ class OrbTrace(Output):
                 for a in row) + chr(10))
 
 
-class OutDiag(Output):
+class OutDiag(_OneComponent):
     """Per-radial-shell diagnostic table (the reference's OutDiag)."""
 
     def __init__(self, sim, nint=10, name=None, nbins=20, rmax=None, **kw):
@@ -605,7 +631,7 @@ class OutDiag(Output):
         self.nbins = int(nbins)
         self.rmax = rmax
         self.path = os.path.join(sim.outdir, f"OUTDIAG.{sim.runtag}")
-        if not _fresh(sim, self.path):
+        if not _primary(sim) or not _fresh(sim, self.path):
             return
         with open(self.path, "w") as f:
             f.write("# time r_mid N mass KE PE_avg" + chr(10))
@@ -636,7 +662,7 @@ class OutDiag(Output):
                         + chr(10))
 
 
-class OutFrac(Output):
+class OutFrac(_OneComponent):
     """Mass-fraction (Lagrangian) radii vs time (the reference's OutFrac)."""
 
     FRACS = [0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 0.99]
@@ -645,7 +671,7 @@ class OutFrac(Output):
         super().__init__(sim, nint)
         self.name = name or next(iter(sim.components))
         self.path = os.path.join(sim.outdir, f"OUTFRAC.{sim.runtag}")
-        if not _fresh(sim, self.path):
+        if not _primary(sim) or not _fresh(sim, self.path):
             return
         with open(self.path, "w") as f:
             f.write("# time then r at mass fractions "
@@ -665,7 +691,7 @@ class OutFrac(Output):
                 f"{v:.8g}" for v in radii) + chr(10))
 
 
-class OutCalbr(Output):
+class OutCalbr(_OneComponent):
     """Integration-accuracy calibration (the reference's OutCalbr,
     src/OutCalbr.H:7-35): rms change in per-particle energy and angular
     momentum between output intervals, binned by energy.  Columns per bin:
@@ -722,7 +748,7 @@ class OutCalbr(Output):
         self._prev = (E, L)
 
 
-class OutAscii(Output):
+class OutAscii(_OneComponent):
     def __init__(self, sim, nint=100, name=None, **kw):
         super().__init__(sim, nint)
         self.name = name or next(iter(sim.components))

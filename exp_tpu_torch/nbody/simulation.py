@@ -51,15 +51,17 @@ On a World of several ranks (parallel/distributed.py; run.py
 file and steps its own rows; coefficients, centers, diagnostics and level
 counts are summed over the ranks; rank 0 builds the basis tables and
 broadcasts them; the writers gather phase space on every rank and write
-once, from rank 0 (OUTLOG, OutCoef, the checkpoints, OutMulti's levels
-file, the PSP dumps, OutSamp, the orient logs), and a restart reads the
+once, from rank 0 (every writer, the orient logs; OutSamp and OutVel sum
+each rank's projections instead of gathering), and a restart reads the
 checkpoint by row block.  The stop decision (wall clock, signals) is
 agreed by all ranks before a block.  EJ's most-bound set is a global top
 k of the ranks' candidates; Hall/PCA and OutSamp subsample by global row.
-What is not ported under a world raises NotImplementedError naming ROADMAP
-item 12b: the host operators, the adaptive basis rebuild (sphereSL
-`dtime`), and the writers OutVel, OutAscii, OutHDF5, OrbTrace, OutDiag,
-OutFrac and OutCalbr.
+The host operators see the global state in the one-rank run's row order
+(the world's zero-mass padding rows left out): every rank gathers it,
+applies them with the same seeded draws and keeps its own rows, and
+generateRelaxation writes from rank 0.  The adaptive basis rebuild
+(sphereSL `dtime`) gathers the state, builds the model from the binned
+particles and the SL tables on rank 0 and broadcasts them.
 """
 
 from __future__ import annotations
@@ -83,11 +85,8 @@ from exp_tpu_torch.nbody.multistep import (_NO_EXTRAS, CompFeats, _accel_at,
 from exp_tpu_torch.nbody.particles import ParticleSystem, _host, read_bodies
 from exp_tpu_torch.nbody.step import _diagnostics
 from exp_tpu_torch.parallel.distributed import (all_reduce, allgather_ps,
-                                                current_world, sum_host)
-
-#: output ids that do not run under a world of several ranks (ROADMAP 12b)
-_NOT_IN_WORLD = ("outvel", "outascii", "outhdf5", "orbtrace", "outdiag",
-                 "outfrac", "outcalbr")
+                                                current_world, primary_build,
+                                                row_block, sum_host)
 
 #: harmonic-restriction keys of the sphere and polar bases
 #: (SphericalBasis.cc:33-39; PolarBasis.cc:36-45, Cylinder.cc valid_keys)
@@ -498,6 +497,12 @@ class Simulation:
 
         # components
         self.components: dict[str, Component] = {}
+        #: on a world: each component's global row count without the
+        #: zero-mass padding rows (the body file's, or the checkpoint's)
+        self._nrows: dict[str, int] = {}
+        #: each adaptive rebuild: its component, time and the kernel
+        #: launch counts when it ran (run.py --launches reports them)
+        self.rebuilds: list[dict] = []
         #: harmonic-restriction state per component: {"mask": 0/1 array over
         #: the coefficient layout, "fix_l0": bool, "c0": captured monopole}
         self._restrict: dict[str, dict] = {}
@@ -513,11 +518,11 @@ class Simulation:
                 from exp_tpu_torch.parallel.distributed import (
                     read_bodies_distributed)
 
-                ps = read_bodies_distributed(
+                ps, self._nrows[cc.name] = read_bodies_distributed(
                     os.path.join(workdir, cc.bodyfile), self.world,
                     dtype=self.compute_dtype,
                     component=cp.get("psp_component", cc.name),
-                    scale_dattr=cp.get("scale_dattr"))
+                    scale_dattr=cp.get("scale_dattr"), with_rows=True)
             else:
                 ps = read_bodies(os.path.join(workdir, cc.bodyfile),
                                  dtype=self.compute_dtype,
@@ -618,12 +623,9 @@ class Simulation:
                 continue
             op = build_operator(e, runtag=config.glob.runtag,
                                 outdir=self.outdir,
-                                seed=getattr(g, "random_seed", None))
+                                seed=getattr(g, "random_seed", None),
+                                primary=self.is_primary)
             if op is not None:
-                if self.dist:
-                    raise NotImplementedError(
-                        f"External operator {e.get('id')!r} under a world "
-                        "of several ranks is not ported (ROADMAP item 12b)")
                 self.operators.append(op)
             else:
                 self.externals.append(build_external(
@@ -678,12 +680,6 @@ class Simulation:
         self._diag = None
         self._host_cache = {}           # name -> host ParticleSystem
         self._host_cache_step = {}      # name -> istep of the cached copy
-
-        if self.dist and any(c.basis_dtime > 0
-                             for c in self.components.values()):
-            raise NotImplementedError(
-                "the adaptive basis rebuild (sphereSL dtime) under a world "
-                "of several ranks is not ported (ROADMAP item 12b)")
 
         # multistep machinery (Global.multistep > 0)
         self.M = int(g.multistep)
@@ -1146,11 +1142,7 @@ class Simulation:
             # host operators (scatterMFP, generateRelaxation): applied once
             # a block, between blocks
             if self.operators:
-                for op in self.operators:
-                    for n in self._state:
-                        self._state[n] = op.apply(self._state[n],
-                                                  self.dt * kk, self.istep,
-                                                  time=self.time, name=n)
+                self._apply_operators(self.dt * kk)
                 # writers at this istep cached the pre-operator state; a
                 # stop/SIGHUP checkpoint after this point must see the kicks
                 self._host_cache_step.clear()
@@ -1159,6 +1151,36 @@ class Simulation:
             self._check_bad_values()
             self._maybe_recompute_bases()
         return self._state
+
+    def _apply_operators(self, dt):
+        """Each host operator on each component, in that order.  On a world
+        every rank gathers each component's global state (its first
+        `_nrows` rows: the one-rank run's rows, in its order), applies the
+        operators there with the same seeded draws as every other rank, and
+        keeps the positions and velocities of its own row block."""
+        if not self.dist:
+            for op in self.operators:
+                for n in self._state:
+                    self._state[n] = op.apply(self._state[n], dt, self.istep,
+                                              time=self.time, name=n)
+            return
+        glob = {}
+        for n, ps in self._state.items():
+            hp = allgather_ps(ps, self.world)
+            k = self._nrows[n]
+            glob[n] = ParticleSystem(**{
+                f: torch.as_tensor(getattr(hp, f)[:k]) for f in _PS_FIELDS})
+        for op in self.operators:
+            for n in glob:
+                glob[n] = op.apply(glob[n], dt, self.istep, time=self.time,
+                                   name=n)
+        for n, ps in self._state.items():
+            lo, hi = row_block(ps.n * self.world.size, self.world)
+            k = max(0, min(hi, self._nrows[n]) - lo)
+            x, v = ps.x.clone(), ps.v.clone()
+            x[:k] = glob[n].x[lo:lo + k].to(x.device, x.dtype)
+            v[:k] = glob[n].v[lo:lo + k].to(v.device, v.dtype)
+            self._state[n] = replace(ps, x=x, v=v)
 
     def _nreport_line(self):
         """Progress report every nreport steps (reference nreport,
@@ -1172,23 +1194,33 @@ class Simulation:
     def _maybe_recompute_bases(self, multistep=False):
         """Adaptive basis recomputation (Sphere::make_model* — Sphere.H:156,
         Sphere.cc:203-354): for sphereSL components with `dtime > 0`, rebuild
-        the SL basis from the binned particle distribution every dtime."""
+        the SL basis from the binned particle distribution every dtime.  On
+        a world every rank gathers the state; rank 0 bins it and builds the
+        SL tables, which it broadcasts (build_force's world build)."""
         from exp_tpu_torch.basis.model import model_from_particles
+        from exp_tpu_torch.bench_composite import kernel_launches
 
         for n, c in self.components.items():
             if c.basis_dtime <= 0 or self.time < c.basis_tnext:
                 continue
             if multistep:
                 self._sync_flat_state()
-            ps = self._state[n]
-            model = model_from_particles(_host(ps.x), _host(ps.mass))
+            if self.dist:
+                hp = allgather_ps(self._state[n], self.world)
+                model = primary_build(self.world, lambda: model_from_particles(
+                    hp.x, hp.mass))
+            else:
+                ps = self._state[n]
+                model = model_from_particles(_host(ps.x), _host(ps.mass))
             fc = c.config.force
             stanza = replace(fc, parameters={
                 **{k: v for k, v in fc.parameters.items()
                    if k != "cachename"},
                 "_model_object": model})
+            self.rebuilds.append({"name": n, "time": self.time,
+                                  "launches": kernel_launches()})
             c.force = build_force(stanza, self.compute_dtype, self.workdir,
-                                  device=self.device)
+                                  device=self.device, world=self.world)
             c.basis_tnext += c.basis_dtime
             if self._ms_runner is not None:
                 self._ms_runner.forces[n] = c.force
@@ -1400,10 +1432,6 @@ class Simulation:
     # ------------------------------------------------------------------
 
     def _make_output(self, oc):
-        if self.dist and oc.id in _NOT_IN_WORLD:
-            raise NotImplementedError(
-                f"output {oc.id!r} under a world of several ranks is not "
-                "ported (ROADMAP item 12b)")
         from exp_tpu_torch.nbody.output import (OrbTrace, OutAscii, OutCalbr,
                                                 OutChkpt, OutCoef, OutDiag,
                                                 OutFrac, OutHDF5, OutLog,

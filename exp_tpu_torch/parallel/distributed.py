@@ -288,11 +288,14 @@ def ps_from_local(x, v, mass, world, n_global: int, lo: int, scale=None,
 
 def read_bodies_distributed(path, world, dtype=torch.float32,
                             component: str | None = None,
-                            scale_dattr: int | None = None) -> ParticleSystem:
+                            scale_dattr: int | None = None,
+                            with_rows: bool = False):
     """Process-sharded body read: each rank parses only its row block of
     an ascii body file (Component.H:202-204's scatter, without the
     scatter); a PSP file is read whole and cut.  The global count is
-    padded to a multiple of the world size with zero-mass rows."""
+    padded to a multiple of the world size with zero-mass rows.  Returns
+    this rank's ParticleSystem, and with `with_rows` also the file's row
+    count (the global rows before the padding)."""
     from exp_tpu_torch.nbody.particles import is_psp_file
 
     if is_psp_file(path):
@@ -354,8 +357,9 @@ def read_bodies_distributed(path, world, dtype=torch.float32,
             ixl = np.concatenate([ixl, np.zeros(npad, np.int64)])
         if sl is not None:
             sl = np.concatenate([sl, np.full(npad, -1.0)])
-    return ps_from_local(xl, vl, ml, world, n_global, lo, dtype=dtype,
-                         indx=ixl, scale=sl)
+    ps = ps_from_local(xl, vl, ml, world, n_global, lo, dtype=dtype,
+                       indx=ixl, scale=sl)
+    return (ps, int(n)) if with_rows else ps
 
 
 _PS_FIELDS = ("x", "v", "mass", "acc", "pot", "level", "indx", "scale")

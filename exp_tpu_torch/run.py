@@ -203,14 +203,21 @@ def _run(args, device, world):
         print(f"[exp_tpu_torch] {nst} steps in {dtw:.2f}s "
               f"({n*nst/max(dtw,1e-9):.3g} particle-steps/s)")
     if args.launches:
-        print(f"[exp_tpu_torch] launches {_launch_report(sim, world)}",
-              flush=True)
+        # the line in one write: the ranks of a spawned world share their
+        # parent's stdout, and a pipe keeps a write of up to 4096 bytes
+        # whole, where print's two writes (the text, then the newline)
+        # may interleave with another rank's
+        sys.stdout.flush()
+        sys.stdout.write(f"[exp_tpu_torch] launches "
+                         f"{_launch_report(sim, world)}\n")
+        sys.stdout.flush()
     return sim
 
 
 def _launch_report(sim, world):
-    """This rank's kernel launch counts since the process started, and,
-    under multistep, its buckets' capacities and live counts, as JSON."""
+    """This rank's kernel launch counts since the process started, the
+    counts when each adaptive basis rebuild ran, and, under multistep, its
+    buckets' capacities and live counts, as JSON."""
     import json
 
     from exp_tpu_torch.ops import (cube_kernels, cyl_kernels, slab_kernels,
@@ -219,7 +226,8 @@ def _launch_report(sim, world):
     rep = {"rank": 0 if world is None else world.rank,
            "launches": {k: v for mod in (sphere_kernels, cyl_kernels,
                                          cube_kernels, slab_kernels)
-                        for k, v in mod.launch_counts.items()}}
+                        for k, v in mod.launch_counts.items()},
+           "rebuilds": sim.rebuilds}
     if sim._ms_state is not None:
         rep["caps"] = {n: [int(b.x.shape[0]) for b in bs]
                        for n, bs in sim._ms_state.items()}

@@ -18,6 +18,12 @@ on the CPU: worlds of two ranks over gloo, each rank a process.
   own checkpoint; and `--ndev 2` prints the same OUTLOG.
 * The sharded body read against the whole read, and the helpers on a
   one-rank world without a process group.
+* What a world ran only on one rank before (ROADMAP item 12b): both host
+  operators, the adaptive sphereSL rebuild and the writers OutAscii,
+  OrbTrace, OutDiag, OutFrac, OutCalbr, OutHDF5 and OutVel under
+  `run.py --ndev 2`, single-rate and at multistep 2, on a body count the
+  world pads, against the port's one-rank run: every file to 1e-10 (f64),
+  OutVel's f32 sums to 2e-5 of each dataset's largest value.
 
 Each launched process has a timeout of TIMEOUT seconds and is killed, with
 the processes it started, when it expires.  The sphere uses the 'gather'
@@ -637,9 +643,10 @@ def test_two_rank_driver_extras_match_one_rank(tmp_path, case):
     run of the same config, each with EJ centering (its most-bound set a
     global top k): single-rate with NO_L1, a userbar External field, Hall
     smoothing (npca; subsamples by global row) and OutSamp; at multistep 2
-    with the time-free userlogpot (the userbar turns both packages'
-    multistep runs to NaN after a big step: ROADMAP §3); a twocenter
-    force (its outer center the COM over the ranks); and a one-body
+    with the time-free userlogpot (the userbar at multistep:
+    test_userbar_multistep_run_is_finite, and in the worlds of
+    test_two_rank_world_extras_match_one_rank); a twocenter force (its
+    outer center the COM over the ranks); and a one-body
     direct component coupled both ways at multistep 2 (its ring).  OUTLOG
     and the orient log to rtol 1e-9, each written once; the OutSamp series
     to 2e-5 of each dataset's largest value: it accumulates in f32, as
@@ -698,6 +705,31 @@ def test_two_rank_driver_extras_match_one_rank(tmp_path, case):
                         err_msg=k)
 
 
+def test_userbar_multistep_run_is_finite(tmp_path):
+    """EXTRAS_CONFIG's sphere run at multistep 2 with the userbar: the
+    port's run is finite (its bar force is finite at the origin, where the
+    buckets' zero-mass holes sit; exp_tpu's is NaN there and turns OUTLOG
+    to NaN from the first big step: ROADMAP §3)."""
+    from test_distributed import _driver_workdir
+
+    from exp_tpu_torch.bench_extras import outlog_rows
+    from exp_tpu_torch.nbody.simulation import Simulation
+
+    d = _driver_workdir(str(tmp_path), "bar", nsteps=1)
+    with open(os.path.join(d, "config.yml"), "w") as f:
+        f.write(EXTRAS_CONFIG.format(M=2, P="EJ: 2, nEJkeep: 64, "
+                                     "EJwindow: 4", F=SPHERE, C="",
+                                     X=USERBAR, O=""))
+    sim = Simulation.from_file(os.path.join(d, "config.yml"), device="cpu")
+    sim.run()
+    log = outlog_rows(os.path.join(d, "OUTLOG.xrun"))
+    assert log.shape[0] == 5 and np.isfinite(log).all()
+    holes = sum(int((b.mass == 0).sum()) for b in sim._ms_state["halo"])
+    assert holes > 0            # the buckets hold zero-mass rows
+    ps = sim._state["halo"]
+    assert all(bool(torch.isfinite(t).all()) for t in (ps.x, ps.v, ps.acc))
+
+
 def test_bench_multirank_sphere_world_on_cpu():
     """exp_tpu_torch/bench_multirank.py's sphere world on the CPU (gloo):
     a small sphere cell over 2 ranks against one rank, 3 steps of the
@@ -714,3 +746,156 @@ def test_bench_multirank_sphere_world_on_cpu():
     assert rep["ranks_equal_coefs"] and rep["finite"]
     assert rep["coef_rel_err_max"] <= 5e-6, rep["coef_rel_err_max"]
     assert np.isfinite(rep["dE_rel"])
+
+
+WORLD_CONFIG = """\
+Global:
+  dtime: 0.01
+  nsteps: 6
+  runtag: wrun
+  multistep: {M}
+  maxMindt: 0.5
+  compute_dtype: float64
+  accum_dtype: float64
+Components:
+  - name: halo
+    bodyfile: halo.bods
+    force:
+      id: sphereSL
+      parameters: {{numr: 400, Lmax: 2, nmax: 6, rmapping: 1.0,
+                   modelname: halo.model, dtime: 0.03}}
+External:
+  - id: scatterMFP
+    parameters: {{tau: 1.0, rmax: 10.0}}
+  - id: generateRelaxation
+  - id: userbar
+    parameters: {{amplitude: 0.1, length: 0.5, omega: 1.0, Ton: 0.0,
+                 DeltaT: 0.5}}
+Output:
+  - id: outlog
+    parameters: {{nint: 1}}
+  - id: outascii
+    parameters: {{nint: 3}}
+  - id: orbtrace
+    parameters: {{nint: 1, norb: 5}}
+  - id: outdiag
+    parameters: {{nint: 2}}
+  - id: outfrac
+    parameters: {{nint: 2}}
+  - id: outcalbr
+    parameters: {{nint: 2}}
+  - id: outhdf5
+    parameters: {{nint: 3, real4: false}}
+  - id: outvel
+    parameters: {{nint: 3}}
+"""
+#: bodies of the world runs: odd, so that two ranks pad a zero-mass row
+WORLD_N = 4001
+
+
+def _h5_sets(path):
+    import h5py
+
+    out = {}
+    with h5py.File(path, "r") as f:
+        f.visititems(lambda k, d: out.__setitem__(k, np.asarray(d[...]))
+                     if isinstance(d, h5py.Dataset) else None)
+    return out
+
+
+@pytest.mark.parametrize("M", [0, 2], ids=["single", "ms2"])
+def test_two_rank_world_extras_match_one_rank(tmp_path, M):
+    """ROADMAP item 12b: scatterMFP and generateRelaxation (applied between
+    blocks of the single-rate path, on the global rows in the one-rank
+    order: the same draws), two adaptive sphereSL rebuilds (dtime 0.03;
+    rank 0 builds, the tables broadcast), and every writer the world
+    refused, with the userbar (finite on the padding row at the origin and
+    on the buckets' holes), through `run.py --cpu --ndev 2 --launches`
+    against the one-rank run of the same config on the same 4,001 bodies
+    (in this process).  Each file
+    is written once; the text files, the relaxation log, the ascii dumps
+    (the state at steps 0, 3 and 6, the last the final state) and
+    OutHDF5's f64 snapshots equal the one-rank run's to 1e-10 of each
+    column's largest value, with a floor of 1e-14 (OUTLOG's centre of
+    mass cancels to ~1e-8); at multistep, where the ranks' buckets hold
+    the rows in another order than one rank's, the dumps' rows are
+    sorted first; OutVel's
+    coefficients, f32 sums of each rank's rows added over the ranks, to
+    2e-5 of each dataset's largest value (measured 1.3e-6, OutSamp's
+    bound above).  Each rank reports the rebuilds at t = 0.03 and 0.06."""
+    import json
+
+    from exp_tpu_torch.basis.model import hernquist_model
+    from exp_tpu_torch.bench_multirank import text_rows
+    from exp_tpu_torch.ic.eddington import sample_spherical_model
+    from exp_tpu_torch.nbody.simulation import Simulation
+    from exp_tpu_torch.nbody.particles import write_ascii_bodies
+
+    m = hernquist_model(rmin=1e-4, rmax=20.0, numr=800)
+    x, v, mass = sample_spherical_model(m, WORLD_N, seed=23)
+    dirs = {}
+    for tag in ("one", "two"):
+        d = tmp_path / tag
+        d.mkdir()
+        m.to_file(d / "halo.model")
+        write_ascii_bodies(str(d / "halo.bods"), (x, v, mass))
+        (d / "config.yml").write_text(WORLD_CONFIG.format(M=M))
+        dirs[tag] = d
+    Simulation.from_file(str(dirs["one"] / "config.yml"), device="cpu").run()
+    log = _launch([(["--cpu", "--ndev", "2", "--launches", "config.yml"],
+                    {})], str(dirs["two"]))[0]
+    reps = [json.loads(ln.split("launches ", 1)[1])
+            for ln in log.splitlines()
+            if ln.startswith("[exp_tpu_torch] launches ")]
+    assert sorted(r["rank"] for r in reps) == [0, 1]
+    for r in reps:
+        assert [b["time"] for b in r["rebuilds"]] == pytest.approx(
+            [0.03, 0.06])
+    one, two = dirs["one"], dirs["two"]
+    files = sorted(f for f in os.listdir(one)
+                   if not f.endswith((".yml", ".bods", ".model")))
+    assert files == sorted(f for f in os.listdir(two)
+                           if not f.endswith((".yml", ".bods", ".model")))
+    assert {"wrun.relx", "ORBTRACE.wrun", "OUTDIAG.wrun", "OUTFRAC.wrun",
+            "OUTCALBR.wrun", "OUT.wrun.h5", "outvel.halo.wrun.h5",
+            "halo.wrun.00006.ascii"} <= set(files)
+    for f in files:
+        if f.endswith(".h5"):
+            a, b = _h5_sets(one / f), _h5_sets(two / f)
+            assert sorted(a) == sorted(b) and a, f
+            for k in a:
+                va, vb = np.asarray(a[k], float), np.asarray(b[k], float)
+                tol = 2e-5 if f.startswith("outvel") else 1e-10
+                if M and va.ndim and va.shape[0] == WORLD_N:
+                    # a snapshot's rows, in each run's bucket order
+                    continue
+                np.testing.assert_allclose(
+                    vb, va, rtol=0, atol=tol * max(np.abs(va).max(), 1e-30),
+                    err_msg=f"{f}:{k}")
+            if f == "OUT.wrun.h5" and M:
+                for snap in {k.rsplit("/", 1)[0] for k in a}:
+                    ra, rb = (np.column_stack([h[f"{snap}/{c}"].reshape(
+                        WORLD_N, -1) for c in ("mass", "pos", "vel", "pot")])
+                        for h in (a, b))
+                    ra, rb = (r[np.lexsort(r.T[::-1])] for r in (ra, rb))
+                    np.testing.assert_allclose(
+                        rb, ra, rtol=0, atol=1e-10 * np.abs(ra).max())
+            continue
+        a, b = text_rows(str(one / f)), text_rows(str(two / f))
+        if M and f == "wrun.relx":
+            # the operators run between the blocks of the single-rate
+            # path only (exp_tpu's driver): the header alone
+            assert a.size == b.size == 0
+            continue
+        assert a.shape == b.shape and a.size, f
+        assert np.isfinite(a).all(), f
+        if M and f.endswith(".ascii"):
+            a, b = (r[np.lexsort(r.T[::-1])] for r in (a, b))
+        # 1e-10 of each column's largest value; OUTLOG's centre-of-mass
+        # columns cancel to ~1e-8 of their terms: a floor of 1e-14
+        bad = np.abs(b - a) > 1e-10 * np.abs(a).max(axis=0) + 1e-14
+        assert not bad.any(), (f, float(np.abs(b - a).max()))
+    if not M:
+        rel = text_rows(str(one / "wrun.relx"))
+        assert len(rel) == 5 and rel[-1, 1] > 0
+

@@ -105,6 +105,44 @@ def test_external_autodiff(case):
     np.testing.assert_allclose(at.numpy()[:, 1], num, rtol=2e-3, atol=1e-5)
 
 
+@pytest.mark.parametrize("case", list(FIELDS) + ["userhalo"])
+def test_external_finite_at_origin_and_axis(case, tmp_path):
+    """Every field's force and potential are finite at x = 0 and on the z
+    axis, where the zero-mass padding rows of a world and the multistep
+    buckets' holes sit.  exp_tpu's UserBar, UserMW and UserDisk give NaN
+    there (the gradient of atan2(y, x) or sqrt(r2) at 0; ROADMAP §3); the
+    port's are written so that the gradient is finite, and on the z axis
+    the force of each axisymmetric field and of the bar has no x or y
+    component.  Where exp_tpu's value is finite the port's equals it
+    (FIELD); off the axis test_external_autodiff holds them equal."""
+    if case == "userhalo":
+        m = hernquist_model(rmin=1e-3, rmax=20.0, numr=800)
+        m.to_file(tmp_path / "h.model")
+        conf = {"id": "userhalo", "parameters": {"modelname": "h.model"}}
+        jf = J.build_external(conf, workdir=str(tmp_path), dtype=jnp.float64)
+        tf = T.build_external(conf, workdir=str(tmp_path), dtype=F64T)
+    else:
+        cls, kw = FIELDS[case]
+        if cls == "UserDisk":
+            jf = J.UserDisk(dtype=jnp.float64, **kw)
+            tf = T.UserDisk(dtype=F64T, **kw)
+        else:
+            jf, tf = getattr(J, cls)(**kw), getattr(T, cls)(**kw)
+    x = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, 0.3], [0.0, 0.0, -0.3],
+                  [0.0, 0.0, 1.5], [0.0, 0.0, -4.0]])
+    for t in (0.0, 1.7):
+        at, pt = tf.acceleration(torch.as_tensor(x), t)
+        at, pt = at.numpy(), pt.numpy()
+        assert np.isfinite(at).all() and np.isfinite(pt).all(), (case, t)
+        if not case.startswith(("userellipsoid", "ellipsoid")):
+            assert np.all(at[:, :2] == 0.0), (case, at)
+        aj, pj = (np.asarray(u) for u in jf.acceleration(jnp.asarray(x), t))
+        ok = np.isfinite(aj).all(axis=1)
+        if ok.any():
+            close(at[ok], aj[ok], 0.0, floor=FIELD, atol=1e-300)
+        close(pt, pj, 0.0, floor=FIELD, atol=1e-300)
+
+
 def test_userhalo_from_model(tmp_path):
     """build_external's userhalo from a model file: the closed-form M(r)/r^2
     and the interpolated potential equal exp_tpu's inside the table and

@@ -70,7 +70,12 @@ def test_import_loads_no_jax_or_exp_tpu():
         "exp_tpu_torch.analysis.mssa, exp_tpu_torch.analysis.edmd, "
         "exp_tpu_torch.analysis.orbit, exp_tpu_torch.analysis.units, "
         "exp_tpu_torch.analysis.util, exp_tpu_torch.io.readers, "
-        "exp_tpu_torch.probe_analysis\n"
+        "exp_tpu_torch.probe_analysis, exp_tpu_torch.ic, "
+        "exp_tpu_torch.ic.qpdistf, exp_tpu_torch.ic.zang, "
+        "exp_tpu_torch.ic.ellip, exp_tpu_torch.ic.diskhalo2d, "
+        "exp_tpu_torch.cli, exp_tpu_torch.cli.__main__, "
+        "exp_tpu_torch.cli.gensph, exp_tpu_torch.cli.zangics, "
+        "exp_tpu_torch.cli.gendisk2d\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exp_tpu' or m.startswith('exp_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -111,6 +116,24 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ParticleSystem.from_arrays([[1.0, 0, 0]], [[0, 0, 0]], [1.0])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_ic_entry_points_without_device_raise_when_no_cuda(monkeypatch):
+    """The QP DF (its evaluations run on the device), sample_qp_model and
+    EllipsoidForce's tables refuse with no device named and no card."""
+    from exp_tpu_torch.basis.model import hernquist_model
+    from exp_tpu_torch.ic.ellipsoid import EllipsoidForce
+    from exp_tpu_torch.ic.qpdistf import QPDistF, sample_qp_model
+
+    m = hernquist_model(rmin=1e-3, rmax=20.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(egrid=4, kgrid=2, mgrid=8, nint=4)
+    for call in (lambda: QPDistF(m, **kw),
+                 lambda: sample_qp_model(m, 10, **kw),
+                 lambda: EllipsoidForce(num=4).mass_inertia(),
+                 lambda: EllipsoidForce(num=4).monopole_quadrupole(numr=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_sphere_entry_point_without_device_raises_when_no_cuda(monkeypatch):

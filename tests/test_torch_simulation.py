@@ -876,16 +876,78 @@ def by_indx(sim, name="halo"):
     return np.asarray(ps.x)[m > 0][o], np.asarray(ps.v)[m > 0][o]
 
 
+#: exp_tpu's driver in a child process: the config's run, its final
+#: state saved; JAX set up as the root conftest.py sets it, the persistent
+#: compilation cache off as in the module's fixture, and the cache
+#: module's debug log on stderr
+_CHILD = """\
+import logging, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["JAX_ENABLE_X64"] = "1"
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_compilation_cache", False)
+logging.basicConfig(stream=sys.stderr, level=logging.WARNING)
+logging.getLogger("jax._src.compilation_cache").setLevel(logging.DEBUG)
+import numpy as np
+from exp_tpu.nbody.simulation import Simulation
+sim = Simulation.from_file(sys.argv[1])
+if sys.argv[3] == "1":
+    sim.prime()
+sim.run()
+ps = sim._state["halo"]
+np.savez(sys.argv[2], **{k: np.asarray(getattr(ps, k))
+                         for k in ("x", "v", "mass", "indx")})
+"""
+
+
+def exp_tpu_in_child(rundir, path, prime=True):
+    """exp_tpu's side of a parity case in a child process (F1, ROADMAP §3:
+    an abort inside exp_tpu's eager ops took a test worker down with
+    nothing recorded).  On a non-zero exit the case fails with the child's
+    stderr: the C++ abort message, Python's fault handler traceback and
+    JAX's compilation-cache debug log.  Returns an object whose
+    `_state["halo"]` holds the final x, v, mass and indx."""
+    import subprocess
+    import sys
+    from types import SimpleNamespace
+
+    out = Path(rundir) / (Path(path).stem + ".state.npz")
+    env = dict(os.environ)
+    env.pop("PYTEST_CURRENT_TEST", None)
+    root = str(Path(__file__).resolve().parent.parent)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    p = subprocess.run([sys.executable, "-X", "faulthandler", "-c", _CHILD,
+                        path, str(out), "1" if prime else "0"],
+                       cwd=rundir, env=env, capture_output=True, text=True,
+                       timeout=600)
+    if p.returncode != 0:
+        pytest.fail(f"exp_tpu's driver exited {p.returncode} in its child "
+                    f"process; its stderr:\n{p.stderr[-12000:]}")
+    z = np.load(out)
+    return SimpleNamespace(_state={"halo": SimpleNamespace(**z)})
+
+
 @pytest.mark.parametrize("case", list(PORTED))
 def test_ported_feature_matches_exp_tpu(rundir, case):
     """Each extra the driver once refused: both drivers on the same YAML
     in f64 for 4 steps (big steps under multistep); the final state to
     F64, OUTLOG to its printed digits (TEXT8), the OutSamp file (float32
     accumulation in both) to F32_COEF; a frozen halo's coefficients equal
-    its captured set bit for bit."""
+    its captured set bit for bit.  The outsamp case runs exp_tpu's driver
+    in a child process (exp_tpu_in_child, ROADMAP §3 F1)."""
     _extras_files(rundir)
-    sj, st = both(rundir, f"px_{case}", ported_config(case),
-                  prime=case not in ("frozen_multistep", "NOISE"))
+    prime = case not in ("frozen_multistep", "NOISE")
+    if case == "outsamp":
+        # exp_tpu's side in a child process, which reports an abort (F1)
+        pj, pt = configs(rundir, f"px_{case}", ported_config(case))
+        sj = exp_tpu_in_child(rundir, pj, prime=prime)
+        st = TSim.from_file(pt, device="cpu")
+        st.prime()
+        st.run()
+    else:
+        sj, st = both(rundir, f"px_{case}", ported_config(case), prime=prime)
     for a, b in zip(by_indx(st), by_indx(sj)):
         close(a, b, F64)
     if case == "nEJaccel":
@@ -924,7 +986,7 @@ def _host_c(sim, frozen=False):
 
 
 # ---------------------------------------------------------------------------
-# refusals: what the driver does not port raises, naming its ROADMAP item
+# refusals: what the driver once refused under a world (ROADMAP item 12b)
 # ---------------------------------------------------------------------------
 
 REFUSED = {
@@ -934,27 +996,37 @@ REFUSED = {
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_unported_features_raise(rundir, case):
-    """OutVel runs on one rank (test_outvel_matches_exp_tpu) and still
-    refuses a world of several ranks, naming ROADMAP item 12b."""
+    """OutVel, which a world of several ranks refused until ROADMAP item
+    12b, builds there now with a gather of its own (each rank's
+    projections summed over the ranks; the 2-rank runs are
+    tests/test_torch_distributed.py's), and no refusal naming item 12b is
+    left in the driver or its writers."""
+    import inspect
+
     from exp_tpu_torch.config import OutputConfig
+    from exp_tpu_torch.nbody import output, simulation
 
     where, what = REFUSED[case]
     txt = CONFIG + what
     p = configs(rundir, f"ref_{case}", txt)[1]
     sim = TSim.from_file(p, device="cpu")
     sim.dist = True
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
-        sim._make_output(OutputConfig(id=case, parameters={"nint": 2}))
+    o = sim._make_output(OutputConfig(id=case, parameters={"nint": 2}))
+    assert type(o).gather is not output.Output.gather
+    for mod in (simulation, output):
+        assert "12b" not in inspect.getsource(mod)
+        assert "NotImplementedError(" not in inspect.getsource(mod)
 
 
 def test_multi_process_world_raises(rundir, monkeypatch):
     """A process group of several ranks that no World of its size joined
     refuses to start (each rank would run the whole system alone); a World
-    of one rank without a group is the one-device driver, and what item
-    12 does not port under a world of several ranks raises
-    NotImplementedError naming item 12b (the 2-rank driver runs in
+    of one rank without a group is the one-device driver, and the writers
+    a world of several ranks refused until ROADMAP item 12b build there
+    with a gather of the host phase space (the 2-rank driver runs in
     tests/test_torch_distributed.py)."""
     from exp_tpu_torch.config import OutputConfig
+    from exp_tpu_torch.nbody.output import Output
     from exp_tpu_torch.parallel.distributed import World
 
     p = configs(rundir, "mp", CONFIG)[1]
@@ -962,8 +1034,8 @@ def test_multi_process_world_raises(rundir, monkeypatch):
     assert sim.world is None and sim.is_primary and not sim.dist
     sim.dist = True
     for oid in ("outascii", "orbtrace", "outhdf5"):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            sim._make_output(OutputConfig(id=oid, parameters={}))
+        o = sim._make_output(OutputConfig(id=oid, parameters={}))
+        assert type(o).gather is not Output.gather, oid
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
     for kw in ({}, {"world": World()}):

@@ -25,8 +25,8 @@ from exp_tpu.ic.eddington import sample_spherical_model
 from exp_tpu.nbody.particles import write_ascii_bodies
 from exp_tpu.nbody.simulation import Simulation as JSim
 from exp_tpu_torch.nbody.simulation import Simulation as TSim
-from test_torch_simulation import (CONFIG, F64, TEXT8, close, configs, f64,
-                                   logs)
+from test_torch_simulation import (CONFIG, F64, TEXT6, TEXT8, close,
+                                   configs, f64, logs)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -55,7 +55,12 @@ MS = f64(CONFIG).replace("runtag: trun", "runtag: trun\n  multistep: 2\n"
                                    "  - id: outchkpt\n    parameters: "
                                    "{nint: 5}\n") + (
     "  - id: outmulti\n    parameters: {nint: 1}\n"
-    "  - id: orbtrace\n    parameters: {nint: 1, norb: 4}\n")
+    "  - id: orbtrace\n    parameters: {nint: 1, norb: 4}\n"
+    "  - id: outdiag\n    parameters: {nint: 2}\n"
+    "  - id: outfrac\n    parameters: {nint: 2}\n"
+    "  - id: outcalbr\n    parameters: {nint: 2}\n"
+    "  - id: outascii\n    parameters: {nint: 5}\n"
+    "  - id: outhdf5\n    parameters: {nint: 5, real4: false}\n")
 
 
 @pytest.fixture(scope="module")
@@ -128,6 +133,41 @@ def test_outmulti_and_orbtrace(rundir, msrun):
     assert np.linalg.norm(np.diff(xs, axis=0), axis=2).max() < 0.2
     ids = by_id(msrun[1])[0]
     assert ids.tolist() == list(range(1, 3001))
+
+
+def _sorted_rows(a):
+    return a[np.lexsort(a.T[::-1])]
+
+
+def test_multistep_writers_match_exp_tpu(rundir, msrun):
+    """OutDiag, OutFrac and OutCalbr (their printed digits: TEXT8, and
+    TEXT6 for OUTCALBR's %.6g), OutAscii and OutHDF5 (f64, F64) at
+    multistep 2 against exp_tpu's; the dumps' rows are sorted first (a
+    writer takes the buckets' order, which two runners need not share).
+    The single-rate writers are test_torch_simulation.py's."""
+    import h5py
+
+    for f, tol in (("OUTDIAG.trun", TEXT8), ("OUTFRAC.trun", TEXT8),
+                   ("OUTCALBR.trun", TEXT6)):
+        a, b = (np.loadtxt(rundir / f"{w}_ms" / f) for w in ("t", "j"))
+        assert a.shape == b.shape and len(a) >= 5, f
+        close(a, b, tol, atol=1e-300)
+    for k in (0, 5, 10):
+        a, b = (_sorted_rows(np.loadtxt(rundir / f"{w}_ms"
+                                        / f"halo.trun.{k:05d}.ascii",
+                                        skiprows=1)) for w in ("t", "j"))
+        assert a.shape == b.shape == (3000, 7)
+        close(a, b, F64)
+    with h5py.File(rundir / "t_ms" / "OUT.trun.h5", "r") as ft, \
+            h5py.File(rundir / "j_ms" / "OUT.trun.h5", "r") as fj:
+        assert int(ft.attrs["count"]) == int(fj.attrs["count"]) == 3
+        for g in ("00000000", "00000001", "00000002"):
+            assert ft[f"snapshots/{g}"].attrs["Time"] == pytest.approx(
+                fj[f"snapshots/{g}"].attrs["Time"], rel=1e-7)
+            a, b = (_sorted_rows(np.column_stack(
+                [f[f"snapshots/{g}/halo/{c}"][...].reshape(3000, -1)
+                 for c in ("mass", "pos", "vel", "pot")])) for f in (ft, fj))
+            close(a, b, F64)
 
 
 def test_multistep_checkpoint_restart(rundir, msrun):
