@@ -250,6 +250,30 @@ Phases:
      nmax 10, mmax 4 nmax 8, pallas): -2T/VC (tests/test_diskhalo2d.py:77),
      the disk's z = vz = 0, 4 big steps at M=2 finite with the schedule's
      launches, K1, K2, K4 and K5 against their plain versions on its rows;
+  PX1. (after AN3) doc/tutorial.md §3's pyEXP flow through
+     `exp_tpu_torch.pyexp` on AN1's stanza: 8 PSP snapshots of phase 5's
+     2^20 sample read by ParticleReader.createReader('PSPout') and
+     projected by createFromReader, one K1 a snapshot, equal bit for bit to
+     create_from_snapshots on the same files, against K1's plain version
+     and an f64 gather basis; initFromArray / addFromArray in 4 chunks /
+     makeFromArray against the one-shot projection; getFields at 4,096
+     particles (two K2) against the plain version and the reference's
+     labels; expMSSA and getReconstructed; FieldGenerator slices (256^2,
+     one K2 a time); IntegrateOrbits of 1,024 bodies for 500 steps in the
+     frozen field (one K2 a step and one first) with their mean |dE/E|
+     gated and their end points against the plain version's;
+     enableCoefCovariance at sampT 100 (101 K1); each step's host time;
+  PX2. pyEXP's cylinder on D1's tables (pallas): createFromArray of CM1's
+     262,144 disk particles through K4, getFields at 4,096 of them (two K5)
+     and a midplane slice (one K5, then one for each of 17 scanned
+     heights), each against the
+     plain version, and the cylinder's geometry and labels;
+  CL1. the ported tools as `python -m exp_tpu_torch.cli <tool>` child
+     processes on the card, started together: orthochk, slcheck, haloprof
+     (a PX1 PSP file), diskprof (CM1's disk as a body file), slabprof,
+     scalarprod (pallas), crossval and kldiv (65,536 rows), slshift,
+     yamldiff, each exiting 0 with exp_tpu's output files; makecoefs
+     (pallas) launching K1 and refusing loudly where h5py is missing;
   PS1. P1 against its plain version on the probe's sample with edge rows,
      stream1 and stream2, with the stated tolerances;
   PS2. the probe's run: producer + P1, P1 alone, the producer, the
@@ -4253,6 +4277,582 @@ def analysis_path(dev, comp, disk_tables, xe, ve, me):
 
 
 # ---------------------------------------------------------------------------
+# PX1, PX2, CL1: the pyEXP drop-in (exp_tpu_torch/pyexp) and the CLI's
+# analysis, MSSA and basis tools (exp_tpu_torch/cli)
+# ---------------------------------------------------------------------------
+
+# PX1: PX_SNAPS PSP snapshots of phase 5's sample at x (1 + 0.01 sin(0.3 t)),
+# read through pyEXP.read and projected through pyEXP.basis on AN1's stanza
+# (bench_pyexp.STANZA); slices of AN_SLICE^2 points at PX_TIMES of the
+# times; expMSSA of the series at window PX_WINDOW; the accumulation API in
+# PX_CHUNKS chunks; the covariance's PX_SAMPT partitions of snapshot 0;
+# IntegrateOrbits of bench_pyexp.ORBITS bodies for bench_pyexp.STEPS steps.
+PX_SNAPS = 8
+PX_TIMES = 2
+PX_WINDOW = 4
+PX_CHUNKS = 4
+PX_SAMPT = 100
+# The orbits' mean |dE/E| (E = v^2/2 + the expansion's potential at both
+# ends of the float32 orbits): three times the same run through the plain
+# versions on a CPU, at least DRIFT_BOUND (_mf_bound's rule, as MF1, MF3b
+# and IC2).  The CPU run: python -m exp_tpu_torch.bench_pyexp orbits
+# --device cpu --threads 2 (the same sample, basis, coefficients and
+# leapfrog, on an 8-core Intel Xeon host without a card): mean 3.43e-7,
+# largest 4.83e-6, 7.1 ms a step.  At ~1e-7 a body the energy errs at the
+# rounding of its f32 positions and potential, so the bound is
+# DRIFT_BOUND's.
+PX_ORBIT_CPU = {"dE_rel": 3.434574783330816e-07}   # the orbits' mean
+# The orbits' end points on the card against the same integration through
+# K2's plain version on the card, max|d| / max|value| of the positions and
+# of the velocities, set before the first run: K2 and its plain version
+# differ by ~1e-6 of |a| at a step (phase 4), and 500 steps in a smooth
+# spherical field carry that difference along the orbits, growing about
+# linearly with the number of steps.
+PX_ORBIT_END_RTOL = 1e-3
+# PX2: getFields at PX_DISK_PTS of CM1's disk particles; the midplane
+# slice of PX_MID^2 points over |x|, |y| <= 0.1 at t 0
+PX_DISK_PTS = 4096
+PX_MID = 128
+# CL1: the rows of the body file crossval and kldiv read (the host direct
+# sum at 2^20 takes 36-44 s, PERF.md §5)
+CL_ROWS = 65_536
+# pyEXP's spherical label set (BiorthBasis.cc:71-96)
+PX_LABELS = ["dens m=0", "dens m>0", "dens", "potl m=0", "potl m>0",
+             "potl", "rad force", "mer force", "azi force"]
+
+
+def _columns_check(tag, out, ref, acc_tol, pot_tol, rel):
+    """pyEXP getFields columns (cartesian field type) `out` against `ref`:
+    the density columns (plain torch on both sides) to 1e-12 of their
+    largest, the potential columns to `pot_tol` (the m>0 column, a
+    difference of two evaluations, to twice it), the force columns to
+    `acc_tol`, as _field_check.  Returns the largest |d| of the potential
+    and force columns."""
+    import numpy as np
+
+    d = np.abs(out - ref)
+    sp = np.abs(ref[:, 5]).max() if rel else 1.0
+    sa = np.abs(ref[:, 6:9]).max() if rel else 1.0
+    bad = []
+    if not np.isfinite(out).all():
+        bad.append("non-finite")
+    if d[:, :3].max() > 1e-12 * np.abs(ref[:, 2]).max():
+        bad.append(f"dens {d[:, :3].max()}")
+    for j, k in ((3, 1.0), (4, 2.0), (5, 1.0)):
+        lim = k * (pot_tol[1] * sp + pot_tol[0] * np.abs(ref[:, 5]))
+        if not (d[:, j] <= lim).all():
+            bad.append(f"column {j} {d[:, j].max()}")
+    lim = acc_tol[1] * sa + acc_tol[0] * np.abs(ref[:, 6:9])
+    if not (d[:, 6:9] <= lim).all():
+        bad.append(f"force {d[:, 6:9].max()}")
+    if bad:
+        raise AssertionError(f"{tag}: {', '.join(bad)}")
+    return float(d[:, 3:9].max())
+
+
+def _rel(a, b):
+    import numpy as np
+
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max()
+                 / np.abs(np.asarray(b)).max())
+
+
+def pyexp_path(dev, comp, disk_tables, xe, ve, me):
+    """Phases PX1 and PX2 on the card: doc/tutorial.md §3's pyEXP flow
+    (`import exp_tpu_torch.pyexp as pyEXP`) at the sphere cell's width,
+    through K1 and K2, and pyEXP's cylinder on D1's tables through K4 and
+    K5.  `comp` is CM1's dict, `disk_tables` D1's, (xe, ve, me) phase 5's
+    sample.  Returns the kernels-line rows and the working directory with
+    the PSP files (CL1 reads them; the caller cleans it up)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import exp_tpu_torch.pyexp as pyEXP
+    from exp_tpu_torch import bench_composite as bc
+    from exp_tpu_torch import bench_pyexp as bp
+    from exp_tpu_torch.analysis.basis import Basis as NativeBasis
+    from exp_tpu_torch.forces.cylinder import CylinderForce
+    from exp_tpu_torch.io.psp import PSPComponent, PSPDump, write_psp
+    from exp_tpu_torch.io.readers import createReader
+    from exp_tpu_torch.ops import cyl_kernels as ck
+    from exp_tpu_torch.ops import sphere_kernels as sk
+
+    rows, host = [], {}
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_pyexp_")
+    wd = work.name
+    n = len(me)
+
+    # PX1. the snapshots as PSP files
+    times = np.arange(PX_SNAPS) * 0.1
+    jit = [1.0 + 0.01 * float(np.sin(0.3 * t)) for t in range(PX_SNAPS)]
+    files = [os.path.join(wd, f"OUT.px.{i:05d}") for i in range(PX_SNAPS)]
+    t0 = time.perf_counter()
+    for i, s in enumerate(jit):
+        write_psp(files[i], PSPDump(time=float(times[i]), components=[
+            PSPComponent(name="halo", info="name: halo\n", mass=me,
+                         x=xe * s, v=ve, pot=np.zeros(n))]))
+    host["psp_write_s_per_snapshot"] = (time.perf_counter() - t0) / PX_SNAPS
+    bp.write_model(wd)
+    t0 = time.perf_counter()
+    basis = pyEXP.basis.Basis.factory(bp.STANZA % "pallas", workdir=wd,
+                                      device=dev)
+    gather = pyEXP.basis.Basis.factory(bp.STANZA % "gather", workdir=wd,
+                                       device=dev)
+    host["basis_factory_s"] = (time.perf_counter() - t0) / 2
+    force, prm = basis.native.force, basis.native.force._kernel_params()
+
+    # createReader -> createFromReader, one K1 a snapshot
+    series, reads, projs = None, [], []
+    bc.reset_launches()
+    for f in files:
+        t1 = time.perf_counter()
+        reader = pyEXP.read.ParticleReader.createReader("PSPout", f)
+        reader.SelectType("halo")
+        t2 = time.perf_counter()
+        c = basis.createFromReader(reader)
+        t3 = time.perf_counter()
+        reads.append(t2 - t1)
+        projs.append(t3 - t2)
+        st = c.getCoefStruct(c.Times()[0])
+        if series is None:
+            series = pyEXP.coefs.Coefs.makecoefs(st, "halo")
+        series.add(st)
+    k1_launches = bc.kernel_launches()
+    print("PX1 createFromReader: " + json.dumps({
+        "snapshots": PX_SNAPS, "rows": n, "launches": k1_launches,
+        "read_s": reads, "project_s": projs}), flush=True)
+    _want_launches("PX1 createFromReader", k1_launches,
+                   {"sphere_coef": PX_SNAPS})
+    A = np.stack([series.getCoefStruct(t).getCoefs()
+                  for t in series.Times()])
+    if not (series.Times() == [float(t) for t in times]
+            and series.getGeometry() == "sphere"):
+        raise AssertionError(f"PX1: times {series.Times()}, geometry "
+                             f"{series.getGeometry()}")
+    # the same files through the analysis library: the same code path
+    def snaps():
+        for f in files:
+            x, v, m = createReader("psp", f).GetParticles("halo")
+            yield x, m
+
+    nat = basis.native.create_from_snapshots(snaps(), times=times)
+    same = bool(np.array_equal(nat.as_array(), A))
+    k1_err = k1_rel = g_rel = 0.0
+    for i, s in enumerate(jit):
+        with _plain((sk, "sphere_coef")):
+            c0 = basis.createFromArray(me, xe * s).getCoefs()
+        cg = gather.createFromArray(me, xe * s).getCoefs()
+        k1_err = max(k1_err, float(np.abs(A[i] - c0).max()))
+        k1_rel = max(k1_rel, _rel(A[i], c0))
+        g_rel = max(g_rel, _rel(A[i], cg))
+    # the accumulation API in chunks against the one-shot projection
+    basis.initFromArray()
+    for part in np.array_split(np.arange(n), PX_CHUNKS):
+        basis.addFromArray(me[part], xe[part] * jit[0])
+    bc.reset_launches()
+    acc_st = basis.makeFromArray(time=0.0)
+    acc_launches = bc.kernel_launches()
+    _want_launches("PX1 makeFromArray", acc_launches, {"sphere_coef": 1})
+    acc_rel = _rel(acc_st.getCoefs(), A[0])
+    print(f"PX1 coefficients: createFromReader equal to "
+          f"create_from_snapshots bit for bit: {same}; K1 vs plain "
+          f"max|dc|/max|c| = {k1_rel:.3e} (tolerance {COEF_RTOL:.0e}); vs "
+          f"the f64 gather Basis {g_rel:.3e} (tolerance "
+          f"{AN_GATHER_COEF:.0e}); initFromArray / {PX_CHUNKS} x "
+          f"addFromArray / makeFromArray vs one-shot {acc_rel:.3e} "
+          f"(tolerance {COEF_RTOL:.0e})", flush=True)
+    if not (same and k1_rel <= COEF_RTOL and g_rel <= AN_GATHER_COEF
+            and acc_rel <= COEF_RTOL and np.isfinite(A).all()):
+        raise AssertionError(f"PX1: coefficients (same {same}, K1 {k1_rel}, "
+                             f"gather {g_rel}, accumulation {acc_rel})")
+
+    # getFields at AN_GATHER_PTS particles: two K2 (the coefficients and
+    # their m = 0 part), against the plain version; the label set
+    basis.set_coefs(series.getCoefStruct(0.0))
+    if basis.getFieldLabels() != PX_LABELS:
+        raise AssertionError(f"PX1 labels {basis.getFieldLabels()}")
+    pts = xe[:AN_GATHER_PTS]
+    basis.setFieldType("cartesian")
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    out = basis.getFields(pts[:, 0], pts[:, 1], pts[:, 2])
+    host["getFields_s"] = time.perf_counter() - t0
+    launches = bc.kernel_launches()
+    _want_launches("PX1 getFields", launches, {"sphere_accel": 2})
+    with _plain((sk, "sphere_accel")):
+        ref = basis.getFields(pts[:, 0], pts[:, 1], pts[:, 2])
+    basis.setFieldType("spherical")
+    gf_err = _columns_check("PX1 getFields", out, ref, (ACC_RTOL, ACC_ATOL),
+                            (POT_RTOL, POT_ATOL), False)
+    print(f"PX1 getFields ({AN_GATHER_PTS} points): launches {launches}, "
+          f"K2 vs plain max|d| {gf_err:.3e} (tolerance acc rtol "
+          f"{ACC_RTOL:.0e} atol {ACC_ATOL:.0e}, pot rtol {POT_RTOL:.0e} "
+          f"atol {POT_ATOL:.0e}); labels {PX_LABELS}", flush=True)
+
+    # expMSSA of the series: every eigentriple gives the series back
+    t0 = time.perf_counter()
+    npc = PX_SNAPS - PX_WINDOW + 1
+    ssa = pyEXP.mssa.expMSSA({"halo": (series, None, [])}, PX_WINDOW, npc)
+    ssa.reconstruct(list(range(npc)))
+    rec = ssa.getReconstructed()["halo"]
+    host["mssa_s"] = time.perf_counter() - t0
+    rec_err = _rel(rec.getAllCoefs(), series.getAllCoefs())
+    ev = ssa.eigenvalues()
+    print(f"PX1 expMSSA (window {PX_WINDOW}, {npc} eigentriples): "
+          f"getReconstructed gives the series back to {rec_err:.3e} of "
+          f"max|c| (tolerance {AN_MSSA_REC:.0e}); eigenvalues "
+          f"{[float(e) for e in ev]}", flush=True)
+    if not (rec_err <= AN_MSSA_REC and rec.Times() == series.Times()
+            and (np.diff(ev) <= 0).all()):
+        raise AssertionError(f"PX1 expMSSA: {rec_err}")
+
+    # FieldGenerator.slices: one K2 a time
+    ft = [float(t) for t in times[::PX_SNAPS // PX_TIMES][:PX_TIMES]]
+    fg = pyEXP.field.FieldGenerator(ft, (-2, -2, 0), (2, 2, 0),
+                                    (AN_SLICE, AN_SLICE, 0))
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    sl = fg.slices(basis, series)
+    host["slice_render_s_per_time"] = (time.perf_counter() - t0) / PX_TIMES
+    sl_launches = bc.kernel_launches()
+    _want_launches("PX1 slices", sl_launches, {"sphere_accel": PX_TIMES})
+    with _plain((sk, "sphere_accel")):
+        sl0 = fg.slices(basis, series)
+    sl_err = 0.0
+    for t in ft:
+        o, r_ = ((f["dens"].ravel(), f["potl"].ravel(), np.stack(
+            [f["accx"].ravel(), f["accy"].ravel(), f["accz"].ravel()], -1))
+                 for f in (sl[t], sl0[t]))
+        sl_err = max(sl_err, _field_check(f"PX1 slice t={t}", o, r_,
+                                          (ACC_RTOL, ACC_ATOL),
+                                          (POT_RTOL, POT_ATOL), False))
+    print(f"PX1 FieldGenerator.slices ({AN_SLICE}^2 points x {PX_TIMES} "
+          f"times): launches {sl_launches}, K2 vs plain max|d| "
+          f"{sl_err:.3e}", flush=True)
+
+    # IntegrateOrbits in the frozen field: one K2 a step and one first,
+    # and one each for the energy at both ends
+    xo, vo = xe[:bp.ORBITS], ve[:bp.ORBITS]
+    bc.reset_launches()
+    O, orb = bp.orbit_energy(basis, series, xo, vo)
+    orb_launches = bc.kernel_launches()
+    _want_launches("PX1 IntegrateOrbits", orb_launches,
+                   {"sphere_accel": bp.STEPS + 3})
+    with _plain((sk, "sphere_accel")):
+        O0, orb0 = bp.orbit_energy(basis, series, xo, vo)
+    end_x = _rel(O[-1][:, :3], O0[-1][:, :3])
+    end_v = _rel(O[-1][:, 3:], O0[-1][:, 3:])
+    bound = _mf_bound(PX_ORBIT_CPU)
+    host["orbit_step_s"] = orb["step_s"]
+    host["orbit_step_s_plain"] = orb0["step_s"]
+    print("PX1 IntegrateOrbits: " + json.dumps({
+        **orb, "plain_dE_mean": orb0["dE_mean"], "cpu": PX_ORBIT_CPU,
+        "dE_bound": bound, "launches": orb_launches,
+        "end_x_rel": end_x, "end_v_rel": end_v,
+        "end_rtol": PX_ORBIT_END_RTOL}), flush=True)
+    if not (orb["finite"] and orb["dE_mean"] <= bound
+            and end_x <= PX_ORBIT_END_RTOL and end_v <= PX_ORBIT_END_RTOL):
+        raise AssertionError(f"PX1 IntegrateOrbits: dE {orb['dE_mean']} "
+                             f"(bound {bound}), ends {end_x}, {end_v}")
+
+    # the coefficient covariance: PX_SAMPT partitions of snapshot 0, one K1
+    # each, and the projection itself
+    basis.enableCoefCovariance(True, sampT=PX_SAMPT)
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    cst = basis.createFromArray(me, xe * jit[0], time=0.0)
+    host["covariance_s"] = time.perf_counter() - t0
+    cov_launches = bc.kernel_launches()
+    _want_launches("PX1 covariance", cov_launches,
+                   {"sphere_coef": PX_SAMPT + 1})
+    mu, C = basis.getCoefCovariance()
+    basis.enableCoefCovariance(False)
+    cov_rel = _rel(mu, cst.getCoefs().ravel())
+    psd = bool(np.diag(C).min() >= 0.0)
+    print(f"PX1 enableCoefCovariance (sampT {PX_SAMPT}): launches "
+          f"{cov_launches}, the partitions' mean vs the projection "
+          f"{cov_rel:.3e} (tolerance {COEF_RTOL:.0e}), covariance "
+          f"{list(C.shape)} with a non-negative diagonal {psd}", flush=True)
+    if not (cov_rel <= COEF_RTOL and psd and np.isfinite(C).all()):
+        raise AssertionError(f"PX1 covariance: {cov_rel}, psd {psd}")
+    print("PX1 host clock: " + json.dumps({
+        **host, "read_s_median": float(np.median(reads)),
+        "project_s_median": float(np.median(projs))}), flush=True)
+
+    # kernels-line rows at PX1's shapes
+    x32 = torch.as_tensor(xe * jit[0], dtype=torch.float32, device=dev)
+    m32 = torch.as_tensor(me, dtype=torch.float32, device=dev)
+    tab, r = force._radial_table(), x32.norm(dim=1) + 1e-10
+    n_in = int(((r >= prm.rmin * prm.scale) & (r <= prm.rmax * prm.scale)
+                & (m32 > 0)).sum())
+    rows.append(_an_row(
+        "sphere_coef[PX1 pyEXP createFromReader]", "sphere_coef.cu",
+        "exp_tpu/ops/pallas_sphere.py:521", k1_launches["sphere_coef"],
+        k1_err, lambda: sk.sphere_coef(x32, m32, tab, force.Mp, prm),
+        lambda: sk.sphere_coef_plain(x32, m32, tab, force.Mp, prm),
+        k1_work(n, n_in, prm.lmax, prm.nmax, prm.rows)))
+    twT = force.accel_table(torch.as_tensor(A[0], device=dev))
+    for kind, cnt, p in (
+            ("slice", sl_launches["sphere_accel"], fg._fg._mesh()[0]),
+            ("orbit step", orb_launches["sphere_accel"], xo)):
+        p32 = torch.as_tensor(p, dtype=torch.float32, device=dev)
+        a, pt = sk.sphere_accel(p32, twT, force.fac32, prm)
+        a0, pt0 = sk.sphere_accel_plain(p32, twT, force.fac32, prm)
+        err = max(float((a - a0).abs().max()), float((pt - pt0).abs().max()))
+        rows.append(_an_row(
+            f"sphere_accel[PX1 pyEXP {kind}]", "sphere_accel.cu",
+            "exp_tpu/ops/pallas_sphere.py:398", cnt, err,
+            lambda p32=p32: sk.sphere_accel(p32, twT, force.fac32, prm),
+            lambda p32=p32: sk.sphere_accel_plain(p32, twT, force.fac32,
+                                                  prm),
+            k2_work(len(p), prm.lmax, prm.rows)))
+    del x32, m32, gather
+
+    # PX2. pyEXP's cylinder on D1's tables and CM1's disk particles
+    ic = comp["ic"]
+    xk, mk = ic["xd"], ic["md"]
+    disk = pyEXP.basis.Basis(NativeBasis(CylinderForce.from_tables(
+        disk_tables, backend="pallas", device=dev), name="disk"))
+    dforce, dp = disk.native.force, disk.native.force._kernel_params()
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    dst = disk.createFromArray(mk, xk, time=0.0)
+    host2 = {"createFromArray_s": time.perf_counter() - t0}
+    k4_launches = bc.kernel_launches()
+    _want_launches("PX2 createFromArray", k4_launches, {"cyl_coef": 1})
+    with _plain((ck, "cyl_coef")):
+        dst0 = disk.createFromArray(mk, xk, time=0.0)
+    k4_err = float(np.abs(dst.getCoefs() - dst0.getCoefs()).max())
+    k4_rel = _rel(dst.getCoefs(), dst0.getCoefs())
+    labels = disk.getFieldLabels()
+    geo_ok = (dst.getGeometry() == "cylinder"
+              and disk.getFieldType() == "cylindrical"
+              and labels[6:] == ["rad force", "ver force", "azi force"])
+    print(f"PX2 createFromArray ({len(mk)} disk particles): launches "
+          f"{k4_launches}, K4 vs plain max|dc|/max|c| = {k4_rel:.3e} "
+          f"(tolerance {CYL_COEF_RTOL:.0e}); geometry "
+          f"{dst.getGeometry()!r}, labels {labels}", flush=True)
+    if not (k4_rel <= CYL_COEF_RTOL and geo_ok
+            and np.isfinite(dst.getCoefs()).all()):
+        raise AssertionError(f"PX2: K4 {k4_rel}, geometry/labels {geo_ok}")
+    disk.set_coefs(dst)
+    dpts = xk[:PX_DISK_PTS]
+    disk.setFieldType("cartesian")
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    dout = disk.getFields(dpts[:, 0], dpts[:, 1], dpts[:, 2])
+    host2["getFields_s"] = time.perf_counter() - t0
+    k5_launches = bc.kernel_launches()
+    _want_launches("PX2 getFields", k5_launches, {"cyl_accel": 2})
+    with _plain((ck, "cyl_accel")):
+        dref = disk.getFields(dpts[:, 0], dpts[:, 1], dpts[:, 2])
+    disk.setFieldType("cylindrical")
+    k5_err = _columns_check("PX2 getFields", dout, dref,
+                            (CYL_ACC_RTOL, CYL_ACC_ATOL_REL),
+                            (CYL_POT_RTOL, CYL_POT_ATOL_REL), True)
+    print(f"PX2 getFields ({PX_DISK_PTS} points): launches {k5_launches}, "
+          f"K5 vs plain max|d| {k5_err:.3e} (|a| up to "
+          f"{np.abs(dref[:, 6:9]).max():.3e})", flush=True)
+    # a midplane slice: one K5 for the slice and one a scanned height
+    dser = pyEXP.coefs.Coefs.makecoefs(dst, "disk")
+    dser.add(dst)
+    mfg = pyEXP.field.FieldGenerator([0.0], (-0.1, -0.1, 0), (0.1, 0.1, 0),
+                                     (PX_MID, PX_MID, 0))
+    mfg.setMidplane(True)
+    bc.reset_launches()
+    t0 = time.perf_counter()
+    msl = mfg.slices(disk, dser)[0.0]
+    host2["midplane_slice_s"] = time.perf_counter() - t0
+    mid_launches = bc.kernel_launches()
+    with _plain((ck, "cyl_accel")):
+        msl0 = mfg.slices(disk, dser)[0.0]
+    nz = mid_launches.get("cyl_accel", 0)
+    # exp_tpu's midplane: the slice at z 0, then 17 scanned heights
+    _want_launches("PX2 midplane slice", mid_launches, {"cyl_accel": 18})
+    mo, mr = ((f["dens"].ravel(), f["potl"].ravel(), np.stack(
+        [f["accx"].ravel(), f["accy"].ravel(), f["accz"].ravel()], -1))
+              for f in (msl, msl0))
+    mid_err = _field_check("PX2 midplane", mo, mr,
+                           (CYL_ACC_RTOL, CYL_ACC_ATOL_REL),
+                           (CYL_POT_RTOL, CYL_POT_ATOL_REL), True)
+    same_mid = bool(np.array_equal(msl["midplane"], msl0["midplane"]))
+    hmax = float(np.abs(msl["midplane"]).max())
+    print(f"PX2 midplane slice ({PX_MID}^2 points, {nz} evaluations): "
+          f"launches "
+          f"{mid_launches}, K5 vs plain max|d| {mid_err:.3e}, the same "
+          f"midplane heights as the plain run: {same_mid}, max|z_mid| "
+          f"{hmax:.3e} (hcyl {dforce.hcyl})", flush=True)
+    if not (same_mid and hmax <= 4.0 * dforce.hcyl + 1e-12):
+        raise AssertionError(f"PX2 midplane: same {same_mid}, |z| {hmax}")
+    print("PX2 host clock: " + json.dumps(host2), flush=True)
+    xk32 = torch.as_tensor(xk, dtype=torch.float32, device=dev)
+    mk32 = torch.as_tensor(mk, dtype=torch.float32, device=dev)
+    kx = 3 if dp.interp == "spline" else 2
+    nk_in = int(((xk32.norm(dim=1) <= dp.rmax_grid) & (mk32 > 0)).sum())
+    rows.append(_an_row(
+        "cyl_coef[PX2 pyEXP createFromArray]", "cyl_coef.cu",
+        "exp_tpu/ops/pallas_cylinder.py:164", k4_launches["cyl_coef"],
+        k4_err, lambda: ck.cyl_coef(xk32, mk32, dp),
+        lambda: ck.cyl_coef_plain(xk32, mk32, dp),
+        k4_work(len(mk), nk_in, dp.mmax, dp.xrows, dp.ncy, kx)))
+    Ct = ck.contract_coef_tables(torch.as_tensor(dst.getCoefs(), device=dev),
+                                 dforce.tab3, dp.xrows, dp.ncy)
+    dp32 = torch.as_tensor(dpts, dtype=torch.float32, device=dev)
+    rows.append(_an_row(
+        "cyl_accel[PX2 pyEXP getFields]", "cyl_accel.cu",
+        "exp_tpu/ops/pallas_cylinder.py:257", k5_launches["cyl_accel"],
+        k5_err, lambda: ck.cyl_accel(dp32, Ct, dp),
+        lambda: ck.cyl_accel_plain(dp32, Ct, dp),
+        k5_work(len(dpts), dp.mmax, dp.xrows, dp.ncy, kx)))
+    return rows, work, files
+
+
+def tools_path(comp, xe, ve, me, work, files):
+    """Phase CL1 on the card: the ported analysis, MSSA and basis tools as
+    `python -m exp_tpu_torch.cli <tool>` in child processes on the card
+    (no --cpu), all started together, each to exit 0 and write exp_tpu's
+    file names; then makecoefs with a `backend: pallas` stanza, which
+    launches K1 and refuses loudly where h5py is missing."""
+    import os
+
+    import numpy as np
+
+    from exp_tpu_torch import bench_composite as bc
+    from exp_tpu_torch import bench_pyexp as bp
+    from exp_tpu_torch.bench_slab import slab_sample
+    from exp_tpu_torch.nbody.particles import write_ascii_bodies
+
+    wd = work.name
+    ic = comp["ic"]
+    t0 = time.perf_counter()
+    write_ascii_bodies(os.path.join(wd, "disk.bods"),
+                       (ic["xd"], ic["vd"], ic["md"]))
+    write_ascii_bodies(os.path.join(wd, "halo.bods"),
+                       (xe[:CL_ROWS], ve[:CL_ROWS], me[:CL_ROWS]))
+    write_ascii_bodies(os.path.join(wd, "slab.bods"), slab_sample(CL_ROWS))
+    for f in ("a.yml", "b.yml"):
+        with open(os.path.join(wd, f), "w") as fh:
+            fh.write("Global: {dtime: 0.01, nsteps: 5}\n")
+    cfg = os.path.join(wd, "basis.yml")
+    with open(cfg, "w") as fh:
+        fh.write(bp.STANZA % "pallas")
+    prep_s = time.perf_counter() - t0
+    psp = os.path.basename(files[0])
+    # (tool, argv, files it must write, a word its output must hold)
+    runs = [
+        ("orthochk", ["-i", "hernquist", "--lmax", "1", "--nmax", "6",
+                      "--numr", "500"], [], "PASS"),
+        ("slcheck", ["-i", "plummer", "--lmax", "1", "--nmax", "4",
+                     "--numr", "400"], [], "eigenvalues"),
+        ("haloprof", [psp, "--type", "psp", "--comp", "halo", "--nbins",
+                      "20"], [psp + ".haloprof"], "wrote"),
+        ("diskprof", ["disk.bods", "--type", "ascii", "--nbins", "15"],
+         ["disk.bods.diskprof"], "wrote"),
+        ("crossval", ["halo.bods", "--type", "ascii"], [],
+         "overall median force error"),
+        ("kldiv", ["halo.bods", "disk.bods", "--cyl"], [], "KL(p1 || p2)"),
+        ("slshift", ["-o", "slshift"], ["slshift.coefs", "slshift.profile"],
+         "rel err"),
+        ("slabprof", ["slab.bods", "--nbins", "20"], ["slab.bods.slabprof"],
+         "wrote"),
+        ("scalarprod", ["halo.bods", "--type", "ascii", "--config", cfg,
+                        "--center"], [], "geometry=sphere"),
+        ("yamldiff", ["a.yml", "b.yml"], [], "configs identical"),
+    ]
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for tool, argv, _, _ in runs:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "exp_tpu_torch.cli", tool] + argv,
+                cwd=wd, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    bad = []
+    for (tool, argv, want, word), p, (out, err) in zip(runs, procs, outs):
+        missing = [f for f in want if not os.path.exists(os.path.join(wd, f))]
+        ok = p.returncode == 0 and not missing and word in out
+        print(f"CL1 {tool}: exit {p.returncode}, wrote {want}, "
+              f"'{word}' printed {word in out}: "
+              f"{out.strip().splitlines()[-1] if out.strip() else ''}",
+              flush=True)
+        if not ok:
+            bad.append(tool)
+            print(f"CL1 {tool} stderr:\n{err[-3000:]}", flush=True)
+    for f in ("disk.bods.diskprof", psp + ".haloprof", "slshift.profile",
+              "slab.bods.slabprof"):
+        if not np.isfinite(np.loadtxt(os.path.join(wd, f))).all():
+            bad.append(f)
+    if bad:
+        raise AssertionError(f"CL1: {bad} failed")
+
+    # makecoefs, in this process (its K1 launch counted) and as a tool
+    try:
+        import h5py  # noqa: F401
+        has_h5py = True
+    except ImportError:
+        has_h5py = False
+    from exp_tpu_torch.cli.makecoefs import main as makecoefs
+
+    argv = [psp, "--config", cfg, "--type", "psp", "--comp", "halo", "-o",
+            "px.h5"]
+    cwd = os.getcwd()
+    os.chdir(wd)
+    bc.reset_launches()
+    try:
+        try:
+            makecoefs(argv)
+            refusal = None
+        except ImportError as e:
+            refusal = str(e)
+    finally:
+        os.chdir(cwd)
+    mk_launches = bc.kernel_launches()
+    _want_launches("CL1 makecoefs", mk_launches, {"sphere_coef": 1})
+    p = subprocess.run([sys.executable, "-m", "exp_tpu_torch.cli",
+                        "makecoefs"] + argv, cwd=wd, env=env,
+                       capture_output=True, text=True, timeout=600)
+    tail = (p.stderr.strip().splitlines() or [""])[-1]
+    print(f"CL1 makecoefs (backend pallas, {psp}): launches {mk_launches}; "
+          f"h5py here: {has_h5py}; in this process: "
+          f"{'ImportError ' + repr(refusal) if refusal else 'wrote px.h5'}; "
+          f"as a tool: exit {p.returncode}, last line {tail!r}", flush=True)
+    if has_h5py:
+        ok = refusal is None and p.returncode == 0
+    else:
+        # ModuleNotFoundError is the ImportError that names the module
+        ok = (refusal is not None and "h5py" in refusal
+              and p.returncode != 0 and "h5py" in tail
+              and tail.split(":")[0] in ("ImportError",
+                                         "ModuleNotFoundError"))
+    if not ok:
+        raise AssertionError("CL1 makecoefs: the missing h5py was not "
+                             "refused loudly" if not has_h5py else
+                             "CL1 makecoefs failed")
+    print("CL1 not run on the card, their inputs or outputs being HDF5 "
+          "(coefficient files, EOF caches) and the card's machine having no "
+          "h5py; the CPU tests hold them against exp_tpu's: " + json.dumps([
+              "viewcoefs", "h5compare", "h5power", "mssaprof", "sphprof",
+              "diskprof --coef", "eofinfo", "cylcache", "coefstoh5",
+              "mssafilter", "expmssa", "diskeof", "diskfreqs",
+              "crossval --eof"]), flush=True)
+    print("CL1 host clock: " + json.dumps({
+        "prepare_s": prep_s, "tools_wall_s": wall}), flush=True)
+
+
+# ---------------------------------------------------------------------------
 # IC1, IC2, IC3: the remaining ICs (exp_tpu_torch/bench_ics.py)
 # ---------------------------------------------------------------------------
 
@@ -4654,6 +5254,13 @@ def main():
     rows += ic_path(dev, force)
     clock("analysis")
     rows += analysis_path(dev, comp, disk_tables, xe, ve, me)
+    clock("pyEXP")
+    px_rows, px_work, px_files = pyexp_path(dev, comp, disk_tables, xe, ve,
+                                            me)
+    rows += px_rows
+    clock("tools")
+    tools_path(comp, xe, ve, me, px_work, px_files)
+    px_work.cleanup()
     clock("phase stream")
     rows += phasestream_path(dev)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,6 +1,6 @@
 """Spherical Sturm-Liouville basis tables (a jax-free copy of
-exp_tpu/basis/slgrid.py: the host build, the HDF5 cache, and `SLGridSph`
-as an nn.Module of tensors).
+exp_tpu/basis/slgrid.py: the host build, the HDF5 cache, the
+biorthogonality check, and `SLGridSph` as an nn.Module of tensors).
 
 For a background model with potential psi(r) < 0 and density rho(r), with
 rt(r) = 4 pi rho(r), each harmonic l solves
@@ -294,6 +294,20 @@ def _build_sph_sl_tables_nocache(model, lmax, nmax, numr, rmin, rmax,
                        rmap=rmap, rmin=rmin, rmax=rmax, xmin=xmin,
                        xmax=xmax, dxi=float(dxi), xi=xi, r=r, p0=psi,
                        d0=d0, ev=ev, ef=ef, model_key=key)
+
+
+def biorthogonality_matrix(t: SphSLTables, l: int) -> np.ndarray:
+    """int pot_ln dens_ln' r^2 dr for one l — should be -I.
+
+    The analogue of the reference's orthoTest self-check
+    (exputil/orthoTest.cc, libvars orthoTol).
+    """
+    rp = 1.0 / np.asarray(coords.dxi_dr(t.xi, t.cmap, t.rmap))
+    wq = np.full(t.numr, t.dxi)
+    wq[0] = wq[-1] = 0.5 * t.dxi
+    pot = t.pot_table[:, l, :]      # (numr, nmax)
+    dens = t.dens_table[:, l, :]
+    return np.einsum("jn,jm,j->nm", pot, dens, t.r**2 * rp * wq)
 
 
 # ---------------------------------------------------------------------------

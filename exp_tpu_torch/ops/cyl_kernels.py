@@ -229,9 +229,13 @@ def _x_nodes(tx, prm):
 def cyl_coef_plain(x, mass, prm: CylKernelParams, chunk: int = 65536):
     """Plain version of K4: G (xrows, 2(M+1), ncy) f32 raw MTTKRP sums of
     particles x (N, 3), mass (N,), by index_add_ over each particle's
-    nonzero (x, y) nodes."""
+    nonzero (x, y) nodes.  The f32 terms are summed in f64 and G rounded to
+    f32 once: f32 sums of many rows into one node err by ~1e-5 of max|G|
+    on a disk whose rows crowd a few nodes (262,144 Zang rows), as much as
+    the tolerance K4 is held to against this version, while K4's exact
+    fixed-point sums of the same terms err by ~2e-7."""
     T, ncy = prm.trig_rows, prm.ncy
-    G = torch.zeros((prm.xrows * ncy, T), dtype=torch.float32,
+    G = torch.zeros((prm.xrows * ncy, T), dtype=torch.float64,
                     device=x.device)
     for s in range(0, x.shape[0], chunk):
         xs = x[s:s + chunk].to(torch.float32)
@@ -246,8 +250,10 @@ def cyl_coef_plain(x, mass, prm: CylKernelParams, chunk: int = 65536):
         for ja, wa in zip(jx, wx):
             A = wa[:, None] * WT                      # Wx * (w trig), as the TPU
             for jb, wb in zip(jy, wy):
-                G.index_add_(0, ja * ncy + jb, A * wb[:, None])
-    return G.reshape(prm.xrows, ncy, T).permute(0, 2, 1).contiguous()
+                G.index_add_(0, ja * ncy + jb,
+                             (A * wb[:, None]).to(torch.float64))
+    return G.to(torch.float32).reshape(prm.xrows, ncy, T).permute(
+        0, 2, 1).contiguous()
 
 
 def cyl_accel_plain(x, Ct, prm: CylKernelParams, chunk: int = 65536):

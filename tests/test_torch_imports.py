@@ -75,7 +75,23 @@ def test_import_loads_no_jax_or_exp_tpu():
         "exp_tpu_torch.ic.ellip, exp_tpu_torch.ic.diskhalo2d, "
         "exp_tpu_torch.cli, exp_tpu_torch.cli.__main__, "
         "exp_tpu_torch.cli.gensph, exp_tpu_torch.cli.zangics, "
-        "exp_tpu_torch.cli.gendisk2d\n"
+        "exp_tpu_torch.cli.gendisk2d, exp_tpu_torch.pyexp, "
+        "exp_tpu_torch.pyexp.read, exp_tpu_torch.pyexp.util, "
+        "exp_tpu_torch.pyexp.coefs, exp_tpu_torch.pyexp.basis, "
+        "exp_tpu_torch.pyexp.field, exp_tpu_torch.pyexp.mssa, "
+        "exp_tpu_torch.pyexp.edmd, exp_tpu_torch.cli.analysis_tools, "
+        "exp_tpu_torch.cli.haloprof, exp_tpu_torch.cli.diskprof, "
+        "exp_tpu_torch.cli.sphprof, exp_tpu_torch.cli.slabprof, "
+        "exp_tpu_torch.cli.viewcoefs, exp_tpu_torch.cli.h5compare, "
+        "exp_tpu_torch.cli.h5power, exp_tpu_torch.cli.mssaprof, "
+        "exp_tpu_torch.cli.slcheck, exp_tpu_torch.cli.orthochk, "
+        "exp_tpu_torch.cli.scalarprod, exp_tpu_torch.cli.cylcache, "
+        "exp_tpu_torch.cli.eofinfo, exp_tpu_torch.cli.makecoefs, "
+        "exp_tpu_torch.cli.coefstoh5, exp_tpu_torch.cli.crossval, "
+        "exp_tpu_torch.cli.kldiv, exp_tpu_torch.cli.diskeof, "
+        "exp_tpu_torch.cli.diskfreqs, exp_tpu_torch.cli.slshift, "
+        "exp_tpu_torch.cli.expmssa, exp_tpu_torch.cli.mssafilter, "
+        "exp_tpu_torch.cli.yamldiff\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exp_tpu' or m.startswith('exp_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -283,3 +299,26 @@ def test_multi_rank_entry_points_without_device_raise_when_no_cuda(
     with pytest.raises(RuntimeError, match="no CUDA device"):
         world_devices(2)
     assert world_devices(2, "cpu") == (["cpu", "cpu"], "gloo")
+
+
+def test_pyexp_and_tools_without_device_refuse_when_no_cuda(
+        monkeypatch, capsys, tmp_path):
+    """pyEXP's Basis.factory, FieldBasis and VelocityBasis raise with no
+    device named and no card; a ported tool without --cpu refuses with a
+    usage error (exit 2) before it writes."""
+    import exp_tpu_torch.pyexp as pyEXP
+    from exp_tpu_torch.cli.slshift import main as slshift
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conf = "{id: sphereSL, parameters: {modelname: hernquist, Lmax: 0, " \
+        "nmax: 2, numr: 100}}"
+    for call in (lambda: pyEXP.basis.Basis.factory(conf),
+                 lambda: pyEXP.basis.FieldBasis("{parameters: {nmax: 2}}"),
+                 lambda: pyEXP.basis.VelocityBasis("{parameters: {nmax: 2}}")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit) as e:
+        slshift(["-o", "sh"])
+    assert e.value.code == 2 and "no CUDA device" in capsys.readouterr().err
+    assert os.listdir(tmp_path) == []
