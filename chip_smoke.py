@@ -57,7 +57,11 @@ from run configs, with and without its extras:
     OrbTrace, OutDiag, OutFrac, OutCalbr and OutVel, through K1 and K2;
   the remaining ICs (exp_tpu_torch/bench_ics.py): the QP halo of gensph
     --qp, the Zang disk of zangics under its flatdisk basis and the 2D disk
-    + halo of gendisk2d --nhalo, through K1, K2, K4 and K5.
+    + halo of gendisk2d --nhalo, through K1, K2, K4 and K5;
+  the last slice (ROADMAP item 14b.2): the native ascii reader, the
+    PhaseSpace and IC tools as child processes, and the port's sphere
+    step against the f64 comparator (exp_tpu_torch/validate.py,
+    bench_validate.py), through K1 and K2 in their 'hat' branches.
 
 Phases:
 
@@ -239,6 +243,9 @@ Phases:
   WX2. OutVel's gather over two ranks on the card (each rank's
      projections summed) against one rank's, at MD2(a)'s bound (the card
      has no h5py: OutVel's and OutHDF5's files are held by the CPU tests);
+  VR0. exp_tpu_torch.native builds (g++) and loads, and R3's 2^20-row
+     ascii body file reads through it bit for bit as np.loadtxt reads it,
+     both read times on the host clock;
   IC1. (after AN3) the QP halo of gensph --qp at 2^20 (its DF on the
      card), its 2T/VC in the model's field (tests/test_qpdistf.py:66), 50
      KDK steps under phase 3's force with its launches and drift gated, K1
@@ -268,16 +275,35 @@ Phases:
      and a midplane slice (one K5, then one for each of 17 scanned
      heights), each against the
      plain version, and the cylinder's geometry and labels;
-  CL1. the ported tools as `python -m exp_tpu_torch.cli <tool>` child
-     processes on the card, started together: orthochk, slcheck, haloprof
-     (a PX1 PSP file), diskprof (CM1's disk as a body file), slabprof,
-     scalarprod (pallas), crossval and kldiv (65,536 rows), slshift,
-     yamldiff, each exiting 0 with exp_tpu's output files; makecoefs
-     (pallas) launching K1 and refusing loudly where h5py is missing;
+  CL1. makecoefs (pallas) launching K1 and refusing loudly where h5py is
+     missing; the ported tools as `python -m exp_tpu_torch.cli <tool>`
+     child processes on the card: orthochk, slcheck, haloprof (a PX1 PSP
+     file), diskprof (CM1's disk as a body file), slabprof, scalarprod
+     (pallas), crossval and kldiv (65,536 rows), slshift, yamldiff, each
+     exiting 0 with exp_tpu's output files;
+  CL2. the PhaseSpace and IC tools of item 14b.2 as such children on PX1's
+     2^20-row PSP files and CL1's body files: 34 runs of 32 tools, each
+     exiting 0 with exp_tpu's file names and its word (forcetest on the
+     2^20 halo at 500 points, its f64 expansion on the card; gendisk
+     --nhalo at 4,096 + 8,192); psp2hdf5, hdf52accel and snapconvert's
+     gadgethdf5 output refusing loudly without h5py.  CL1's and CL2's
+     children run beside EN1 and EN2, one BLAS thread each and at most a
+     core fewer than the host's at once, and are checked after them;
   PS1. P1 against its plain version on the probe's sample with edge rows,
      stream1 and stream2, with the stated tolerances;
   PS2. the probe's run: producer + P1, P1 alone, the producer, the
      yardstick and K9 at the same particles by CUDA events, each bound;
+  VR1. (after PS2) (a) the f64 gather SphereSL step (deriv 'lerp') on the
+     card against ReferenceSphereStep on the host at
+     tests/test_reference_comparator.py's problem and gates (1e-12 a step,
+     rtol 1e-10 / atol 1e-12, drift 1e-6 at 25 steps, 1e-9 over 300), no
+     launch; (b) the same problem through K1 'hat' and K2 'hat'
+     ('highest', the hats on the table's 1,000 nodes), 26 launches each
+     over 25 steps, every step's coefficients against the comparator's;
+     (c) phase 3's tables under (b)'s settings (2,000 nodes), one K1 of
+     phase 5's 2^20 sample and one K2 against the comparator's, chunked on
+     host threads; (b) and (c) within three times their plain versions'
+     figures on a CPU; each kernel against its plain version and timed;
   EN1. exp_tpu_torch.bench_energy direct at the script's settings (500 big
      steps of the composite, 6 snapshots, a 65,536 subsample's true energy
      by a direct pair sum over every particle, and at each of the last 5
@@ -4711,14 +4737,13 @@ def pyexp_path(dev, comp, disk_tables, xe, ve, me):
 
 
 def tools_path(comp, xe, ve, me, work, files):
-    """Phase CL1 on the card: the ported analysis, MSSA and basis tools as
-    `python -m exp_tpu_torch.cli <tool>` in child processes on the card
-    (no --cpu), all started together, each to exit 0 and write exp_tpu's
-    file names; then makecoefs with a `backend: pallas` stanza, which
-    launches K1 and refuses loudly where h5py is missing."""
+    """Phase CL1 on the card: the inputs of the ported analysis, MSSA and
+    basis tools, then makecoefs with a `backend: pallas` stanza in this
+    process, which launches K1 and refuses loudly where h5py is missing.
+    Returns CL1's child runs, `python -m exp_tpu_torch.cli <tool>` on the
+    card (no --cpu), each to exit 0 and write exp_tpu's file names
+    (`tool_pool` runs them beside the energy path with CL2's)."""
     import os
-
-    import numpy as np
 
     from exp_tpu_torch import bench_composite as bc
     from exp_tpu_torch import bench_pyexp as bp
@@ -4739,71 +4764,38 @@ def tools_path(comp, xe, ve, me, work, files):
     cfg = os.path.join(wd, "basis.yml")
     with open(cfg, "w") as fh:
         fh.write(bp.STANZA % "pallas")
-    prep_s = time.perf_counter() - t0
+    print("CL1 host clock: " + json.dumps({
+        "prepare_s": time.perf_counter() - t0}), flush=True)
     psp = os.path.basename(files[0])
-    # (tool, argv, files it must write, a word its output must hold)
+    # (phase, tool, argv, files it must write, a word its output must
+    # hold, needs h5py)
     runs = [
-        ("orthochk", ["-i", "hernquist", "--lmax", "1", "--nmax", "6",
-                      "--numr", "500"], [], "PASS"),
-        ("slcheck", ["-i", "plummer", "--lmax", "1", "--nmax", "4",
-                     "--numr", "400"], [], "eigenvalues"),
-        ("haloprof", [psp, "--type", "psp", "--comp", "halo", "--nbins",
-                      "20"], [psp + ".haloprof"], "wrote"),
-        ("diskprof", ["disk.bods", "--type", "ascii", "--nbins", "15"],
-         ["disk.bods.diskprof"], "wrote"),
-        ("crossval", ["halo.bods", "--type", "ascii"], [],
-         "overall median force error"),
-        ("kldiv", ["halo.bods", "disk.bods", "--cyl"], [], "KL(p1 || p2)"),
-        ("slshift", ["-o", "slshift"], ["slshift.coefs", "slshift.profile"],
-         "rel err"),
-        ("slabprof", ["slab.bods", "--nbins", "20"], ["slab.bods.slabprof"],
-         "wrote"),
-        ("scalarprod", ["halo.bods", "--type", "ascii", "--config", cfg,
-                        "--center"], [], "geometry=sphere"),
-        ("yamldiff", ["a.yml", "b.yml"], [], "configs identical"),
+        ("CL1", "crossval", ["halo.bods", "--type", "ascii"], [],
+         "overall median force error", False),
+        ("CL1", "orthochk", ["-i", "hernquist", "--lmax", "1", "--nmax", "6",
+                             "--numr", "500"], [], "PASS", False),
+        ("CL1", "slcheck", ["-i", "plummer", "--lmax", "1", "--nmax", "4",
+                            "--numr", "400"], [], "eigenvalues", False),
+        ("CL1", "haloprof", [psp, "--type", "psp", "--comp", "halo",
+                             "--nbins", "20"], [psp + ".haloprof"], "wrote",
+         False),
+        ("CL1", "diskprof", ["disk.bods", "--type", "ascii", "--nbins", "15"],
+         ["disk.bods.diskprof"], "wrote", False),
+        ("CL1", "kldiv", ["halo.bods", "disk.bods", "--cyl"], [],
+         "KL(p1 || p2)", False),
+        ("CL1", "slshift", ["-o", "slshift"],
+         ["slshift.coefs", "slshift.profile"], "rel err", False),
+        ("CL1", "slabprof", ["slab.bods", "--nbins", "20"],
+         ["slab.bods.slabprof"], "wrote", False),
+        ("CL1", "scalarprod", ["halo.bods", "--type", "ascii", "--config",
+                               cfg, "--center"], [], "geometry=sphere",
+         False),
+        ("CL1", "yamldiff", ["a.yml", "b.yml"], [], "configs identical",
+         False),
     ]
-    env = dict(os.environ)
-    root = os.path.dirname(os.path.abspath(__file__))
-    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-    t0 = time.perf_counter()
-    procs = []
-    try:
-        for tool, argv, _, _ in runs:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "exp_tpu_torch.cli", tool] + argv,
-                cwd=wd, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True))
-        outs = [p.communicate(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    wall = time.perf_counter() - t0
-    bad = []
-    for (tool, argv, want, word), p, (out, err) in zip(runs, procs, outs):
-        missing = [f for f in want if not os.path.exists(os.path.join(wd, f))]
-        ok = p.returncode == 0 and not missing and word in out
-        print(f"CL1 {tool}: exit {p.returncode}, wrote {want}, "
-              f"'{word}' printed {word in out}: "
-              f"{out.strip().splitlines()[-1] if out.strip() else ''}",
-              flush=True)
-        if not ok:
-            bad.append(tool)
-            print(f"CL1 {tool} stderr:\n{err[-3000:]}", flush=True)
-    for f in ("disk.bods.diskprof", psp + ".haloprof", "slshift.profile",
-              "slab.bods.slabprof"):
-        if not np.isfinite(np.loadtxt(os.path.join(wd, f))).all():
-            bad.append(f)
-    if bad:
-        raise AssertionError(f"CL1: {bad} failed")
-
-    # makecoefs, in this process (its K1 launch counted) and as a tool
-    try:
-        import h5py  # noqa: F401
-        has_h5py = True
-    except ImportError:
-        has_h5py = False
+    # makecoefs, in this process (its K1 launch counted), and as a tool
+    # among the children
+    has_h5py = _has_h5py()
     from exp_tpu_torch.cli.makecoefs import main as makecoefs
 
     argv = [psp, "--config", cfg, "--type", "psp", "--comp", "halo", "-o",
@@ -4821,26 +4813,16 @@ def tools_path(comp, xe, ve, me, work, files):
         os.chdir(cwd)
     mk_launches = bc.kernel_launches()
     _want_launches("CL1 makecoefs", mk_launches, {"sphere_coef": 1})
-    p = subprocess.run([sys.executable, "-m", "exp_tpu_torch.cli",
-                        "makecoefs"] + argv, cwd=wd, env=env,
-                       capture_output=True, text=True, timeout=600)
-    tail = (p.stderr.strip().splitlines() or [""])[-1]
     print(f"CL1 makecoefs (backend pallas, {psp}): launches {mk_launches}; "
           f"h5py here: {has_h5py}; in this process: "
-          f"{'ImportError ' + repr(refusal) if refusal else 'wrote px.h5'}; "
-          f"as a tool: exit {p.returncode}, last line {tail!r}", flush=True)
-    if has_h5py:
-        ok = refusal is None and p.returncode == 0
-    else:
-        # ModuleNotFoundError is the ImportError that names the module
-        ok = (refusal is not None and "h5py" in refusal
-              and p.returncode != 0 and "h5py" in tail
-              and tail.split(":")[0] in ("ImportError",
-                                         "ModuleNotFoundError"))
-    if not ok:
+          f"{'ImportError ' + repr(refusal) if refusal else 'wrote px.h5'}",
+          flush=True)
+    # ModuleNotFoundError is the ImportError that names the module
+    if (refusal is None) != has_h5py or (refusal and "h5py" not in refusal):
         raise AssertionError("CL1 makecoefs: the missing h5py was not "
                              "refused loudly" if not has_h5py else
                              "CL1 makecoefs failed")
+    runs.append(("CL1", "makecoefs", argv, ["px.h5"], "", True))
     print("CL1 not run on the card, their inputs or outputs being HDF5 "
           "(coefficient files, EOF caches) and the card's machine having no "
           "h5py; the CPU tests hold them against exp_tpu's: " + json.dumps([
@@ -4848,8 +4830,7 @@ def tools_path(comp, xe, ve, me, work, files):
               "diskprof --coef", "eofinfo", "cylcache", "coefstoh5",
               "mssafilter", "expmssa", "diskeof", "diskfreqs",
               "crossval --eof"]), flush=True)
-    print("CL1 host clock: " + json.dumps({
-        "prepare_s": prep_s, "tools_wall_s": wall}), flush=True)
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -5082,6 +5063,462 @@ def world_extras_path(dev, sphere_tables, wd, xe, ve, me):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# VR0: the native ascii reader (exp_tpu_torch/native)
+# ---------------------------------------------------------------------------
+
+def native_path(wd):
+    """Phase VR0 on the card's host: exp_tpu_torch.native builds and
+    loads (g++, nvcc's host compiler, is on the card's machine: a missing
+    library fails here rather than reading through NumPy unseen), then
+    R3's 2^20-row ascii body file in `wd` is read through
+    read_ascii_arrays (the library) and through np.loadtxt, bit for bit
+    equal, both times on the host clock."""
+    import os
+
+    import numpy as np
+
+    from exp_tpu_torch import native
+    from exp_tpu_torch.nbody.particles import read_ascii_arrays
+
+    if os.environ.get("EXP_TPU_NO_NATIVE"):
+        raise AssertionError("VR0: EXP_TPU_NO_NATIVE is set")
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    t_build = time.perf_counter() - t0
+    if lib is None:
+        raise AssertionError("VR0: exp_tpu_torch.native did not build or "
+                             "load (g++ missing?)")
+    path = os.path.join(wd, "sphere.bods")
+    t0 = time.perf_counter()
+    x, v, m = read_ascii_arrays(path)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(path) as f:
+        n = int(f.readline().split()[0])
+        data = np.loadtxt(f, max_rows=n, usecols=range(7), ndmin=2)
+    t_numpy = time.perf_counter() - t0
+    same = all(a.tobytes() == np.ascontiguousarray(b).tobytes() for a, b in (
+        (x, data[:, 1:4]), (v, data[:, 4:7]), (m, data[:, 0])))
+    rep = {"library": native.lib_path().name, "build_or_load_s": t_build,
+           "rows": int(len(m)), "native_read_s": t_native,
+           "loadtxt_read_s": t_numpy, "bit_equal": same}
+    print("VR0 native reader: " + json.dumps(rep), flush=True)
+    if not same or len(m) != n:
+        raise AssertionError("VR0: the native read differs from loadtxt's")
+
+
+# ---------------------------------------------------------------------------
+# CL2: the PhaseSpace and IC tools as child processes on the card
+# ---------------------------------------------------------------------------
+
+def psptools_path(work, files):
+    """Phase CL2's inputs: exp_tpu's PhaseSpace and IC tools ported in this
+    slice, on PX1's 2^20-row PSP files and CL1's body files in `work`.
+    Returns its child runs, `python -m exp_tpu_torch.cli <tool>` on the
+    card (no --cpu), the longest first: each exits 0, writes exp_tpu's
+    file names and prints its tool's word; forcetest on the 2^20 halo at
+    --nsample 500 (its f64 expansion on the card); gendisk --nhalo at a
+    small -N (its expansions on the card).  Where h5py is missing,
+    psp2hdf5, hdf52accel and snapconvert's gadgethdf5 output must fail
+    loudly, naming h5py."""
+    import os
+
+    import numpy as np
+
+    from exp_tpu_torch.io.psp import (PSPComponent, PSPDump, read_psp,
+                                      write_psp, write_spl)
+    from exp_tpu_torch.io.readers import Snapshot, write_tipsy
+    from exp_tpu_torch.nbody.particles import read_ascii_arrays
+
+    wd = work.name
+    px = [os.path.basename(f) for f in files]
+    t0 = time.perf_counter()
+    # inputs the tools cannot share with PX1 and CL1: an SPL set of PX1's
+    # first dump, CL1's halo rows as a PSP file and as a tipsy file
+    d0 = read_psp(files[0])
+    write_spl(os.path.join(wd, "SPL.px.00000"), d0, nparts=2)
+    xh, vh, mh = read_ascii_arrays(os.path.join(wd, "halo.bods"))
+    npx, ncl = len(d0.components[0].mass), len(mh)
+    write_psp(os.path.join(wd, "OUT.cl.00000"), PSPDump(time=0.0, components=[
+        PSPComponent(name="halo", info="name: halo\n", mass=mh, x=xh, v=vh,
+                     pot=np.zeros(len(mh)))]))
+    snap = Snapshot(0.25)
+    snap.add("dark", xh, vh, mh, pot=np.zeros(len(mh)))
+    write_tipsy(os.path.join(wd, "halo.tipsy"), snap)
+    if _has_h5py():
+        import h5py
+
+        with h5py.File(os.path.join(wd, "none.hdf5"), "w") as f:
+            f.create_group("Header").attrs["MassTable"] = np.zeros(6)
+            g = f.create_group("PartType2")
+            g.create_dataset("Coordinates", data=xh[:64])
+            g.create_dataset("Acceleration", data=vh[:64])
+    print("CL2 host clock: " + json.dumps({
+        "prepare_s": time.perf_counter() - t0}), flush=True)
+    # (tool, argv, files it must write, a word its output must hold,
+    # needs h5py); the longest first
+    runs = [
+        ("gendisk", ["-N", "4096", "--halo", "hernquist", "--nhalo", "8192",
+                     "--mmax", "2", "--nmaxd", "6", "--lmax", "2",
+                     "--nmaxh", "6", "-o", "gd.bods", "--ohalo", "gh.bods"],
+         ["gd.bods", "gh.bods"], "-2T/VC=", False),
+        ("forcetest", [px[0], "--comp", "halo", "--nsample", "500"], [],
+         "p50 relative force error", False),
+        ("psp2ascii", [px[0], "-o", "px0"], ["px0.halo.ascii"], "wrote",
+         False),
+        ("psporbv", ["-f", px[1], "-c", "halo", "-m", "hernquist", "-R",
+                     "2.0", "-k", "0.9", "-s", "px", "--nE", "24", "--nK",
+                     "12", "-N", "8"], ["orbv.px", "orbv.px.histo"],
+         "orbits", False),
+        ("pspmono", [px[2], "--comp", "halo", "-o", "mono.model"],
+         ["mono.model"], "pspmono: wrote", False),
+        ("psp2bess", ["-T", "px", "-c", "halo", "-e", "0", "-R", "2.0"],
+         ["px.bess_coefs"], "1 snapshot block(s)", False),
+        ("psp2lagu", ["-T", "px", "-c", "halo", "-e", "0", "-a", "0.5"],
+         ["px.lagu_coefs"], "1 snapshot block(s)", False),
+        ("psp2rings", ["-T", "px", "-c", "halo", "-e", "0", "-R", "2.0"],
+         ["px.ring_coefs"], "1 snapshot block(s)", False),
+        ("psp2vtu", ["-T", "cl", "-c", "halo", "--dens", "8",
+                     "OUT.cl.00000"], ["cl_00000.vtu"], f"{ncl} points",
+         False),
+        ("pspinfo", [px[0]], [], f"ntot={npx}", False),
+        ("pspstat", [px[0]], [], f"N={npx}", False),
+        ("ascii2psp", ["halo.bods", "-o", "halo.psp", "--name", "halo"],
+         ["halo.psp"], "wrote", False),
+        ("snap2ascii", ["OUT.cl.00000", "--comp", "halo", "-o", "cl.ascii"],
+         ["cl.ascii"], f"{ncl} bodies", False),
+        ("diffpsp", [px[0], px[0]], [], "max=0", False),
+        ("pspinterp", [px[0], px[1], "-t", "0.05", "-o", "interp.psp"],
+         ["interp.psp"], "w=0.5000", False),
+        ("psp2hdf5", [px[0]], [px[0] + ".h5"], "wrote", True),
+        ("shrinkics", ["halo.bods", "-f", "4"], ["halo.bods.shrink"],
+         "mass conserved", False),
+        ("psphisto", [px[4], "--field", "r", "--log"],
+         [px[4] + ".histo.r"], "wrote", False),
+        ("pspbox", [px[5], "--radius", "1.0"], [px[5] + ".box"],
+         "bodies kept", False),
+        ("snapconvert", [px[6], "--to", "tipsy", "-o", "px6.tipsy"],
+         ["px6.tipsy"], "wrote", False),
+        ("snapconvert", [px[6], "--to", "gadgethdf5", "-o", "px6.hdf5"],
+         ["px6.hdf5"], "wrote", True),
+        ("snap2vtk", [px[7], "--stride", "16"], [px[7] + ".vtk"], "points",
+         False),
+        ("psp2range", [px[0]], [], f"{npx} bodies", False),
+        ("pspreal", [px[1], "-o", "px1.real4"], ["px1.real4"],
+         "pspreal: wrote", False),
+        ("spl2psp", ["-r", "px", "-p", "SPLOUT"], ["SPLOUT.px.00000"],
+         "wrote 1 PSP file", False),
+        ("tipstd2psp", ["halo.tipsy", "tip.psp"], ["tip.psp"], "wrote",
+         False),
+        ("modelfit", ["halo.bods", "--family", "hernquist", "-o",
+                      "fit.model"], ["fit.model"], "hernquist:", False),
+        ("addring", ["halo.bods", "-o", "ring.bods", "--nring", "1000"],
+         ["ring.bods"], "1000 ring particles", False),
+        ("addsphmod", ["hernquist", "plummer", "-o", "combo.model"],
+         ["combo.model"], "wrote", False),
+        ("hdf52accel", ["--hdf5", "none.hdf5"], ["force.data"],
+         "hdf52accel: wrote", True),
+        ("cubeics", ["-N", "65536"], ["cube.bods"], "cubeics: wrote", False),
+        ("genslab", ["-N", "65536", "-o", "genslab.bods"], ["genslab.bods"],
+         "genslab: wrote", False),
+        ("gendisk", ["-N", "65536", "-o", "disk65.bods"], ["disk65.bods"],
+         "gendisk: wrote", False),
+        ("bonnerebert", ["-N", "1000", "-o", "be.bods"], ["be.bods"], "",
+         False),
+    ]
+    return [("CL2",) + r for r in runs]
+
+
+def _has_h5py():
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _tool_env():
+    """The children's environment: the repository on PYTHONPATH, and one
+    thread each for BLAS and torch, so that the children share the cores
+    with the process that drives the card."""
+    import os
+
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    for k in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+        env[k] = "1"
+    return env
+
+
+def tool_pool(wd, runs):
+    """Start `runs` (phase, tool, argv, files, word, needs h5py) as
+    `python -m exp_tpu_torch.cli <tool> argv` children in `wd` on a host
+    thread, at most os.cpu_count() - 1 at once (a core is left to the
+    process that drives the card), in the order given.  Returns the pool
+    for `tool_results`."""
+    import os
+    import threading
+
+    width = max(1, (os.cpu_count() or 1) - 1)
+    logs = os.path.join(wd, "tool_logs")
+    os.mkdir(logs)
+    pool = {"runs": runs, "wd": wd, "width": width, "done": {},
+            "error": None, "t0": time.perf_counter()}
+    env = _tool_env()
+
+    def drive():
+        todo, live = list(enumerate(runs)), {}
+        try:
+            while todo or live:
+                while todo and len(live) < width:
+                    i, (_, tool, argv, _, _, _) = todo.pop(0)
+                    fo = open(os.path.join(logs, f"{i}.out"), "w+")
+                    fe = open(os.path.join(logs, f"{i}.err"), "w+")
+                    live[i] = (subprocess.Popen(
+                        [sys.executable, "-m", "exp_tpu_torch.cli", tool]
+                        + argv, cwd=wd, env=env, stdout=fo, stderr=fe,
+                        text=True), fo, fe, time.perf_counter())
+                for i in [i for i, v in live.items()
+                          if v[0].poll() is not None]:
+                    p, fo, fe, ts = live.pop(i)
+                    fo.seek(0)
+                    fe.seek(0)
+                    pool["done"][i] = (p.returncode, fo.read(), fe.read(),
+                                       time.perf_counter() - ts)
+                    fo.close()
+                    fe.close()
+                if time.perf_counter() - pool["t0"] > 900:
+                    raise TimeoutError(f"{sorted(live)} still running after "
+                                       "900 s")
+                time.sleep(0.05)
+        except Exception as e:      # reported by tool_results
+            pool["error"] = repr(e)
+        finally:
+            for p, fo, fe, _ in live.values():
+                p.kill()
+                p.wait()
+                fo.close()
+                fe.close()
+            pool["wall_s"] = time.perf_counter() - pool["t0"]
+
+    pool["thread"] = threading.Thread(target=drive, daemon=True)
+    pool["thread"].start()
+    return pool
+
+
+def tool_results(pool):
+    """Wait for the pool and check each run: exit 0, its files written and
+    its word printed, or, for a run that needs h5py where it is missing, a
+    loud refusal naming h5py.  Then the finite checks of the tables CL1
+    and CL2 write, and each phase's host clock."""
+    import os
+
+    import numpy as np
+
+    from exp_tpu_torch.basis.model import SphericalModelTable
+
+    pool["thread"].join(timeout=960)
+    if pool["thread"].is_alive() or pool["error"]:
+        raise AssertionError(f"the tools' pool: {pool['error'] or 'hung'}")
+    wd, done, has_h5py = pool["wd"], pool["done"], _has_h5py()
+    bad, refused = [], []
+    for i, (phase, tool, argv, want, word, hdf5) in enumerate(pool["runs"]):
+        rc, out, err, sec = done[i]
+        last = (out.strip().splitlines() or [""])[-1]
+        tail = (err.strip().splitlines() or [""])[-1]
+        if hdf5 and not has_h5py:
+            ok = (rc != 0 and "h5py" in tail and tail.split(":")[0] in
+                  ("ImportError", "ModuleNotFoundError"))
+            if phase == "CL2":
+                refused.append(tool if tool != "snapconvert"
+                               else "snapconvert --to gadgethdf5")
+            print(f"{phase} {tool} {' '.join(argv[-2:])}: exit {rc}, "
+                  f"{sec:.1f} s, refused: {tail!r}", flush=True)
+        else:
+            missing = [f for f in want
+                       if not os.path.exists(os.path.join(wd, f))]
+            ok = rc == 0 and not missing and word in out
+            print(f"{phase} {tool}: exit {rc}, {sec:.1f} s, wrote {want}, "
+                  f"'{word}' printed {word in out}: {last}", flush=True)
+        if not ok:
+            bad.append(f"{phase} {tool}")
+            print(f"{phase} {tool} stderr:\n{err[-3000:]}", flush=True)
+    psp = next(r[2][0] for r in pool["runs"] if r[1] == "haloprof")
+    for f in ("disk.bods.diskprof", psp + ".haloprof", "slshift.profile",
+              "slab.bods.slabprof", "orbv.px"):
+        if not np.isfinite(np.loadtxt(os.path.join(wd, f))).all():
+            bad.append(f)
+    for f in ("mono.model", "fit.model", "combo.model"):
+        mt = SphericalModelTable.from_file(os.path.join(wd, f))
+        if not all(np.isfinite(a).all() for a in (mt.r, mt.rho, mt.mass,
+                                                  mt.pot)):
+            bad.append(f)
+    if bad:
+        raise AssertionError(f"the tools: {bad} failed")
+    print("CL2 not run on the card, their inputs or outputs being HDF5 and "
+          "the card's machine having no h5py (refused loudly above; the CPU "
+          "tests hold them against exp_tpu's): " + json.dumps(refused),
+          flush=True)
+    for phase in ("CL1", "CL2"):
+        idx = [i for i, r in enumerate(pool["runs"]) if r[0] == phase]
+        print(f"{phase} host clock: " + json.dumps({
+            "children": len(idx), "child_s": {
+                f"{pool['runs'][i][1]} {i}": done[i][3] for i in idx}}),
+              flush=True)
+    print("tools' pool host clock: " + json.dumps({
+        "wall_s": pool["wall_s"], "children": len(done),
+        "at_once": pool["width"]}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# VR1: the f64 comparator on the card (exp_tpu_torch/bench_validate.py)
+# ---------------------------------------------------------------------------
+
+# VR1 (a): tests/test_reference_comparator.py's gates, unchanged
+VR1A_STEP_COEF = 1e-12
+VR1A_STEP_ATOL = 1e-12      # beyond rtol 1e-10, accelerations and potential
+VR1A_DRIFT_25 = 1e-6
+VR1A_DRIFT_300 = 1e-9
+# VR1 (b) and (c): f32 kernels against the f64 comparator; each bound is
+# three times the same figure from the kernels' plain versions on a CPU
+# (the rule of MF1's and IC2's bounds).  (b): python -m
+# exp_tpu_torch.bench_validate b --device cpu --threads 1, the largest
+# max|c - c_ref| / max|c_ref| over the 25 steps (4.51e-7; at step 25
+# 1.35e-7; the same at 3, 4 and 8 threads, 3.38e-7 at 2: f32 sums in
+# another order)
+VR1B_CPU = {"drift_max": 4.5102455053879105e-07}
+# (c): python -m exp_tpu_torch.bench_validate c --device cpu --threads 4
+# (2^20 rows): max|d| / max|ref| of the coefficients, the accelerations
+# (the f32 cell difference of nearly equal nodes dominates) and the
+# potential
+VR1C_CPU = {"coef_rel": 7.173741442808491e-08,
+            "acc_rel": 0.00031785449439627973,
+            "pot_rel": 4.7583621641428725e-07}
+
+
+def validate_path(dev, tables, xe, me):
+    """Phase VR1 on the card (exp_tpu_torch/bench_validate.py): (a) the
+    port's f64 gather step (deriv 'lerp') on the card against
+    ReferenceSphereStep on the host, at the JAX test's gates; (b) the same
+    problem through K1 'hat' and K2 'hat' (pallas_precision 'highest', the
+    hats on the table's own nodes), 26 launches each over 25 steps,
+    against the comparator's trajectory; (c) the sphere cell's `tables`
+    under (b)'s settings, one K1 projection of phase 5's (xe, me) and one
+    K2 force evaluation against the comparator's.  Returns the kernels-line
+    rows of K1 and K2 in (b) and (c)."""
+    import numpy as np
+    import torch
+
+    from exp_tpu_torch import bench_validate as bv
+    from exp_tpu_torch.ops import sphere_kernels as sk
+
+    prob = bv.problem()
+    t0 = time.perf_counter()
+    ref_traj = bv.reference_run(*prob, bv.A_STEPS)
+    host = {"comparator_300_steps_s": time.perf_counter() - t0}
+
+    # (a)
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    ra = bv.case_a(dev, prob=prob, ref_traj=ref_traj)
+    host["a_s"] = time.perf_counter() - t0
+    _want_launches("VR1 (a)", dict(sk.launch_counts), {})
+    print("VR1 (a) f64 gather step on the card: " + json.dumps(ra),
+          flush=True)
+    if not (ra["step_coef_rel"] < VR1A_STEP_COEF
+            and ra["step_acc_excess"] <= VR1A_STEP_ATOL
+            and ra["step_pot_excess"] <= VR1A_STEP_ATOL
+            and ra["drift_25"] < VR1A_DRIFT_25
+            and ra["drift_max"] < VR1A_DRIFT_300):
+        raise AssertionError(f"VR1 (a): {ra}")
+
+    # (b)
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    rb, fb = bv.case_b(dev, prob=prob, ref_traj=ref_traj)
+    host["b_s"] = time.perf_counter() - t0
+    lb = dict(sk.launch_counts)
+    rb["bound"] = 3 * VR1B_CPU["drift_max"]
+    rb["launches"] = lb
+    print("VR1 (b) K1 'hat' + K2 'hat' steps: " + json.dumps(rb),
+          flush=True)
+    _want_launches("VR1 (b)", lb, {"sphere_coef": bv.B_STEPS + 1,
+                                   "sphere_accel": bv.B_STEPS + 1})
+    if not rb["drift_max"] <= rb["bound"]:
+        raise AssertionError(f"VR1 (b): drift {rb['drift_max']} exceeds "
+                             f"{rb['bound']}")
+
+    # (c)
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, (fc, x32, m32) = bv.case_c(dev, tables=tables, x=xe, mass=me)
+    host["c_s"] = time.perf_counter() - t0
+    lc = dict(sk.launch_counts)
+    rc["bound"] = {k: 3 * v for k, v in VR1C_CPU.items()}
+    rc["launches"] = lc
+    print("VR1 (c) one K1 + one K2 at the sphere cell's width: "
+          + json.dumps(rc), flush=True)
+    _want_launches("VR1 (c)", lc, {"sphere_coef": 1, "sphere_accel": 1})
+    for k, b in rc["bound"].items():
+        if not rc[k] <= b:
+            raise AssertionError(f"VR1 (c): {k} {rc[k]} exceeds {b}")
+
+    # each kernel against its plain version on (b)'s and (c)'s inputs
+    tb, xb, _, mb = prob
+    xb = torch.as_tensor(xb, dtype=torch.float32, device=dev)
+    mb = torch.as_tensor(mb, dtype=torch.float32, device=dev)
+    rows = []
+    for tag, f, x, m, launches in (("(b)", fb, xb, mb, lb),
+                                   ("(c)", fc, x32, m32, lc)):
+        prm = f._kernel_params()
+        tab = f._radial_table()
+        c = sk.sphere_coef(x, m, tab, f.Mp, prm)
+        c0 = sk.sphere_coef_plain(x, m, tab, f.Mp, prm)
+        twT = f.accel_table(c0)
+        a, p = sk.sphere_accel(x, twT, f.fac32, prm)
+        a0, p0 = sk.sphere_accel_plain(x, twT, f.fac32, prm)
+        torch.cuda.synchronize()
+        k1_rel = float((c - c0).abs().max() / c0.abs().max())
+        da, dp = (a - a0).abs(), (p - p0).abs()
+        ok = (k1_rel <= COEF_RTOL
+              and bool((da <= ACC_ATOL + ACC_RTOL * a0.abs()).all())
+              and bool((dp <= POT_ATOL + POT_RTOL * p0.abs()).all()))
+        print(f"VR1 {tag} against the plain versions: K1 max|dc|/max|c| "
+              f"{k1_rel:.3e}, K2 max|da| {float(da.max()):.3e} max|dpot| "
+              f"{float(dp.max()):.3e} (phase 4's tolerances)", flush=True)
+        if not ok:
+            raise AssertionError(f"VR1 {tag}: a kernel disagrees with its "
+                                 "plain version")
+        r = x.norm(dim=1) + 1e-10
+        n_in = int(((r >= prm.rmin) & (r <= prm.rmax) & (m > 0)).sum())
+        what = (f"VR1 {tag} hat, lmax {prm.lmax}, {prm.nc} nodes, "
+                f"{x.shape[0]} rows")
+        rows.append(_an_row(
+            f"sphere_coef[{what}]", "sphere_coef.cu",
+            "exp_tpu/ops/pallas_sphere.py:521", launches["sphere_coef"],
+            float((c - c0).abs().max()),
+            lambda x=x, m=m, tab=tab, f=f, prm=prm: sk.sphere_coef(
+                x, m, tab, f.Mp, prm),
+            lambda x=x, m=m, tab=tab, f=f, prm=prm: sk.sphere_coef_plain(
+                x, m, tab, f.Mp, prm),
+            k1_work(x.shape[0], n_in, prm.lmax, prm.nmax, prm.rows, "hat")))
+        rows.append(_an_row(
+            f"sphere_accel[{what}]", "sphere_accel.cu",
+            "exp_tpu/ops/pallas_sphere.py:398", launches["sphere_accel"],
+            max(float(da.max()), float(dp.max())),
+            lambda x=x, twT=twT, f=f, prm=prm: sk.sphere_accel(
+                x, twT, f.fac32, prm),
+            lambda x=x, twT=twT, f=f, prm=prm: sk.sphere_accel_plain(
+                x, twT, f.fac32, prm),
+            k2_work(x.shape[0], prm.lmax, prm.rows, "hat")))
+    host["rows_s"] = time.perf_counter() - t0 - host["c_s"]
+    print("VR1 host clock: " + json.dumps(host), flush=True)
+    return rows
+
+
+
 def main():
     import torch
 
@@ -5249,6 +5686,8 @@ def main():
     rows += multi_path(dev, tables, comp, work.name, r2, xe, ve, me)
     clock("world extras")
     rows += world_extras_path(dev, tables, work.name, xe, ve, me)
+    clock("native reader")
+    native_path(work.name)
     work.cleanup()
     clock("ICs")
     rows += ic_path(dev, force)
@@ -5259,14 +5698,24 @@ def main():
                                             me)
     rows += px_rows
     clock("tools")
-    tools_path(comp, xe, ve, me, px_work, px_files)
-    px_work.cleanup()
+    cl1 = tools_path(comp, xe, ve, me, px_work, px_files)
+    clock("PhaseSpace tools")
+    cl2 = psptools_path(px_work, px_files)
     clock("phase stream")
     rows += phasestream_path(dev)
+    clock("comparator")
+    rows += validate_path(dev, tables, xe, me)
     print(json.dumps({"kernels": rows}), flush=True)
-    # the energy bars last: their runs are the longest
-    clock("energy")
+    # the energy bars last: their runs are the longest.  Beside them, on
+    # the host's other cores, CL1's and CL2's tools run as children (host
+    # work but for forcetest's and gendisk's projections), their longest
+    # first; their results are checked after the bars
+    clock("energy, with the tools' children")
+    pool = tool_pool(px_work.name, cl1[:1] + cl2 + cl1[1:])
     energy_path(dev, comp)
+    clock("the tools' results")
+    tool_results(pool)
+    px_work.cleanup()
     clock("end")
     del comp, r2
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,8 @@ Body-file format matches the reference ascii convention
     line 1: <nbodies> <niattrib> <ndattrib>
     then  : mass x y z u v w [iattr...] [dattr...]
 PSP binary snapshots (io/psp.py) are read too, sniffed by their magic.
-The ascii reader is NumPy's loadtxt: exp_tpu's native strtod parser
-(exp_tpu/native) comes with ROADMAP item 14.
+The ascii reader is the native strtod parser (exp_tpu_torch/native), or
+NumPy's loadtxt where it cannot be built: the same values bit for bit.
 """
 
 from __future__ import annotations
@@ -91,9 +91,11 @@ def _host(a):
 def read_ascii_arrays(path):
     """Host-side ascii body read: (x (n,3), v (n,3), mass (n,)) NumPy,
     f64; columns past the seventh (attributes) are not read."""
+    from exp_tpu_torch import native
+
     with open(path) as f:
         n = int(f.readline().split()[0])
-        data = np.loadtxt(f, max_rows=n, usecols=range(7), ndmin=2)
+    data = native.read_columns(path, range(7), max_rows=n, skip_lines=1)
     if len(data) != n:
         raise ValueError(f"{path}: expected {n} rows, parsed {len(data)}")
     return data[:, 1:4], data[:, 4:7], data[:, 0]

@@ -296,6 +296,7 @@ def read_bodies_distributed(path, world, dtype=torch.float32,
     padded to a multiple of the world size with zero-mass rows.  Returns
     this rank's ParticleSystem, and with `with_rows` also the file's row
     count (the global rows before the padding)."""
+    from exp_tpu_torch import native
     from exp_tpu_torch.nbody.particles import is_psp_file
 
     if is_psp_file(path):
@@ -334,10 +335,8 @@ def read_bodies_distributed(path, world, dtype=torch.float32,
             cols = [0, 1, 2, 3, 4, 5, 6]
             if scale_dattr is not None:
                 cols.append(7 + niattrib + scale_dattr)
-            with open(path) as f:
-                for _ in range(1 + lo_live):
-                    f.readline()
-                data = np.loadtxt(f, max_rows=nl, usecols=cols, ndmin=2)
+            data = native.read_columns(path, cols, max_rows=nl,
+                                       skip_lines=1 + lo_live)
             xl, vl, ml = data[:, 1:4], data[:, 4:7], data[:, 0]
             if scale_dattr is not None:
                 sl = data[:, 7]

@@ -176,8 +176,8 @@ def _tables(runs, name, tol):
 @pytest.fixture(scope="module")
 def work(tmp_path_factory):
     """The inputs the flows share: tests/test_cli.py's 2,000-particle
-    Hernquist halo (seed 3) as bodies, exp_tpu's gendisk body file, an EOF
-    cache, an 8,000-particle genslab sheet."""
+    Hernquist halo (seed 3) as bodies, exp_tpu's gendisk body file and the
+    port's (dt.bods), an EOF cache, an 8,000-particle genslab sheet."""
     from exp_tpu.basis.empcyl import build_empcyl_tables
     from exp_tpu.basis.model import hernquist_model
     from exp_tpu.cli.gendisk import main as gendisk
@@ -191,6 +191,10 @@ def work(tmp_path_factory):
     write_ascii_bodies(d / "h.bods", (x, v, mass))
     gendisk(["-N", "3000", "-o", str(d / "d.bods"), "--acyl", "1.0",
              "--hcyl", "0.1", "--mass", "1.0"])
+    from exp_tpu_torch.cli.gendisk import main as t_gendisk
+
+    t_gendisk(["-N", "3000", "-o", str(d / "dt.bods"), "--acyl", "1.0",
+               "--hcyl", "0.1", "--mass", "1.0", "--cpu"])
     genslab(["-N", "8000", "-o", str(d / "s.bods"), "--z0", "0.02",
              "-s", "4"])
     build_empcyl_tables(cachename=str(d / "eof.h5"), **EOF_KW)
@@ -477,11 +481,13 @@ def test_makecoefs_and_coefstoh5(tmp_path, capsys, monkeypatch):
 @pytest.mark.parametrize("tool,body,argv", [
     ("haloprof", "h.bods", ["--type", "ascii", "--nbins", "20"]),
     ("diskprof", "d.bods", ["--type", "ascii", "--nbins", "15"]),
+    ("diskprof", "dt.bods", ["--type", "ascii", "--nbins", "15"]),
     ("slabprof", "s.bods", ["--nbins", "20"]),
-], ids=["haloprof", "diskprof", "slabprof"])
+], ids=["haloprof", "diskprof", "diskprof-port-gendisk", "slabprof"])
 def test_profiles(tmp_path, work, capsys, monkeypatch, tool, body, argv):
     """tests/test_cli.py:102 and :427: the same table byte for byte (the
-    disk is exp_tpu's gendisk body file)."""
+    disk is exp_tpu's gendisk body file, d.bods, or the port's, dt.bods,
+    from the same flags)."""
     r = _both(tmp_path, tool, [body] + argv, capsys, monkeypatch,
               copies=[work / body])
     _same_text(r)
@@ -672,7 +678,7 @@ PORTED_TOOLS = ["diskprof", "haloprof", "sphprof", "slabprof", "mssaprof",
 
 
 def test_umbrella_lists_and_dispatches(tmp_path, capsys, monkeypatch):
-    """tests/test_cli.py:258: the umbrella lists the 26 tools, every one's
+    """tests/test_cli.py:258: the umbrella lists the 58 tools, every one's
     --help exits 0 with exp_tpu's flags, and `python -m exp_tpu_torch.cli
     <tool>` runs a tool in a process of its own."""
     import argparse
@@ -681,7 +687,7 @@ def test_umbrella_lists_and_dispatches(tmp_path, capsys, monkeypatch):
     from exp_tpu_torch.cli import TOOLS
     from exp_tpu_torch.cli import __main__ as umbrella
 
-    assert len(TOOLS) == 26 and len(set(TOOLS)) == 26
+    assert len(TOOLS) == 58 and len(set(TOOLS)) == 58
     assert set(PORTED_TOOLS) <= set(TOOLS) <= set(J_TOOLS)
     monkeypatch.setattr(sys, "argv", ["exp_tpu_torch.cli"])
     assert umbrella.main() == 0

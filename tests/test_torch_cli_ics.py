@@ -185,7 +185,7 @@ def test_umbrella_runs_tools_and_refuses_without_a_card(tmp_path, capsys,
     j(["-N", "500", "-s", "3", "-f", str(tmp_path / "zj.bods")])
     assert (tmp_path / "z.bods").read_bytes() == \
         (tmp_path / "zj.bods").read_bytes()
-    for argv, rc in ((["--help"], 0), (["genslab"], 2)):
+    for argv, rc in ((["--help"], 0), (["nosuchtool"], 2)):
         monkeypatch.setattr(sys, "argv", ["exp_tpu_torch.cli"] + argv)
         assert umbrella.main() == rc
     out = capsys.readouterr().out

@@ -1494,3 +1494,21 @@ def test_analysis_tableless_force_stays_on_card(cuda):
     ch = Basis.factory(stanza, device="cpu").create_coefficients(x, m)
     cc = b.create_coefficients(x, m)
     np.testing.assert_allclose(cc, ch, rtol=1e-12, atol=1e-12 * ch.max())
+
+
+@pytest.mark.gpu
+def test_vr1_hat_step_against_f64_comparator(cuda):
+    """chip_smoke.py's VR1 (b): the comparator's problem through K1 'hat'
+    and K2 'hat' (pallas_precision 'highest', the hats on the table's own
+    nodes), 26 launches each over 25 KDK steps, the coefficients of every
+    step within three times the plain versions' CPU drift (4.51e-7,
+    python -m exp_tpu_torch.bench_validate b --device cpu --threads 1) of
+    the f64 comparator's trajectory."""
+    from exp_tpu_torch.bench_validate import B_STEPS, case_b
+
+    sk.reset_launch_counts()
+    rep, force = case_b(cuda)
+    assert force._interp_eff == "hat" and force.numr_c == force.grid.numr
+    assert sk.launch_counts["sphere_coef"] == B_STEPS + 1
+    assert sk.launch_counts["sphere_accel"] == B_STEPS + 1
+    assert rep["drift_max"] <= 3 * 4.5102455053879105e-07, rep

@@ -91,7 +91,26 @@ def test_import_loads_no_jax_or_exp_tpu():
         "exp_tpu_torch.cli.kldiv, exp_tpu_torch.cli.diskeof, "
         "exp_tpu_torch.cli.diskfreqs, exp_tpu_torch.cli.slshift, "
         "exp_tpu_torch.cli.expmssa, exp_tpu_torch.cli.mssafilter, "
-        "exp_tpu_torch.cli.yamldiff\n"
+        "exp_tpu_torch.cli.yamldiff, exp_tpu_torch.native, "
+        "exp_tpu_torch.validate, exp_tpu_torch.ops.transforms, "
+        "exp_tpu_torch.bench_validate, exp_tpu_torch.cli.psptools, "
+        "exp_tpu_torch.cli.ics_tools, exp_tpu_torch.cli.pspinfo, "
+        "exp_tpu_torch.cli.pspstat, exp_tpu_torch.cli.psp2ascii, "
+        "exp_tpu_torch.cli.ascii2psp, exp_tpu_torch.cli.snap2ascii, "
+        "exp_tpu_torch.cli.diffpsp, exp_tpu_torch.cli.pspinterp, "
+        "exp_tpu_torch.cli.psp2hdf5, exp_tpu_torch.cli.shrinkics, "
+        "exp_tpu_torch.cli.psphisto, exp_tpu_torch.cli.pspbox, "
+        "exp_tpu_torch.cli.snapconvert, exp_tpu_torch.cli.snap2vtk, "
+        "exp_tpu_torch.cli.addring, exp_tpu_torch.cli.addsphmod, "
+        "exp_tpu_torch.cli.modelfit, exp_tpu_torch.cli.forcetest, "
+        "exp_tpu_torch.cli.hdf52accel, exp_tpu_torch.cli.psporbv, "
+        "exp_tpu_torch.cli.pspmono, exp_tpu_torch.cli.psp2bess, "
+        "exp_tpu_torch.cli.psp2lagu, exp_tpu_torch.cli.psp2rings, "
+        "exp_tpu_torch.cli.psp2range, exp_tpu_torch.cli.pspreal, "
+        "exp_tpu_torch.cli.spl2psp, exp_tpu_torch.cli.tipstd2psp, "
+        "exp_tpu_torch.cli.psp2vtu, exp_tpu_torch.cli.cubeics, "
+        "exp_tpu_torch.cli.genslab, exp_tpu_torch.cli.gendisk, "
+        "exp_tpu_torch.cli.bonnerebert\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exp_tpu' or m.startswith('exp_tpu.')]\n"
         "print(','.join(bad))\n")
@@ -120,6 +139,74 @@ def test_sources_import_no_jax_or_exp_tpu(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "exp_tpu", "bench_suite"), (
             f"{path.name} imports {mod}")
+
+
+# exp_tpu modules with no counterpart: ops/padding.py has no caller, and
+# the Pallas kernels are the port's csrc/*.cu behind ops/*_kernels.py
+NO_COUNTERPART = ("ops/padding.py", "ops/pallas_*.py")
+
+
+def test_every_exp_tpu_module_has_a_counterpart():
+    """Listing the files (importing none): every .py under exp_tpu/ has a
+    file at the same path under exp_tpu_torch/, but NO_COUNTERPART; and
+    the native reader's source is carried with its loader."""
+    jax_pkg = ROOT / "exp_tpu"
+    missing = [str(p.relative_to(jax_pkg))
+               for p in sorted(jax_pkg.rglob("*.py"))
+               if not any(p.relative_to(jax_pkg).match(g)
+                          for g in NO_COUNTERPART)
+               and not (PORT / p.relative_to(jax_pkg)).exists()]
+    assert missing == []
+    assert (PORT / "native" / "fastio.cpp").exists()
+    skipped = [p for g in NO_COUNTERPART for p in jax_pkg.glob(g)]
+    assert len(skipped) == 5, skipped
+
+
+def _exp_tpu_tools():
+    """exp_tpu's TOOLS, read from its file (no import of exp_tpu)."""
+    tree = ast.parse((ROOT / "exp_tpu" / "cli" / "__init__.py").read_text())
+    node = next(n for n in tree.body if isinstance(n, ast.Assign)
+                and n.targets[0].id == "TOOLS")
+    return ast.literal_eval(node.value)
+
+
+def test_tools_equal_exp_tpus():
+    from exp_tpu_torch.cli import TOOLS
+
+    assert TOOLS == _exp_tpu_tools() and len(TOOLS) == 58
+
+
+@pytest.mark.parametrize("tool", _exp_tpu_tools())
+def test_every_tool_help(tool, monkeypatch, capsys):
+    """tests/test_kincoefs.py:411's flow on the port's umbrella: `python -m
+    exp_tpu_torch.cli <tool> --help` exits 0, with the flags of exp_tpu's
+    tool (the same add_argument calls, in order)."""
+    import argparse
+    import importlib
+
+    from exp_tpu_torch.cli import __main__ as umbrella
+
+    def flags(run):
+        seen = []
+        real = argparse.ArgumentParser.add_argument
+
+        def spy(self, *a, **k):
+            seen.append((a, tuple(k.get("choices") or ())))
+            return real(self, *a, **k)
+
+        monkeypatch.setattr(argparse.ArgumentParser, "add_argument", spy)
+        with pytest.raises(SystemExit) as e:
+            run()
+        monkeypatch.setattr(argparse.ArgumentParser, "add_argument", real)
+        assert e.value.code in (0, None), tool
+        return seen
+
+    monkeypatch.setattr(sys, "argv", ["exp_tpu_torch.cli", tool, "--help"])
+    ours = flags(umbrella.main)
+    assert f"exp_tpu_torch {tool}" in capsys.readouterr().out
+    theirs = flags(lambda: importlib.import_module(
+        f"exp_tpu.cli.{tool}").main(["--help"]))
+    assert ours == theirs
 
 
 def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
