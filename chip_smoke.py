@@ -27,8 +27,9 @@ from run configs, with and without its extras:
   the sphere-settings path (1,048,576 particles): the sphere path's halo
     under SphereSL's other pallas settings, through K3 (recurrence
     coefficients, csrc/sphere_coef_rec.cu), K6 (poly force,
-    csrc/sphere_accel_poly.cu), the 'hat' branches of K1 and K2 and K2 at
-    lmax 10;
+    csrc/sphere_accel_poly.cu), the 'hat' branches of K1 and K2, K2 at
+    lmax 10, and K1's split form (lmax 10, and a 'hat' table too long for
+    one block) and K6 at lmax 10;
   the composite path (1,048,576 particles): the flagship disk + halo of
     the composite bench (exp_tpu_torch/bench_composite.py), 786,432 halo
     particles under the sphere path's basis and 262,144 disk particles
@@ -66,8 +67,10 @@ from run configs, with and without its extras:
 Phases:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build every kernel from the sources with nvcc (sm_90a), in parallel;
-  3. build the sphere tables and the force on the card;
+  2. build every kernel from the sources with nvcc (sm_90a), in parallel,
+     while the host builds the sphere tables and phase 5's equilibrium
+     sample;
+  3. the force on the card;
   4. K1 and K2 against their plain PyTorch versions on the same inputs (the
      benches' sample plus edge rows), with the stated tolerances;
   5. the sphere path: init + 50 KDK steps (dt=1e-3) of an equilibrium
@@ -106,16 +109,20 @@ Phases:
   SL4. slab timing, as in phase 6, with K10 also under 'linear' and on an
      outside sample of 1,048,576 rows (the vacuum branch);
   V1. lmax=10, nmax=10, numr=2000 tables of the same halo beside phase 3's
-     lmax=4 ones, and a force on the card for each setting: recurrence (K3 +
-     K2), poly (K1 + K6), hat (K1-hat + K2-hat), hat + recurrence (K3-hat +
-     K2-hat), hat + poly (K1-hat + K6-hat) and lmax 10 under 'auto' (K3 +
-     K2 above lmax 6);
+     lmax=4 ones (and lmax=6 ones for hat6-2000), and a force on the card
+     for each setting: recurrence (K3 + K2), poly (K1 + K6), hat (K1-hat +
+     K2-hat), hat + recurrence (K3-hat + K2-hat), hat + poly (K1-hat +
+     K6-hat), lmax 10 under 'auto' (K3 + K2 above lmax 6), poly10 (K1's
+     split form + K6 at lmax 10), hat+poly10 (K1 split on SphereSL's
+     default 512 'hat' nodes + K6-hat at lmax 10) and hat6-2000 (K1 split on
+     2,000 'hat' nodes at lmax 6 + K2-hat);
   V2. each new kernel and branch against its plain version on the benches'
      sample plus edge rows and rows exactly on hat nodes, with the stated
      tolerances; zero-mass and masked rows give exactly 0;
-  V3. init + 50 KDK steps (dt=1e-3) of phase 5's equilibrium sample under
-     each setting, with each kernel's launch count, finiteness, the virial
-     ratio and the energy drift gated;
+  V3. init + 50 KDK steps (dt=1e-3; 5 for poly10, hat+poly10, hat6-2000)
+     of phase 5's equilibrium sample under each setting, with each
+     kernel's launch count, finiteness, the virial ratio and the energy
+     drift gated;
   V4. the steady step of each setting, and each new kernel and branch with
      its plain version by CUDA events, and each bound;
   CM1. the composite's forces on phase 3's and D1's tables and the DiskHalo
@@ -456,26 +463,44 @@ SLAB_FIELD_RTOL = 0.06
 SLAB_FIELD_XY = 0.05
 
 # The sphere-settings path: the sphere path's halo under SphereSL's other
-# pallas settings, name: (lmax, pallas_harmonics, pallas_interp, the two
-# kernel wrappers the setting launches).
+# pallas settings, name: (lmax, pallas_harmonics, pallas_interp, numr_c (the
+# 'hat' nodes), the two kernel wrappers the setting launches).  poly10 and
+# hat+poly10 run K1's split form and K6 at lmax 10 (on V1's lmax-10
+# tables); hat6-2000 runs K1's split form on a 2,000-node 'hat' table at
+# lmax 6 (on lmax-6 tables of the same halo), whose accumulator no block
+# holds.
 VARIANTS = {
-    "recurrence": (4, "recurrence", "spline",
+    "recurrence": (4, "recurrence", "spline", 512,
                    ("sphere_coef_rec", "sphere_accel")),
-    "poly": (4, "poly", "spline", ("sphere_coef", "sphere_accel_poly")),
-    "hat": (4, "auto", "hat", ("sphere_coef", "sphere_accel")),
-    "hat+recurrence": (4, "recurrence", "hat",
+    "poly": (4, "poly", "spline", 512, ("sphere_coef", "sphere_accel_poly")),
+    "hat": (4, "auto", "hat", 512, ("sphere_coef", "sphere_accel")),
+    "hat+recurrence": (4, "recurrence", "hat", 512,
                        ("sphere_coef_rec", "sphere_accel")),
-    "hat+poly": (4, "poly", "hat", ("sphere_coef", "sphere_accel_poly")),
-    "lmax10": (10, "auto", "spline", ("sphere_coef_rec", "sphere_accel")),
+    "hat+poly": (4, "poly", "hat", 512, ("sphere_coef", "sphere_accel_poly")),
+    "lmax10": (10, "auto", "spline", 512,
+               ("sphere_coef_rec", "sphere_accel")),
+    "poly10": (10, "poly", "spline", 512,
+               ("sphere_coef", "sphere_accel_poly")),
+    "hat+poly10": (10, "poly", "hat", 512,
+                   ("sphere_coef", "sphere_accel_poly")),
+    "hat6-2000": (6, "auto", "hat", 2000, ("sphere_coef", "sphere_accel")),
 }
-# |dEtot/Etot| bound over the 50 steps of each setting.  The same runs
+# V3's KDK steps of each setting: STEPS, but 5 for the settings of lmax 10
+# poly and of the 2,000-node table, whose runs through the plain versions
+# on a CPU (the bound's reference below) take 10-18 s a step at 2^20 on the
+# card machine's 8 cores
+VARIANT_STEPS = {"poly10": 5, "hat+poly10": 5, "hat6-2000": 5}
+# |dEtot/Etot| bound over the steps of each setting.  The same runs
 # through the plain versions on a CPU (python -m exp_tpu_torch.bench_sphere
-# kdk --device cpu with --harmonics / --interp / --lmax as the setting, the
-# full 2^20 particles) gave 5.4e-7 (recurrence), 7.2e-7 (poly), 1.8e-7
-# (hat, hat + recurrence, hat + poly) and 7.2e-7 (lmax 10); like the main
-# path's 8.1e-7 these are at the rounding level of the f32 energy sums
-# over 2^20 particles (eps log2 N ~ 2.4e-6), so the main path's bound,
-# 1e-5, holds each of them with room for sums in another order.
+# kdk --device cpu with --harmonics / --interp / --lmax / --numr-c / --steps
+# as the setting, the full 2^20 particles) gave 5.4e-7 (recurrence), 7.2e-7
+# (poly), 1.8e-7 (hat, hat + recurrence, hat + poly) and 7.2e-7 (lmax 10)
+# over 50 steps, and 0.0 (poly10: --lmax 10 --harmonics poly), 1.8e-7
+# (hat+poly10: the same with --interp hat) and 9.0e-8 (hat6-2000: --lmax 6
+# --interp hat --numr-c 2000) over 5; like the main path's 8.1e-7 these are
+# at the rounding level of the f32 energy sums over 2^20 particles (eps
+# log2 N ~ 2.4e-6), so the main path's bound, 1e-5, holds each of them with
+# room for sums in another order.
 VARIANT_DRIFT_BOUND = 1e-5
 # hat nodes (of numr_c = 512) the agreement inputs put rows exactly on
 HAT_NODES = [20, 90, 140, 200, 300, 510]
@@ -715,12 +740,11 @@ def k1_work(n, n_in, lmax, nmax, rows, interp="spline"):
     at each of the NODES nonzero weights.  Then the reduction over
     particles is folded into that count, and the contraction with the
     table is P * rows * nmax FMAs."""
-    from exp_tpu_torch.ops.solidharm import harmonic_matrix
-    from exp_tpu_torch.ops.sphere_kernels import packed_rows
+    from exp_tpu_torch.ops.sphere_kernels import poly_matrix
 
     P = (lmax + 1) ** 2
     n_mono = (lmax + 1) * (lmax + 2) * (lmax + 3) // 6
-    nnz = int((harmonic_matrix(lmax, tuple(packed_rows(lmax))) != 0).sum())
+    nnz = int((poly_matrix(lmax) != 0).sum())
     per = 13 + 4 + (n_mono - 4) + 2 * nnz + P + WEIGHT_OPS[interp]
     ops = n * per + n_in * NODES[interp] * P * 2 + P * rows * nmax * 2
     byts = (n * 16 + P * n_mono * 4 + rows * (lmax + 1) * nmax * 4
@@ -1634,24 +1658,37 @@ def slab_path(dev):
 def _variant_rows(forces):
     """The V2 checks: (kernels-line name, wrapper, source, TPU site, force,
     kind) of each new kernel and branch."""
+    k1, k2 = ("exp_tpu/ops/pallas_sphere.py:521",
+              "exp_tpu/ops/pallas_sphere.py:398")
+    k3, k6 = ("exp_tpu/ops/pallas_sphere.py:249",
+              "exp_tpu/ops/pallas_sphere.py:649")
     return [
-        ("sphere_coef[hat]", "sphere_coef", "sphere_coef.cu",
-         "exp_tpu/ops/pallas_sphere.py:521", forces["hat"], "coef"),
-        ("sphere_accel[hat]", "sphere_accel", "sphere_accel.cu",
-         "exp_tpu/ops/pallas_sphere.py:398", forces["hat"], "accel"),
-        ("sphere_accel[lmax10]", "sphere_accel", "sphere_accel.cu",
-         "exp_tpu/ops/pallas_sphere.py:398", forces["lmax10"], "accel"),
-        ("sphere_coef_rec", "sphere_coef_rec", "sphere_coef_rec.cu",
-         "exp_tpu/ops/pallas_sphere.py:249", forces["recurrence"], "coef"),
-        ("sphere_coef_rec[hat]", "sphere_coef_rec", "sphere_coef_rec.cu",
-         "exp_tpu/ops/pallas_sphere.py:249", forces["hat+recurrence"],
-         "coef"),
+        ("sphere_coef[hat]", "sphere_coef", "sphere_coef.cu", k1,
+         forces["hat"], "coef"),
+        ("sphere_accel[hat]", "sphere_accel", "sphere_accel.cu", k2,
+         forces["hat"], "accel"),
+        ("sphere_accel[lmax10]", "sphere_accel", "sphere_accel.cu", k2,
+         forces["lmax10"], "accel"),
+        ("sphere_coef_rec", "sphere_coef_rec", "sphere_coef_rec.cu", k3,
+         forces["recurrence"], "coef"),
+        ("sphere_coef_rec[hat]", "sphere_coef_rec", "sphere_coef_rec.cu", k3,
+         forces["hat+recurrence"], "coef"),
         ("sphere_coef_rec[lmax10]", "sphere_coef_rec", "sphere_coef_rec.cu",
-         "exp_tpu/ops/pallas_sphere.py:249", forces["lmax10"], "coef"),
-        ("sphere_accel_poly", "sphere_accel_poly", "sphere_accel_poly.cu",
-         "exp_tpu/ops/pallas_sphere.py:649", forces["poly"], "accel"),
+         k3, forces["lmax10"], "coef"),
+        ("sphere_accel_poly", "sphere_accel_poly", "sphere_accel_poly.cu", k6,
+         forces["poly"], "accel"),
         ("sphere_accel_poly[hat]", "sphere_accel_poly", "sphere_accel_poly.cu",
-         "exp_tpu/ops/pallas_sphere.py:649", forces["hat+poly"], "accel"),
+         k6, forces["hat+poly"], "accel"),
+        ("sphere_coef[lmax10]", "sphere_coef", "sphere_coef.cu", k1,
+         forces["poly10"], "coef"),
+        ("sphere_coef[hat,lmax10]", "sphere_coef", "sphere_coef.cu", k1,
+         forces["hat+poly10"], "coef"),
+        ("sphere_coef[hat,2000]", "sphere_coef", "sphere_coef.cu", k1,
+         forces["hat6-2000"], "coef"),
+        ("sphere_accel_poly[lmax10]", "sphere_accel_poly",
+         "sphere_accel_poly.cu", k6, forces["poly10"], "accel"),
+        ("sphere_accel_poly[hat,lmax10]", "sphere_accel_poly",
+         "sphere_accel_poly.cu", k6, forces["hat+poly10"], "accel"),
     ]
 
 
@@ -1689,12 +1726,13 @@ def sphere_settings_path(dev, tables, xe, ve, me):
     from exp_tpu_torch.ops import slab_kernels as lk
     from exp_tpu_torch.ops import sphere_kernels as sk
 
-    # V1. the lmax=10 tables and a force for each setting
+    # V1. the lmax=10 and lmax=6 tables and a force for each setting
     t0 = time.perf_counter()
-    tabs = {4: tables, 10: sphere_tables(lmax=10, nmax=10)}
-    forces = {name: sphere_force(tabs[lmax], dev, harm, interp)
-              for name, (lmax, harm, interp, _) in VARIANTS.items()}
-    print(f"V1 lmax=10 tables and {len(forces)} forces: "
+    tabs = {4: tables, 10: sphere_tables(lmax=10, nmax=10),
+            6: sphere_tables(lmax=6, nmax=10)}
+    forces = {name: sphere_force(tabs[lmax], dev, harm, interp, nc)
+              for name, (lmax, harm, interp, nc, _) in VARIANTS.items()}
+    print(f"V1 lmax=10 and lmax=6 tables and {len(forces)} forces: "
           f"{time.perf_counter() - t0:.1f} s; kernels "
           + ", ".join(f"{k} {f._harmonics_eff('coef')}/"
                       f"{f._harmonics_eff('accel')}/{f._interp_eff}"
@@ -1759,12 +1797,13 @@ def sphere_settings_path(dev, tables, xe, ve, me):
         raise AssertionError(f"V2: kernels disagree with their plain "
                              f"versions: {bad}")
 
-    # V3. init + STEPS KDK steps of the equilibrium sample under each setting
+    # V3. init + KDK steps of the equilibrium sample under each setting
     launches = {}
-    for name, (lmax, harm, interp, kernels) in VARIANTS.items():
+    for name, (lmax, harm, interp, nc, kernels) in VARIANTS.items():
+        steps = VARIANT_STEPS.get(name, STEPS)
         for mod in (sk, yk, qk, lk):
             mod.reset_launch_counts()
-        run = kdk_run(forces[name], xe, ve, me, steps=STEPS, dt=DT,
+        run = kdk_run(forces[name], xe, ve, me, steps=steps, dt=DT,
                       device=dev)
         torch.cuda.synchronize()
         counts = {**sk.launch_counts, **yk.launch_counts, **qk.launch_counts,
@@ -1772,7 +1811,7 @@ def sphere_settings_path(dev, tables, xe, ve, me):
         launches[name] = counts
         print(f"V3 {name}: " + json.dumps({**run, "launches": counts}),
               flush=True)
-        want = {k: (STEPS + 1 if k in kernels else 0) for k in counts}
+        want = {k: (steps + 1 if k in kernels else 0) for k in counts}
         if counts != want:
             raise AssertionError(f"V3 {name}: launches {counts}, expected "
                                  f"{want}")
@@ -1786,9 +1825,9 @@ def sphere_settings_path(dev, tables, xe, ve, me):
                                  f"exceeds {VARIANT_DRIFT_BOUND}")
 
     # V4. timing: each setting's step, each new kernel and branch
-    for name, (lmax, harm, interp, _) in VARIANTS.items():
+    for name, (lmax, harm, interp, nc, _) in VARIANTS.items():
         bench = bench_sphere(n=N, reps=30, tables=tabs[lmax], device=dev,
-                             harmonics=harm, interp=interp)
+                             harmonics=harm, interp=interp, numr_c=nc)
         print(f"V4 {name} step: " + json.dumps(bench), flush=True)
     r = x.norm(dim=1) + 1e-10
     run_of = {"sphere_coef[hat]": "hat", "sphere_accel[hat]": "hat",
@@ -1797,7 +1836,12 @@ def sphere_settings_path(dev, tables, xe, ve, me):
               "sphere_coef_rec[hat]": "hat+recurrence",
               "sphere_coef_rec[lmax10]": "lmax10",
               "sphere_accel_poly": "poly",
-              "sphere_accel_poly[hat]": "hat+poly"}
+              "sphere_accel_poly[hat]": "hat+poly",
+              "sphere_coef[lmax10]": "poly10",
+              "sphere_coef[hat,lmax10]": "hat+poly10",
+              "sphere_coef[hat,2000]": "hat6-2000",
+              "sphere_accel_poly[lmax10]": "poly10",
+              "sphere_accel_poly[hat,lmax10]": "hat+poly10"}
     rows = []
     for name, wrapper, src, line, f, kind in _variant_rows(forces):
         prm = f._kernel_params()
@@ -5550,9 +5594,18 @@ def main():
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on; the port needs them off")
 
-    # 2. build
+    # 2. build, every source at once, while the host makes phase 3's
+    # tables and phase 5's equilibrium sample
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    jobs = _build.start_all()
+    tables = sphere_tables(lmax=4, nmax=10)
+    print(f"tables (beside the build): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t1 = time.perf_counter()
+    xe, ve, me = equilibrium_sample(N, seed=0)
+    print(f"equilibrium sample of {N} (beside the build): "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    logs = _build.finish_all(jobs)
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'already built'})", flush=True)
     for name, log in logs.items():
@@ -5560,12 +5613,9 @@ def main():
             if line.startswith("nvcc "):
                 print("  " + line)
 
-    # 3. tables and the force
-    t0 = time.perf_counter()
-    tables = sphere_tables(lmax=4, nmax=10)
+    # 3. the force
     force = SphereSL.from_tables(tables, backend="pallas", device=dev)
     prm = force._kernel_params()
-    print(f"tables + force: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4. kernels against their plain versions, at the main path's shapes
     xb, _, mb = hernquist_sample_np(N, seed=0)
@@ -5607,11 +5657,7 @@ def main():
             f"K2 disagrees with its plain version (finite={finite}, "
             f"acc ok={ok_a}, pot ok={ok_p}; worst pot row {worst_p})")
 
-    # 5. the main path: init + STEPS KDK steps of an equilibrium sample
-    t0 = time.perf_counter()
-    xe, ve, me = equilibrium_sample(N, seed=0)
-    print(f"equilibrium sample of {N}: {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    # 5. the main path: init + STEPS KDK steps of the equilibrium sample
     sk.reset_launch_counts()
     run = kdk_run(force, xe, ve, me, steps=STEPS, dt=DT, device=dev)
     torch.cuda.synchronize()

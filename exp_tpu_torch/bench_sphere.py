@@ -7,8 +7,9 @@ loop, and an equilibrium KDK run with its energy and virial gates.
     python -m exp_tpu_torch.bench_sphere profile [--n N] [--steps S]
 
 Each mode also takes the force's settings: --lmax L (default 4; nmax 10
-and 2000 radial nodes throughout), --harmonics {auto,poly,recurrence} and
---interp {spline,hat}, which select the kernels (SphereSL's docstring).
+and 2000 radial nodes throughout), --harmonics {auto,poly,recurrence},
+--interp {spline,hat} and --numr-c C (the 'hat' nodes, default 512), which
+select the kernels and their plans (SphereSL's docstring).
 
 `bench` prints one JSON line with the steady-state step time on a CUDA
 device (a CPU run is refused: its time is no device metric).  `kdk` runs
@@ -77,18 +78,21 @@ def timeit(step, sync, reps, groups=5):
     return med, (max(times) - min(times)) / med
 
 
-def sphere_force(tables, device, harmonics="auto", interp="spline"):
+def sphere_force(tables, device, harmonics="auto", interp="spline",
+                 numr_c=512):
     """The benches' pallas SphereSL of `tables` with the given
-    pallas_harmonics and pallas_interp."""
+    pallas_harmonics, pallas_interp and 'hat' nodes numr_c."""
     from exp_tpu_torch.forces.spherical import SphereSL
 
     return SphereSL.from_tables(tables, dtype=torch.float32, backend="pallas",
                                 pallas_harmonics=harmonics,
-                                pallas_interp=interp, device=device)
+                                pallas_interp=interp, numr_c=numr_c,
+                                device=device)
 
 
 def bench_sphere(n=1_048_576, reps=20, lmax=4, nmax=10, dt=1e-3,
-                 tables=None, device=None, harmonics="auto", interp="spline"):
+                 tables=None, device=None, harmonics="auto", interp="spline",
+                 numr_c=512):
     """SphereSL (pallas backend) KDK step throughput on a CUDA device."""
     from exp_tpu_torch.nbody.particles import ParticleSystem
     from exp_tpu_torch.nbody.step import init_force_state, make_kdk_step
@@ -98,7 +102,7 @@ def bench_sphere(n=1_048_576, reps=20, lmax=4, nmax=10, dt=1e-3,
         raise RuntimeError("bench_sphere times the card: give it a CUDA "
                            "device")
     t = tables if tables is not None else sphere_tables(lmax, nmax)
-    force = sphere_force(t, device, harmonics, interp)
+    force = sphere_force(t, device, harmonics, interp, numr_c)
     x, v, mass = hernquist_sample_np(n)
     ps = ParticleSystem.from_arrays(x, v, mass, device=device)
     ps, _, _ = init_force_state(force, ps)
@@ -189,12 +193,12 @@ def profile_force(force, x, v, mass, dt, steps=10, device=None):
 
 
 def profile_step(n=1_048_576, steps=10, tables=None, device=None, lmax=4,
-                 harmonics="auto", interp="spline"):
+                 harmonics="auto", interp="spline", numr_c=512):
     """profile_force on the sphere bench: the benches' sample under the
     pallas SphereSL at dt=1e-3."""
     device = resolve_device(device)
     t = tables if tables is not None else sphere_tables(lmax)
-    force = sphere_force(t, device, harmonics, interp)
+    force = sphere_force(t, device, harmonics, interp, numr_c)
     x, v, mass = hernquist_sample_np(n)
     return profile_force(force, x, v, mass, 1e-3, steps, device)
 
@@ -210,8 +214,10 @@ def _main():
     ap.add_argument("--harmonics", default="auto",
                     choices=("auto", "poly", "recurrence"))
     ap.add_argument("--interp", default="spline", choices=("spline", "hat"))
+    ap.add_argument("--numr-c", type=int, default=512,
+                    help="'hat' nodes (SphereSL's numr_c)")
     a = ap.parse_args()
-    kw = dict(harmonics=a.harmonics, interp=a.interp)
+    kw = dict(harmonics=a.harmonics, interp=a.interp, numr_c=a.numr_c)
     if a.mode == "bench":
         print(json.dumps(bench_sphere(a.n, a.reps, lmax=a.lmax,
                                       device=a.device, **kw)))

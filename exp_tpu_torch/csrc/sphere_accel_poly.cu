@@ -24,14 +24,18 @@
 // 0.24 ms at 2^20 rows, of which its split put only 13% in the Ms loads
 // (PERF.md §6).
 //
-// Design: one thread a particle, a template on LMAX (0..6, where the f32
-// monomials hold) and on the interpolation, so the monomials and every
-// row index are compile-time constants and live in registers.  Only the
+// Design: one thread a particle, a template on LMAX (0..10) and on the
+// interpolation, so the monomials and every row index are compile-time
+// constants and live in registers: at lmax 0..6 the monomials as they are,
+// at 7..10 their even form (sphere_common.cuh EvenMonomials: 56 values and
+// 8 parity factors at lmax 10 where the 286 monomials would spill), each
+// stack row one factor times a sum over the even products.  Only the
 // nonzeros of the stack are multiplied: their pattern
 // (csrc/sphere_poly_support.cuh, generated from
 // ops/sphere_kernels.k6_support, which the wrapper checks Ms against) is
 // unrolled at compile time, and their values reach the kernel as a
-// parameter (MsNz, 860 bytes at lmax 4, 3.8 KB at 6), so each product
+// parameter (MsNz, 860 bytes at lmax 4, 3.8 KB at 6, 30.0 KB at 10: the
+// 7,494 nonzeros fit the 32,764 bytes of launch parameters), so each product
 // reads its factor from the constant bank at a fixed offset, with no
 // load.  A row's terms are added in the monomials' order, as the first
 // version added them (the skipped products were exact zeros).  Each
@@ -52,6 +56,10 @@ namespace {
 using sphere::nmono;
 using sphere::Params;
 using sphere::PolySupport;
+
+// the largest lmax whose monomials a thread holds as they are; above, their
+// even form (sphere::EvenMonomials)
+constexpr int kMonoL = 6;
 
 // the nonzero entries of the stack, in PolySupport's order
 template <int L>
@@ -84,8 +92,17 @@ __device__ __forceinline__ float stack_row(const MsNz<L>& M, const float* mono) 
   return dot_row<L, e0>(M, mono, std::make_integer_sequence<int, e1 - e0>{});
 }
 
-struct Point {
-  const float* mono;
+// the same row from the monomials' even form (lmax 7..10)
+template <int L, int R>
+__device__ __forceinline__ float stack_row(const MsNz<L>& M,
+                                           const sphere::EvenMonomials<L>* ev) {
+  return sphere::even_pattern_row<PolySupport<L>, L, R>(M.v, *ev);
+}
+
+// A: the monomials (const float*, lmax 0..6) or their even form
+template <class A>
+struct PointOf {
+  A mono;
   const float* att;    // (r_b/r)^(l+1), l = 0..L
   const float* tw;     // twT at the first node
   int rows;
@@ -93,12 +110,14 @@ struct Point {
   bool outside;
 };
 
+using Point = PointOf<const float*>;
+
 struct Sums {
   float pot, tx, ty, tz, r;
 };
 
-template <int L, bool HAT, int Pr>
-__device__ __forceinline__ void add_row(const Point& a, const MsNz<L>& M, Sums& s) {
+template <int L, bool HAT, int Pr, class A>
+__device__ __forceinline__ void add_row(const PointOf<A>& a, const MsNz<L>& M, Sums& s) {
   constexpr int P = sphere::npacked(L);
   constexpr int l = sphere::row_l(Pr, L);
   const float* t = a.tw + Pr * a.rows;
@@ -124,8 +143,8 @@ __device__ __forceinline__ void add_row(const Point& a, const MsNz<L>& M, Sums& 
   s.tz += stack_row<L, 3 * P + Pr>(M, a.mono) * g;
 }
 
-template <int L, bool HAT, int... Pr>
-__device__ __forceinline__ void add_rows(const Point& a, const MsNz<L>& M, Sums& s,
+template <int L, bool HAT, class A, int... Pr>
+__device__ __forceinline__ void add_rows(const PointOf<A>& a, const MsNz<L>& M, Sums& s,
                                          std::integer_sequence<int, Pr...>) {
   (add_row<L, HAT, Pr>(a, M, s), ...);
 }
@@ -156,13 +175,20 @@ accel_poly_kernel(const float* __restrict__ x, long long n,
 
   const float rinv = 1.0f / r;
   const float ux = px * rinv, uy = py * rinv, uz = pz * rinv;
-  float mono[NM];
-  sphere::monomials<L>(mono, ux, uy, uz);
-
-  const Point a{mono, att, twT + j0, sphere::table_rows(q), w[0], w[1], w[2],
-                1.0f / q.dxc, dxidr, 1.0f / rs, outside};
   Sums s{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  add_rows<L, HAT>(a, M, s, std::make_integer_sequence<int, P>{});
+  if constexpr (L <= kMonoL) {
+    float mono[NM];
+    sphere::monomials<L>(mono, ux, uy, uz);
+    const Point a{mono, att, twT + j0, sphere::table_rows(q), w[0], w[1], w[2],
+                  1.0f / q.dxc, dxidr, 1.0f / rs, outside};
+    add_rows<L, HAT>(a, M, s, std::make_integer_sequence<int, P>{});
+  } else {
+    const sphere::EvenMonomials<L> ev(ux, uy, uz);
+    const PointOf<const sphere::EvenMonomials<L>*> a{
+        &ev, att, twT + j0, sphere::table_rows(q), w[0], w[1], w[2],
+        1.0f / q.dxc, dxidr, 1.0f / rs, outside};
+    add_rows<L, HAT>(a, M, s, std::make_integer_sequence<int, P>{});
+  }
 
   const float uT = ux * s.tx + uy * s.ty + uz * s.tz;
   const float s2inv = 1.0f / (q.scale * q.scale);
@@ -221,6 +247,10 @@ int sphere_accel_poly_launch(const void* x, long long n, const void* twT,
     case 4: return launch<4>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
     case 5: return launch<5>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
     case 6: return launch<6>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
+    case 7: return launch<7>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
+    case 8: return launch<8>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
+    case 9: return launch<9>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
+    case 10: return launch<10>(xf, n, tf, mf, q, af, pf, threads, blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -3,8 +3,8 @@
 //
 // Replaces: exp_tpu/ops/pallas_sphere.py make_coef_kernel_poly (the TPU
 // kernel at its pallas_call, :521), as selected by SphereSL's default
-// pallas_harmonics='auto' at lmax <= 6 and by 'poly', for both
-// pallas_interp='spline' and 'hat'.
+// pallas_harmonics='auto' at lmax <= 6 and by 'poly' at lmax 0..10, for
+// both pallas_interp='spline' and 'hat'.
 //
 // Computes, for particles x (N, 3), mass (N,):
 //   w_i   = mass_i if rmin <= r_i/scale <= rmax else 0
@@ -50,22 +50,52 @@
 // mass after the live ones change no bit of it: they add nothing, change
 // no block's sum of |mass|, move no live tile, and the blocks they add
 // contribute exact zeros to the chains.
+//
+// The split form, for lmax 7..10 and for a table whose (P, rows)
+// accumulator does not fit a block (a 'hat' table of more than about 1,150
+// nodes at lmax 6; 512 nodes at lmax 10).  Above lmax 6 the one form does
+// not hold: M (54 KB dense at lmax 8) passes the 32,764 bytes of launch
+// parameters, the accumulator and the stage of 32 x P rows a warp pass a
+// block's shared memory, and a thread's mono[286] and Y[121] pass its 255
+// registers.  So, as K3 (sphere_coef_rec.cu) does with the same sums
+// (sphere_coef_sums.cuh): the packed rows split into groups over the grid's
+// second dimension, as few as let the group's (R, rows) accumulator and a
+// warp's stage fit (ops/sphere_kernels.k1_plan: 1 group at lmax 10
+// 'spline', 2 on 512 'hat' nodes); a block reads every particle and makes
+// only its group's rows, each staged as it is made and added by chunks of
+// 32 rows, lane k chunk row k.  M reaches the kernel as its k1_support
+// entries alone (2,513 at lmax 10, 10 KB of parameters, in the order of
+// csrc/sphere_poly_support.cuh's CoefSupport), and the rows come from the
+// monomials' even form (sphere_common.cuh EvenMonomials: 56 products of
+// x^2, y^2, z^2 and 8 parity factors at lmax 10, where every row is one
+// factor times a sum over them), so a thread's registers hold no row and
+// no full monomial list.  The even form is made anew for each chunk of 32
+// rows from the lane's unit vector and mass, kept in shared memory (a
+// float4 a lane), so it holds no register through the chunk's adds.  The
+// scales, the grid's rule and the finish are K3's, so the split form is
+// deterministic too.
 #include <cstring>
 #include <utility>
 
-#include "sphere_common.cuh"
+#include "sphere_coef_sums.cuh"
+#include "sphere_poly_support.cuh"
 
 namespace {
 
-using sphere::Params;
+using sphere::block_mass;
+using sphere::kBatch;
+using sphere::kChains;
+using sphere::kFinishThreads;
+using sphere::kTree;
 using sphere::mono_deg;
 using sphere::nmono;
+using sphere::Params;
+using sphere::pow2;
+using sphere::scale_exponent;
+using sphere::zero_slots;
 
 constexpr int kWarp = 32;
-constexpr int kTree = 4;          // interleaved chains of the block partials
-constexpr int kBatch = 4;         // particles whose adds go out together
 constexpr int kMaxThreads = 512;
-constexpr int kFinishThreads = 1024;
 
 
 template <int L>
@@ -119,8 +149,6 @@ __device__ __forceinline__ void yrows(float* Y, const MDense<L>& M, const float*
 // stride ts: one thread an output, its sum over j as kChains interleaved
 // chains (j mod kChains, each in order) added in order.  Every path
 // contracts this way, so they agree bit for bit.
-constexpr int kChains = 4;
-
 __device__ __forceinline__ void contract_rows(const float* S, int stride, int p0, int p1,
                                               const float* tab, int ts, const Params& q,
                                               float* coef) {
@@ -144,48 +172,6 @@ __device__ __forceinline__ void contract_rows(const float* S, int stride, int p0
     const float s = ((c[0] + c[1]) + c[2]) + c[3];
     coef[(long long)((cs * (L + 1) + l) * (L + 1) + m) * nmax + k] = m4pi * s;
   }
-}
-
-// zeros into the slots of no packed row (m > l, or sin with m = 0)
-__device__ __forceinline__ void zero_slots(const Params& q, float* coef) {
-  const int L = q.lmax, nmax = q.nmax;
-  for (int e = threadIdx.x; e < 2 * (L + 1) * (L + 1) * nmax; e += blockDim.x) {
-    const int slot = e / nmax, m = slot % (L + 1), l = (slot / (L + 1)) % (L + 1);
-    const int cs = slot / ((L + 1) * (L + 1));
-    if (m > l || (cs == 1 && m == 0)) coef[e] = 0.0f;
-  }
-}
-
-// The block's fixed-point scale: 2^e with W bound 2^e <= 2^30 (exponent
-// clamped to the f32 range), W a bound of every sum the block adds into.
-__device__ __forceinline__ int scale_exponent(float W) {
-  if (!(W > 0.0f)) return 0;
-  return max(-126, min(126, 30 - (ilogbf(fminf(W, 3.0e38f)) + 1)));
-}
-
-// 2^e for |e| <= 126, exactly
-__device__ __forceinline__ float pow2(int e) { return __int_as_float((e + 127) << 23); }
-
-// Sum over the block's rows of |mass| (rows past n count 0), in a fixed
-// order: each lane its rows in tile order, a shuffle tree over the lanes,
-// the warps in order.  Rows of zero mass after the live ones add exact
-// zeros, so the sum, and the block's scales, do not change with them.
-__device__ __forceinline__ float block_mass(const float* __restrict__ mass, long long n,
-                                            long long first, long long step, int nw,
-                                            float* wsum) {
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  float s = 0.0f;
-  for (long long t = first; t * kWarp < n; t += step) {
-    const long long i = t * kWarp + lane;
-    if (i < n) s += fabsf(mass[i]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-  if (lane == 0) wsum[warp] = s;
-  __syncthreads();
-  float W = 0.0f;
-  for (int w = 0; w < nw; ++w) W += wsum[w];
-  return W;
 }
 
 template <int L>
@@ -401,22 +387,202 @@ cudaError_t launch(const float* x, const float* mass, long long n, const float* 
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The split form: lmax 0..10, any table a row of which fits a block.
+
+
+// M's nonzeros (CoefSupport<L>, k1_support row-major), the row bounds and
+// the groups' bounds: a kernel parameter, read from the constant bank
+// (10.5 KB at lmax 10)
+template <int L>
+struct MSplit {
+  float v[sphere::CoefSupport<L>::kNnz];
+  float bound[Layout<L>::P];
+  int qstart[Layout<L>::P + 1];
+};
+
+// packed row Pr of chunk c (rows 32 c .. 32 c + 31), staged at ys[Pr - c0]
+// when it lies in the block's group [qg0, qg1)
+template <int L, int Pr>
+__device__ __forceinline__ void stage_row(float* ys, int c0, int qg0, int qg1,
+                                          const MSplit<L>& M,
+                                          const sphere::EvenMonomials<L>& ev, float wm) {
+  if (Pr >= qg0 && Pr < qg1)
+    ys[Pr - c0] = sphere::even_pattern_row<sphere::CoefSupport<L>, L, Pr>(M.v, ev) * wm;
+}
+
+template <int L, int C, int... r>
+__device__ __forceinline__ void stage_chunk(float* ys, int c0, int qg0, int qg1,
+                                            const MSplit<L>& M,
+                                            const sphere::EvenMonomials<L>& ev, float wm,
+                                            std::integer_sequence<int, r...>) {
+  (stage_row<L, kWarp * C + r>(ys, c0, qg0, qg1, M, ev, wm), ...);
+}
+
+// Chunk C of 32 packed rows: its rows of the block's group [qg0, qg1) are
+// made from the lane's unit vector and mass (uw), staged, and then added
+// (sphere::add_chunk), lane k its chunk row k.  uw is read from shared
+// memory for each chunk, so the monomials are made anew after the adds of
+// the chunk before and hold no registers through them.
+template <int L, int C>
+__device__ __forceinline__ void add_rows_chunk(int* acc, int RS, float* ysh, int CS,
+                                               const float4* wst, const int* rowe, int qg0,
+                                               int qg1, bool three, int lane,
+                                               const MSplit<L>& M, const float4* uw) {
+  constexpr int P = Layout<L>::P, lo = kWarp * C;
+  constexpr int cnt = P - lo < kWarp ? P - lo : kWarp;
+  const int c0 = max(qg0, lo), c1 = min(qg1, lo + cnt);
+  if (c0 >= c1) return;                             // the same in every lane
+  const float4 u = uw[lane];
+  const sphere::EvenMonomials<L> ev(u.x, u.y, u.z);
+  stage_chunk<L, C>(ysh + lane * CS, c0, qg0, qg1, M, ev, u.w,
+                    std::make_integer_sequence<int, cnt>{});
+  sphere::add_chunk(acc, RS, ysh, CS, wst, rowe, c0 - qg0, c1 - c0, three, lane);
+}
+
+// the chunks in order
+template <int L, int... C>
+__device__ __forceinline__ void add_chunks(int* acc, int RS, float* ysh, int CS,
+                                           const float4* wst, const int* rowe, int qg0,
+                                           int qg1, bool three, int lane,
+                                           const MSplit<L>& M, const float4* uw,
+                                           std::integer_sequence<int, C...>) {
+  (add_rows_chunk<L, C>(acc, RS, ysh, CS, wst, rowe, qg0, qg1, three, lane, M, uw), ...);
+}
+
+template <int L>
+__global__ void __launch_bounds__(kMaxThreads)
+coef_split_accumulate(const float* __restrict__ x, const float* __restrict__ mass,
+                      long long n, const __grid_constant__ MSplit<L> M, Params q,
+                      const float* __restrict__ tab, float* __restrict__ partial,
+                      float* __restrict__ coef) {
+  constexpr int P = Layout<L>::P;
+  const int rows = sphere::table_rows(q), RS = rows | 1;
+  const int nw = blockDim.x / kWarp;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const bool three = !q.hat;
+  const int qg0 = M.qstart[blockIdx.y], qg1 = M.qstart[blockIdx.y + 1], R = qg1 - qg0;
+  const int CS = sphere::stage_stride(R);
+
+  extern __shared__ float4 sh4[];
+  float4* wst = sh4 + warp * kWarp;                 // 32 x (3 weights, node)
+  float4* uw = sh4 + (nw + warp) * kWarp;           // 32 x (unit vector, mass)
+  float* stage = reinterpret_cast<float*>(sh4 + 2 * nw * kWarp);  // nw x 32 x CS
+  float* ysh = stage + warp * kWarp * CS;
+  int* acc = reinterpret_cast<int*>(stage + nw * kWarp * CS);  // (R, RS)
+  int* rowe = acc + R * RS;          // each group row's packed row and exponent
+
+  for (int e = threadIdx.x; e < R * RS; e += blockDim.x) acc[e] = 0;
+  // tile t of 32 particles runs on block (t / nw) mod gridDim.x, warp t mod nw
+  const long long ntiles = (n + kWarp - 1) / kWarp;
+  const long long step = (long long)gridDim.x * nw;
+  long long tile = (long long)blockIdx.x * nw + warp;
+  const float W = block_mass(mass, n, tile, step, nw, stage);
+  if (warp == 0)
+    for (int qq = lane; qq < R; qq += kWarp)
+      rowe[qq] = (qg0 + qq) | ((scale_exponent(W * M.bound[qg0 + qq]) + 128) << 8);
+  __syncthreads();
+
+  // a tile's positions and masses are loaded while the previous one is added
+  float px = 0.0f, py = 0.0f, pz = 0.0f, pm = 0.0f;
+  if (tile * kWarp + lane < n) {
+    const long long i = tile * kWarp + lane;
+    px = x[3 * i], py = x[3 * i + 1], pz = x[3 * i + 2], pm = mass[i];
+  }
+  for (; tile < ntiles; tile += step) {
+    float wt[3] = {0.0f, 0.0f, 0.0f};
+    int c = 0;                                      // first node + 1; 0: adds nothing
+    float wm = 0.0f, ux = 0.0f, uy = 0.0f, uz = 0.0f;
+    if (tile * kWarp + lane < n) {
+      const float r = sphere::radius(px, py, pz);
+      const float rs = r / q.scale;
+      wm = (rs >= q.rmin && rs <= q.rmax) ? pm : 0.0f;
+      if (wm != 0.0f) {
+        const float rinv = 1.0f / r;
+        ux = px * rinv, uy = py * rinv, uz = pz * rinv;
+        c = sphere::radial_weights(sphere::ximap(rs, q), q, wt) + 1;
+      }
+    }
+    wst[lane] = make_float4(wt[0], wt[1], wt[2], __int_as_float(c));
+    uw[lane] = make_float4(ux, uy, uz, wm);
+    const long long nxt = (tile + step) * kWarp + lane;
+    if (nxt < n) px = x[3 * nxt], py = x[3 * nxt + 1], pz = x[3 * nxt + 2], pm = mass[nxt];
+    add_chunks<L>(acc, RS, ysh, CS, wst, rowe, qg0, qg1, three, lane, M, uw,
+                  std::make_integer_sequence<int, (P + kWarp - 1) / kWarp>{});
+  }
+  __syncthreads();
+
+  // the sums back in f32: in place for one block of one group, which
+  // contracts them itself, else into the block's partial at the packed rows
+  sphere::group_finish(acc, RS, rowe, R, gridDim.x == 1 && gridDim.y == 1,
+                       reinterpret_cast<int*>(stage), tab, q, partial, coef);
+}
+
+template <int L>
+cudaError_t launch_split(const float* x, const float* mass, long long n, const float* Mh,
+                         const int* qs, int ngroups, const float* tab, float* partial,
+                         int nblocks, int nw, int finish_threads, int finish_staged,
+                         float* coef, const Params& q, cudaStream_t stream) {
+  constexpr int P = Layout<L>::P, NNZ = sphere::CoefSupport<L>::kNnz;
+  if (ngroups < 1 || ngroups > P || ((nblocks > 1 || ngroups > 1) && partial == nullptr) ||
+      finish_threads < 4 * q.nmax || finish_threads > kFinishThreads ||
+      finish_threads % (kTree * kWarp) || qs[0] != 0 || qs[ngroups] != P)
+    return cudaErrorInvalidValue;
+  MSplit<L> M;
+  std::memcpy(M.v, Mh, sizeof(M.v));
+  std::memcpy(M.bound, Mh + NNZ, sizeof(M.bound));
+  int R = 0;
+  for (int g = 0; g <= ngroups; ++g) {
+    M.qstart[g] = qs[g];
+    if (g > 0) {
+      if (qs[g] <= qs[g - 1]) return cudaErrorInvalidValue;
+      R = max(R, qs[g] - qs[g - 1]);
+    }
+  }
+  const int rows = sphere::table_rows(q);
+  // K3's layout and a (unit vector, mass) record a lane
+  // (ops/sphere_kernels.k1_split_smem)
+  const size_t smem = sphere::block_smem(nw, R, rows) + sizeof(float4) * nw * kWarp;
+  cudaError_t err = cudaFuncSetAttribute(coef_split_accumulate<L>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nblocks, ngroups);
+  coef_split_accumulate<L><<<grid, nw * kWarp, smem, stream>>>(x, mass, n, M, q, tab,
+                                                                 partial, coef);
+  if ((err = cudaGetLastError()) != cudaSuccess || (nblocks == 1 && ngroups == 1)) return err;
+  const size_t fsmem = sphere::finish_smem(q, finish_threads, finish_staged);
+  err = cudaFuncSetAttribute(sphere::coef_reduce_slots,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fsmem);
+  if (err != cudaSuccess) return err;
+  sphere::coef_reduce_slots<<<P, finish_threads, fsmem, stream>>>(partial, nblocks, tab, q,
+                                                                  finish_staged, coef);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // x (n, 3), mass (n,), tab (rows, (lmax+1)*nmax) radial table (rows = nc + 2
 // spline-prefiltered, or nc node values with hat = 1), coef (2, lmax+1,
-// lmax+1, nmax) output: f32, contiguous, on the current device.  M_host
-// the packed-row monomial matrix with fac (P, n_mono) followed by its row
-// bounds sum_k |M[p, k]| (P), f32 in host memory (copied into the launch's
-// parameters).  The plan (ops/sphere_kernels.
-// k1_plan): nblocks blocks of nw warps; partial (nblocks, P, rows) f32
-// scratch when nblocks > 1 (else unused, may be null).  Returns a
-// cudaError_t.
+// lmax+1, nmax) output: f32, contiguous, on the current device.  The plan
+// (ops/sphere_kernels.k1_plan): nblocks blocks of nw warps; partial
+// (nblocks, P, rows) f32 scratch when nblocks > 1 or ngroups > 1 (else
+// unused, may be null).  ngroups = 0: the one-accumulator form (lmax
+// 0..6), M_host the packed-row monomial matrix with fac (P, n_mono)
+// followed by its row bounds (P).  ngroups >= 1: the split form (lmax
+// 0..10), M_host the k1_support entries of that matrix (row-major)
+// followed by the row bounds, qstart_host the ngroups + 1 group bounds in
+// the packed order (0 = qstart[0] < ... < qstart[ngroups] = P), and the
+// second kernel's threads and whether it stages the table.  M_host and
+// qstart_host are f32 and int in host memory, copied into the launch's
+// parameters.  Returns a cudaError_t.
 int sphere_coef_launch(const void* x, const void* mass, long long n,
-                       const void* M_host, const void* tab, void* partial,
-                       int nblocks, int nw, void* coef, int lmax,
+                       const void* M_host, const void* qstart_host, int ngroups,
+                       const void* tab, void* partial, int nblocks, int nw,
+                       int finish_threads, int finish_staged, void* coef, int lmax,
                        int nmax, int nc, int cmap, float xmin, float dxc, float rmin,
                        float rmax, float rmap, float scale, int hat, void* stream) {
   Params q{lmax, nmax, nc, cmap, xmin, dxc, rmin, rmax, rmap, scale, 0.0f, hat};
@@ -424,14 +590,28 @@ int sphere_coef_launch(const void* x, const void* mass, long long n,
   auto xf = static_cast<const float*>(x);
   auto mf = static_cast<const float*>(mass);
   auto Mf = static_cast<const float*>(M_host);
+  auto qs = static_cast<const int*>(qstart_host);
   auto tf = static_cast<const float*>(tab);
   auto pf = static_cast<float*>(partial);
   auto cf = static_cast<float*>(coef);
-  switch (lmax) {
+  if (nw < 1 || nw * kWarp > kMaxThreads || nblocks < 1) return cudaErrorInvalidValue;
+  if (ngroups == 0) {
+    switch (lmax) {
 #define K1_CASE(L) \
-    case L: return launch<L>(xf, mf, n, Mf, tf, pf, nblocks, nw, cf, q, s);
-    K1_CASE(0) K1_CASE(1) K1_CASE(2) K1_CASE(3) K1_CASE(4) K1_CASE(5) K1_CASE(6)
+      case L: return launch<L>(xf, mf, n, Mf, tf, pf, nblocks, nw, cf, q, s);
+      K1_CASE(0) K1_CASE(1) K1_CASE(2) K1_CASE(3) K1_CASE(4) K1_CASE(5) K1_CASE(6)
 #undef K1_CASE
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (lmax) {
+#define K1_SPLIT(L)                                                                        \
+    case L:                                                                                \
+      return launch_split<L>(xf, mf, n, Mf, qs, ngroups, tf, pf, nblocks, nw,             \
+                             finish_threads, finish_staged, cf, q, s);
+    K1_SPLIT(0) K1_SPLIT(1) K1_SPLIT(2) K1_SPLIT(3) K1_SPLIT(4) K1_SPLIT(5) K1_SPLIT(6)
+    K1_SPLIT(7) K1_SPLIT(8) K1_SPLIT(9) K1_SPLIT(10)
+#undef K1_SPLIT
     default: return cudaErrorInvalidValue;
   }
 }

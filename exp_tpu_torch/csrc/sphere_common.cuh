@@ -182,4 +182,56 @@ __device__ __forceinline__ void monomials(float* mono, float ux, float uy, float
   monomials_seq(mono, ux, uy, uz, std::make_integer_sequence<int, nmono(L) - 1>{});
 }
 
+// ---------------------------------------------------------------------------
+// The monomials in even form, for lmax 7..10, where the nmono(L) monomials
+// (286 at lmax 10) do not fit a thread's registers: monomial K = x^i y^j z^k
+// is b[c] q[a], with c = (i mod 2) + 2 (j mod 2) + 4 (k mod 2) its parity
+// class, b[c] = x^(i mod 2) y^(j mod 2) z^(k mod 2), and q[a] the monomial
+// (x^2)^(i/2) (y^2)^(j/2) (z^2)^(k/2) of degree <= L/2 (56 at lmax 10).  A
+// harmonic row, and each of its gradient rows, holds monomials of one
+// class (k1_support's parities), so a row is b[c] times a sum over q.
+
+template <int K>
+struct EvenSplit {
+  static constexpr int i = mono_i(K), j = mono_j(K), k = mono_deg(K) - mono_i(K) - mono_j(K);
+  static constexpr int cls = (i & 1) | ((j & 1) << 1) | ((k & 1) << 2);
+  static constexpr int q = mono_index(i / 2 + j / 2 + k / 2, i / 2, j / 2);
+};
+
+template <int L>
+struct EvenMonomials {
+  float q[nmono(L / 2)];
+  float b[8];
+  __device__ __forceinline__ EvenMonomials(float ux, float uy, float uz) {
+    monomials<L / 2>(q, ux * ux, uy * uy, uz * uz);
+    b[0] = 1.0f, b[1] = ux, b[2] = uy, b[3] = ux * uy;
+    b[4] = uz, b[5] = ux * uz, b[6] = uy * uz, b[7] = ux * uy * uz;
+  }
+};
+
+// sum_e v[e] mono[cols[e]] over the entries E0 + e of one row of a
+// pattern (Sup::col, monomial indices), from the even form; all entries
+// of the row must be of one parity class
+template <class Sup, int L, int E0, int... e>
+__device__ __forceinline__ float even_row(const float* v, const EvenMonomials<L>& ev,
+                                          std::integer_sequence<int, e...>) {
+  if constexpr (sizeof...(e) == 0) {
+    return 0.0f;
+  } else {
+    constexpr int c = EvenSplit<Sup::col[E0]>::cls;
+    static_assert(((EvenSplit<Sup::col[E0 + e]>::cls == c) && ...),
+                  "a row of the pattern mixes parity classes");
+    float s = 0.0f;
+    ((s += v[E0 + e] * ev.q[EvenSplit<Sup::col[E0 + e]>::q]), ...);
+    return ev.b[c] * s;
+  }
+}
+
+// row R of pattern Sup (start, col) from the even form
+template <class Sup, int L, int R>
+__device__ __forceinline__ float even_pattern_row(const float* v, const EvenMonomials<L>& ev) {
+  constexpr int e0 = Sup::start[R], e1 = Sup::start[R + 1];
+  return even_row<Sup, L, e0>(v, ev, std::make_integer_sequence<int, e1 - e0>{});
+}
+
 }  // namespace sphere

@@ -67,16 +67,14 @@ class SphereSL(nn.Module):
 
     The pallas kernels, chosen as exp_tpu chooses its Pallas kernels
     (`_harmonics_eff`):
-      coefficients  'poly' harmonics: K1 (lmax 0..6); 'recurrence': K3
-                    (lmax 0..10).  'auto' is poly at lmax <= 6, else
-                    recurrence.
-      force         'poly': K6 (lmax 0..6); 'recurrence' and 'auto': K2
-                    (lmax 0..10).
+      coefficients  'poly' harmonics: K1; 'recurrence': K3.  'auto' is
+                    poly at lmax <= 6, else recurrence.
+      force         'poly': K6; 'recurrence' and 'auto': K2.
+    Each is built for lmax 0..10.
     Each runs 'spline' (numr_cs prefiltered nodes + tabulated d(pot)/dxi)
     or 'hat' (numr_c nodes, the cell difference for the derivative);
     'hat' is taken when the spline tables are absent (`_interp_eff`).  An
-    explicit 'poly' above lmax 6 and any lmax above 10 raise
-    NotImplementedError: no kernel is built there.
+    lmax above 10 raises NotImplementedError: no kernel is built there.
 
     Precision on the 'pallas' backend ('pallas_precision'): every knob
       runs every pass in FP32 on the CUDA cores, for 'spline' and 'hat'
@@ -214,17 +212,13 @@ class SphereSL(nn.Module):
                    f"'{self.pallas_harmonics}', interp '{self._interp_eff}')")
         for kind in ("coef", "accel"):
             if self._harmonics_eff(kind) == "poly":
-                if self.lmax not in sk.POLY_LMAX:
-                    raise NotImplementedError(
-                        f"backend='pallas' with {setting}: the poly kernels "
-                        "K1 and K6 are built for lmax 0..6, where the f32 "
-                        "monomial representation holds (it loses about a "
-                        "digit per degree above); use pallas_harmonics="
-                        "'auto' or 'recurrence'")
-            elif self.lmax not in sk.REC_LMAX:
+                lr, kernels = sk.POLY_LMAX, "poly kernels K1 and K6"
+            else:
+                lr, kernels = sk.REC_LMAX, "recurrence kernels K3 and K2"
+            if self.lmax not in lr:
                 raise NotImplementedError(
-                    f"backend='pallas' with {setting}: the recurrence "
-                    "kernels K3 and K2 are built for lmax 0..10")
+                    f"backend='pallas' with {setting}: the {kernels} are "
+                    f"built for lmax {lr.start}..{lr.stop - 1}")
         if self.grid.cmap not in (0, 1):
             raise NotImplementedError(
                 f"backend='pallas' with cmap={self.grid.cmap}: the sphere "

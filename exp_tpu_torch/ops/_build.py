@@ -5,7 +5,7 @@ shared library with a plain C interface, at first use, into
 `exp_tpu_torch/_build/` (listed in .gitignore).  The file name carries a
 hash of the sources, headers and flags, so an edited source is rebuilt and
 an unchanged one is loaded as it stands.  `build_all` starts one nvcc for
-each source at once.  A failed build raises with nvcc's output.
+each source at once (`start_all` and `finish_all` are its two halves).  A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -73,10 +73,17 @@ def _finish(name: str, job) -> None:
     os.replace(tmp, target)        # atomic: a reader never sees half a file
 
 
-def build_all(names=SOURCES) -> dict[str, str]:
-    """Build every named kernel library, all nvcc processes at once.
-    Returns {name: nvcc's output} for the sources built by this call."""
-    jobs = {n: _start(n) for n in names}
+def start_all(names=SOURCES) -> dict:
+    """Start nvcc for every named source whose library is not built, all
+    at once; finish_all waits for them.  The caller may do other work in
+    between."""
+    return {n: _start(n) for n in names}
+
+
+def finish_all(jobs) -> dict[str, str]:
+    """Wait for the builds of start_all; returns {name: nvcc's output} for
+    the sources they built.  A failed build raises, and the builds still
+    running are stopped."""
     logs = {}
     try:
         for n, job in jobs.items():
@@ -89,6 +96,12 @@ def build_all(names=SOURCES) -> dict[str, str]:
                 job[0].kill()
                 job[0].wait()
     return logs
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Build every named kernel library, all nvcc processes at once.
+    Returns {name: nvcc's output} for the sources built by this call."""
+    return finish_all(start_all(names))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,12 +11,13 @@ interpolations:
 
 K1 and K6 evaluate the harmonics as polynomials in the unit vector
 ('poly'), K3 and K2 by the Legendre and trig recurrences ('recurrence').
-The poly kernels are built for lmax 0..6 (POLY_LMAX), where the f32
-monomial representation holds; the recurrence kernels for lmax 0..10
-(REC_LMAX).  The kernels read x (N, 3) and mass (N,) as they are and mask
-their own ragged tail: the TPU's transposed (8, N) layout, its
-4096-particle blocks and its lane padding of tables (C1, Fp) are not
-carried over.  Each wrapper takes its plain version only for tensors on
+Both pairs are built for lmax 0..10 (POLY_LMAX, REC_LMAX).  K1 has two
+forms: one (P, rows) accumulator a block at lmax 0..6 (K1_ONE_LMAX) where
+it fits, and the packed rows split into groups over the grid's second
+dimension otherwise (k1_plan).  The kernels read x (N, 3) and mass (N,)
+as they are and mask their own ragged tail: the TPU's transposed (8, N)
+layout, its 4096-particle blocks and its lane padding of tables (C1, Fp)
+are not carried over.  Each wrapper takes its plain version only for tensors on
 the CPU; for CUDA tensors it launches the kernel or raises.
 `launch_counts` counts kernel launches, one per wrapper call that reaches
 the card.
@@ -42,8 +43,11 @@ launch_counts = {"sphere_coef": 0, "sphere_accel": 0, "sphere_coef_rec": 0,
 
 #: the lmax values each kernel is built for: the poly kernels K1 and K6,
 #: and the recurrence kernels K3 and K2
-POLY_LMAX = range(0, 7)
+POLY_LMAX = range(0, 11)
 REC_LMAX = range(0, 11)
+#: the lmax of K1's one-accumulator form (csrc/sphere_coef.cu); above, and
+#: where its accumulator does not fit a block, K1 splits the rows
+K1_ONE_LMAX = range(0, 7)
 
 
 def reset_launch_counts() -> None:
@@ -59,15 +63,40 @@ def packed_rows(lmax):
     return rows
 
 
+def _harmonic_rows(lmax) -> np.ndarray:
+    """solidharm.harmonic_matrix's packed rows (f64) with the entries
+    outside k1_support, and the f64 noise within it, set to 0 (_drop_noise).
+    Symmetry makes the entries outside k1_support 0, and the fit leaves
+    noise there only from lmax 10 on (167 entries, under 3e-14 of their
+    row's largest; 3e-12 of |Y|), which would break the parity structure
+    the kernels unroll."""
+    from exp_tpu_torch.ops.solidharm import harmonic_matrix
+
+    return _drop_noise(np.where(
+        k1_support(lmax), harmonic_matrix(lmax, tuple(packed_rows(lmax))),
+        0.0))
+
+
+def _drop_noise(rows) -> np.ndarray:
+    """rows (f64) with the entries under 1e-12 of their row's largest set
+    to 0: f64 noise of the fit and of its products M D_j, whose size and
+    sign vary with the BLAS's summation order (13 entries of the stack at
+    lmax 10, near 1e-15 of their row; below lmax 10 every nonzero is above
+    1e-4 of its row), so that K6's pattern, k6_support, is the same in
+    every process."""
+    big = np.abs(rows).max(axis=1, keepdims=True)
+    return np.where(np.abs(rows) < 1e-12 * big, 0.0, rows)
+
+
 def poly_matrix(lmax, fac_np=None) -> np.ndarray:
     """M (P, n_mono) f32 with M[p] . mono(u) = fac[l,m] P_lm {cos,sin}(m phi)
     for the packed rows p, rescaled to a custom `fac_np` when given (the
     matrix is linear in fac).  Unpadded: the kernel skips the structural
     zeros itself (exp_tpu's _poly_matrices pads to (C1, NMp))."""
-    from exp_tpu_torch.ops.solidharm import harmonic_matrix, standard_fac
+    from exp_tpu_torch.ops.solidharm import standard_fac
 
     prows = packed_rows(lmax)
-    M = harmonic_matrix(lmax, tuple(prows))
+    M = _harmonic_rows(lmax)
     if fac_np is not None:
         fac_np = np.asarray(fac_np)
         ratio = np.array([fac_np[l, m] / standard_fac(l, m)
@@ -96,11 +125,11 @@ def poly_matrix_stack(lmax, fac_np=None) -> np.ndarray:
     their d/du_j rows M D_j (exp_tpu's _poly_matrices(accel=True),
     unpadded), rescaled to a custom `fac_np` when given.  Raises if any
     entry outside poly_support is nonzero."""
-    from exp_tpu_torch.ops.solidharm import (harmonic_and_gradient_matrices,
-                                             standard_fac)
+    from exp_tpu_torch.ops.solidharm import derivative_matrices, standard_fac
 
     prows = packed_rows(lmax)
-    mats = harmonic_and_gradient_matrices(lmax, tuple(prows))
+    M, D = _harmonic_rows(lmax), derivative_matrices(lmax)
+    mats = [M] + [_drop_noise(M @ D[j]) for j in range(3)]
     if fac_np is not None:
         fac_np = np.asarray(fac_np)
         ratio = np.array([fac_np[l, m] / standard_fac(l, m)
@@ -128,9 +157,11 @@ def k6_support(lmax) -> np.ndarray:
 
 def k6_header() -> str:
     """The text of csrc/sphere_poly_support.cuh: for each lmax of
-    POLY_LMAX, k6_support as compressed rows (the first entry of each of
-    the 4P stack rows, then each entry's monomial), which K6 unrolls at
-    compile time.  `python -m exp_tpu_torch.gen_k6_support` writes it."""
+    POLY_LMAX, k6_support (PolySupport, K6's pattern) and k1_support
+    (CoefSupport, the pattern of K1's split form) as compressed rows (the
+    first entry of each row, then each entry's monomial), which the kernels
+    unroll at compile time.  `python -m exp_tpu_torch.gen_k6_support`
+    writes it."""
     def ints(v, indent):
         items = [f"{int(a)}" for a in v]
         out, line = [], indent
@@ -142,27 +173,31 @@ def k6_header() -> str:
             line += s + " "
         return "\n".join(out + [line.rstrip()])
 
-    parts = [
-        "// K6's nonzero pattern of the [M; Mx; My; Mz] stack "
-        "(csrc/sphere_accel_poly.cu),\n"
-        "// per lmax: the first entry of each of the 4P stack rows, then "
-        "each entry's\n"
-        "// monomial, in row-major order.  Generated from "
-        "ops/sphere_kernels.k6_support\n"
-        "// by `python -m exp_tpu_torch.gen_k6_support`; do not edit.\n"
-        "#pragma once\n\nnamespace sphere {\n\ntemplate <int L>\n"
-        "struct PolySupport;\n"]
-    for L in POLY_LMAX:
-        sup = k6_support(L)
+    def pattern(name, L, sup):
         start = np.concatenate([[0], np.cumsum(sup.sum(axis=1))])
         col = np.nonzero(sup)[1]
-        parts.append(
-            f"\ntemplate <>\nstruct PolySupport<{L}> {{\n"
-            f"  static constexpr int kNnz = {len(col)};\n"
-            f"  static constexpr int start[{len(start)}] = {{\n"
-            f"{ints(start, '      ')}}};\n"
-            f"  static constexpr int col[{len(col)}] = {{\n"
-            f"{ints(col, '      ')}}};\n}};\n")
+        return (f"\ntemplate <>\nstruct {name}<{L}> {{\n"
+                f"  static constexpr int kNnz = {len(col)};\n"
+                f"  static constexpr int start[{len(start)}] = {{\n"
+                f"{ints(start, '      ')}}};\n"
+                f"  static constexpr int col[{len(col)}] = {{\n"
+                f"{ints(col, '      ')}}};\n}};\n")
+
+    parts = [
+        "// The nonzero patterns of K6's [M; Mx; My; Mz] stack "
+        "(PolySupport,\n"
+        "// csrc/sphere_accel_poly.cu) and of K1's M (CoefSupport, the split "
+        "form of\n"
+        "// csrc/sphere_coef.cu), per lmax: the first entry of each row, then "
+        "each\n"
+        "// entry's monomial, in row-major order.  Generated from\n"
+        "// ops/sphere_kernels.k6_support and k1_support by `python -m\n"
+        "// exp_tpu_torch.gen_k6_support`; do not edit.\n"
+        "#pragma once\n\nnamespace sphere {\n\ntemplate <int L>\n"
+        "struct PolySupport;\n"]
+    parts += [pattern("PolySupport", L, k6_support(L)) for L in POLY_LMAX]
+    parts.append("\ntemplate <int L>\nstruct CoefSupport;\n")
+    parts += [pattern("CoefSupport", L, k1_support(L)) for L in POLY_LMAX]
     parts.append("\n}  // namespace sphere\n")
     return "".join(parts)
 
@@ -633,6 +668,11 @@ def k1_support(lmax) -> np.ndarray:
     m) of M is fit on the monomials of degree <= l, and the harmonic is
     even or odd under x -> -x, y -> -y and z -> -z, so its monomials
     x^i y^j z^k have i = m + cs, j = cs and k = l + m (mod 2)."""
+    return _k1_support(lmax).copy()
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_support(lmax) -> np.ndarray:
     from exp_tpu_torch.ops.solidharm import monomial_exponents
 
     rows = packed_rows(lmax)
@@ -647,12 +687,20 @@ def k1_support(lmax) -> np.ndarray:
 @dataclass(frozen=True)
 class SphereCoefPlan:
     """K1's launch: `nblocks` blocks of `nw` warps and `smem` bytes of
-    shared memory a block.  One block writes the coefficients itself;
-    several write partials that a second kernel sums."""
+    shared memory a block.  With no `qstart`, the one-accumulator form:
+    one block writes the coefficients itself, several write partials that
+    a second kernel sums.  With `qstart`, the split form: the packed rows
+    [qstart[g], qstart[g + 1]) go to group g of nblocks blocks, and the
+    partials of every group and block to a second kernel of
+    `finish_threads` threads (its table slice staged when
+    `finish_staged`), unless one block holds all the rows."""
 
     nw: int
     nblocks: int
     smem: int
+    qstart: tuple = ()
+    finish_threads: int = 0
+    finish_staged: bool = False
 
 
 #: K1's warps a block, and the threads a block of its second kernel
@@ -663,38 +711,51 @@ K1_FINISH_THREADS = 1024
 
 def k1_smem(prm: SphereKernelParams, nw: int) -> int:
     """K1's shared memory a block of nw warps, as csrc/sphere_coef.cu lays
-    it out: each warp's stage (32 x (4 weights + P rows, P rounded up to
-    odd)), the block's (P, rows | 1) i32 accumulator and nw f32 sums."""
+    it out in its one-accumulator form: each warp's stage (32 x (4 weights
+    + P rows, P rounded up to odd)), the block's (P, rows | 1) i32
+    accumulator and nw f32 sums.  The split form: k1_split_smem."""
     P = (prm.lmax + 1) ** 2
     return 4 * (nw * 32 * (4 + (P | 1)) + P * (prm.rows | 1) + nw)
 
 
+def k1_split_smem(prm: SphereKernelParams, nw: int, R: int) -> int:
+    """The shared memory of K1's split form, a block of nw warps whose
+    group has R rows: K3's layout (k3_smem) and each lane's unit vector
+    and mass (a float4), which the rows of each chunk of 32 are made
+    from."""
+    return k3_smem(prm, nw, R) + 16 * 32 * nw
+
+
+@functools.lru_cache(maxsize=1024)
 def k1_plan(n, prm: SphereKernelParams, sm_count, smem_optin,
             smem_per_sm) -> SphereCoefPlan:
-    """K1's launch plan for n rows: blocks of K1_WARPS warps (fewer when
-    their shared memory, k1_smem, does not fit smem_optin), as many a SM as
-    smem_per_sm holds (at most 2); warp tiles of 32 rows go to blocks by
-    the row index alone, tile t to block (t // nw) mod (blocks a SM x
-    sm_count), so the grid is the blocks that rows reach, at most that, and
-    rows after the live ones move no live tile.  Raises ValueError when
-    not even one warp fits (a 'hat' table of many nodes at high lmax)."""
-    P = (prm.lmax + 1) ** 2
-    nw = next((w for w in range(K1_WARPS, 0, -1)
-               if k1_smem(prm, w) <= smem_optin), 0)
-    finish = 4 * (prm.rows * (1 + prm.nmax) + K1_FINISH_THREADS
-                  + 4 * prm.nmax)
-    if not nw or finish > smem_optin:
-        raise ValueError(
-            f"sphere_coef: the (P, rows) = ({P}, {prm.rows}) accumulator "
-            f"and one warp's stage exceed a block's {smem_optin} bytes of "
-            "shared memory; lower numr_c or use "
-            "pallas_harmonics='recurrence' (K3 splits the rows)")
-    smem = k1_smem(prm, nw)
-    # the card keeps 1 KB of an SM's shared memory for each block
-    per_sm = max(1, min(2, smem_per_sm // (smem + 1024)))
-    tiles = -(-n // 32)
-    nblocks = max(1, min(-(-tiles // nw), per_sm * sm_count))
-    return SphereCoefPlan(nw, nblocks, smem)
+    """K1's launch plan for n rows.  At lmax 0..6 (K1_ONE_LMAX), where one
+    warp's stage and the (P, rows) accumulator fit a block: blocks of
+    K1_WARPS warps (fewer when their shared memory, k1_smem, does not fit
+    smem_optin), as many a SM as smem_per_sm holds (at most 2); warp tiles
+    of 32 rows go to blocks by the row index alone, tile t to block (t //
+    nw) mod (blocks a SM x sm_count), so the grid is the blocks that rows
+    reach, at most that, and rows after the live ones move no live tile.
+    Otherwise the split form, whose groups, warps and second kernel follow
+    K3's rule (k3_plan) in the packed rows' order, on its shared memory
+    (k1_split_smem).  Raises ValueError when not even one row of the table
+    fits a block.  Cached: each launch asks for it."""
+    if prm.lmax in K1_ONE_LMAX:
+        nw = next((w for w in range(K1_WARPS, 0, -1)
+                   if k1_smem(prm, w) <= smem_optin), 0)
+        finish = 4 * (prm.rows * (1 + prm.nmax) + K1_FINISH_THREADS
+                      + 4 * prm.nmax)
+        if nw and finish <= smem_optin:
+            smem = k1_smem(prm, nw)
+            # the card keeps 1 KB of an SM's shared memory for each block
+            per_sm = max(1, min(2, smem_per_sm // (smem + 1024)))
+            tiles = -(-n // 32)
+            nblocks = max(1, min(-(-tiles // nw), per_sm * sm_count))
+            return SphereCoefPlan(nw, nblocks, smem)
+    qstart, nw, nblocks, smem, threads, staged = _split_plan(
+        n, prm, sm_count, smem_optin, smem_per_sm, "sphere_coef",
+        k1_split_smem)
+    return SphereCoefPlan(nw, nblocks, smem, qstart, threads, staged)
 
 
 def k1_row_bounds(Mh, lmax) -> np.ndarray:
@@ -741,16 +802,20 @@ _host_fac: dict = {}
 
 
 def _m_on_host(M, lmax):
-    """M (P, n_mono) and its k1_row_bounds as one contiguous f32 host array
-    for K1's launch parameters, read from the device once per tensor and
-    version; raises ValueError when M has nonzero entries outside
-    k1_support."""
+    """(dense, packed): M's k1_row_bounds after M (P, n_mono), for K1's
+    one-accumulator form, and after M's k1_support entries (row-major),
+    for its split form; each a contiguous f32 host array for K1's launch
+    parameters, read from the device once per tensor and version.  Raises
+    ValueError when M has nonzero entries outside k1_support."""
     def build(Mh):
-        outside = np.count_nonzero(Mh[~k1_support(lmax)])
+        sup = k1_support(lmax)
+        outside = np.count_nonzero(Mh[~sup])
         if outside:
             raise ValueError(f"sphere_coef: M has {outside} nonzero entries "
                              "outside the support K1 multiplies")
-        return np.concatenate([Mh.ravel(), k1_row_bounds(Mh, lmax)])
+        bound = k1_row_bounds(Mh, lmax)
+        return (np.concatenate([Mh.ravel(), bound]),
+                np.concatenate([Mh[sup], bound]))
 
     return _on_host(_host_m, M, build)
 
@@ -776,18 +841,25 @@ def sphere_coef(x, mass, tab, M, prm: SphereKernelParams):
     plan = k1_plan(n, prm, props.multi_processor_count,
                    props.shared_memory_per_block_optin,
                    props.shared_memory_per_multiprocessor)
-    Mh = _m_on_host(M, lmax)
+    dense, packed = _m_on_host(M, lmax)
+    ngroups = len(plan.qstart) - 1 if plan.qstart else 0
+    qstart = np.asarray(plan.qstart, dtype=np.int32) if ngroups else None
     partial = None
-    if plan.nblocks > 1:
+    if plan.nblocks > 1 or ngroups > 1:
         partial = torch.empty((plan.nblocks, P, prm.rows),
                               dtype=torch.float32, device=dev)
     coef = torch.empty((2, lmax + 1, lmax + 1, nmax), dtype=torch.float32,
                        device=dev)
     _launch("sphere_coef",
-            [_P, _P, _LL, _P, _P, _P, _I, _I, _P, *_GEOM, _I, _P],
-            (x.data_ptr(), mass.data_ptr(), n, Mh.ctypes.data, tab.data_ptr(),
+            [_P, _P, _LL, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, *_GEOM, _I,
+             _P],
+            (x.data_ptr(), mass.data_ptr(), n,
+             (packed if ngroups else dense).ctypes.data,
+             None if qstart is None else qstart.ctypes.data, ngroups,
+             tab.data_ptr(),
              None if partial is None else partial.data_ptr(),
-             plan.nblocks, plan.nw, coef.data_ptr(),
+             plan.nblocks, plan.nw, plan.finish_threads,
+             int(plan.finish_staged), coef.data_ptr(),
              *_geometry_args(prm), int(prm.interp == "hat")), dev)
     return coef
 
@@ -798,7 +870,7 @@ K3_WARPS = 16
 
 def k3_smem(prm: SphereKernelParams, nw: int, R: int) -> int:
     """K3's shared memory a block of nw warps whose group has R rows, as
-    csrc/sphere_coef_rec.cu lays it out: each warp's 32 weight records
+    csrc/sphere_coef_rec.cu (and K1's split form) lays it out: each warp's 32 weight records
     (float4) and its stage of 32 particles x (min(32, R) | 1) rows (a
     chunk of up to 32 rows, odd stride), the group's (R, rows | 1) i32
     sums, and a packed row and scale exponent a group row."""
@@ -806,20 +878,25 @@ def k3_smem(prm: SphereKernelParams, nw: int, R: int) -> int:
                 + R * (prm.rows | 1) + R)
 
 
-def k3_groups(prm: SphereKernelParams, smem_optin) -> tuple:
+def k3_groups(prm: SphereKernelParams, smem_optin,
+              name="sphere_coef_rec", smem=None) -> tuple:
     """K3's groups of rows, as their boundaries (0, ..., P) in the order
-    the rows are made (m outer, l inner, cos then sin): one group wherever
-    the (P, rows) accumulator and one warp's stage fit a block, else the
-    fewest groups that fit, of balanced sizes.  Raises ValueError when not
-    even one row fits."""
+    the rows are made (m outer, l inner, cos then sin; K1's split form:
+    the packed order): one group wherever the (P, rows) accumulator and
+    one warp's stage fit a block, else the fewest groups that fit, of
+    balanced sizes; `smem` (prm, warps, rows) is the kernel's shared
+    memory, k3_smem by default.  Raises ValueError, naming kernel `name`,
+    when not even one row fits."""
+    smem = smem or k3_smem
     P = (prm.lmax + 1) ** 2
-    if k3_smem(prm, 1, P) <= smem_optin:
+    if smem(prm, 1, P) <= smem_optin:
         return (0, P)
     rmax = max((R for R in range(1, P)
-                if k3_smem(prm, 1, R) <= smem_optin), default=0)
+                if smem(prm, 1, R) <= smem_optin), default=0)
     if not rmax:
-        raise ValueError(f"sphere_coef_rec: a {prm.rows}-row table does not "
-                         "fit a block's shared memory")
+        raise ValueError(f"{name}: one row of a {prm.rows}-row table and a "
+                         f"warp's stage take {smem(prm, 1, 1)} bytes of "
+                         f"shared memory, more than a block's {smem_optin}")
     ng = -(-P // rmax)
     return tuple(g * P // ng for g in range(ng + 1))
 
@@ -841,46 +918,57 @@ class SphereCoefRecPlan:
     finish_staged: bool
 
 
-def k3_finish(prm: SphereKernelParams, smem_optin):
+def k3_finish(prm: SphereKernelParams, smem_optin, name="sphere_coef_rec"):
     """(threads, staged) of K3's second kernel (coef_reduce_slots,
-    csrc/sphere_coef_rec.cu): K1_FINISH_THREADS threads with the table's
-    (rows, nmax) slice staged in shared memory where that fits, else the
-    slice read from device memory, with the most threads (1024, 512, 256,
-    128) whose sums fit.  Raises ValueError when none fits."""
+    csrc/sphere_coef_sums.cuh, which K1's split form shares):
+    K1_FINISH_THREADS threads with the table's (rows, nmax) slice staged in
+    shared memory where that fits, else the slice read from device memory,
+    with the most threads (1024, 512, 256, 128) whose sums fit.  Raises
+    ValueError, naming kernel `name`, when none fits."""
     for staged in (True, False):
         for t in (K1_FINISH_THREADS, 512, 256, 128):
             if 4 * (prm.rows * (1 + (prm.nmax if staged else 0)) + t
                     + 4 * prm.nmax) <= smem_optin:
                 return t, staged
-    raise ValueError(f"sphere_coef_rec: the second kernel's {prm.rows} "
+    raise ValueError(f"{name}: the second kernel's {prm.rows} "
                      "table rows exceed a block's shared memory")
+
+
+def _split_plan(n, prm, sm_count, smem_optin, smem_per_sm, name,
+                smem=k3_smem):
+    """(qstart, nw, nblocks, smem, finish_threads, finish_staged) of a
+    coefficient pass whose rows split into groups (K3, K1's split form):
+    the groups of k3_groups; blocks of nw <= K3_WARPS warps whose shared
+    memory fits smem_optin, as many a SM as smem_per_sm holds (at most 2),
+    nw the most warps an SM (the larger nw of a tie); warp tiles of 32
+    rows go to blocks by the row index alone, tile t to block (t // nw)
+    mod (blocks a SM x sm_count), so the grid is the blocks that rows
+    reach, at most that, and rows after the live ones move no live tile
+    (k1_plan's rule); the second kernel of k3_finish.  `smem` (prm, warps,
+    rows) is the kernel's shared memory."""
+    qstart = k3_groups(prm, smem_optin, name, smem)
+    R = max(b - a for a, b in zip(qstart, qstart[1:]))
+
+    best = (0, 0, 0)                 # (warps an SM, warps, blocks an SM)
+    for w in range(1, K3_WARPS + 1):
+        b = smem(prm, w, R)
+        if b <= smem_optin:
+            per_sm = max(1, min(2, smem_per_sm // (b + 1024)))
+            best = max(best, (per_sm * w, w, per_sm))
+    _, nw, per_sm = best
+    tiles = -(-n // 32)
+    nblocks = max(1, min(-(-tiles // nw), per_sm * sm_count))
+    return (qstart, nw, nblocks, smem(prm, nw, R),
+            *k3_finish(prm, smem_optin, name))
 
 
 @functools.lru_cache(maxsize=1024)
 def k3_plan(n, prm: SphereKernelParams, sm_count, smem_optin,
             smem_per_sm) -> SphereCoefRecPlan:
-    """K3's launch plan for n rows: the groups of k3_groups; blocks of nw
-    <= K3_WARPS warps whose shared memory fits smem_optin, as many a SM as
-    smem_per_sm holds (at most 2), nw the most warps an SM (the larger nw
-    of a tie); warp tiles of 32 rows go to blocks by the row index alone,
-    tile t to block (t // nw) mod (blocks a SM x sm_count), so the grid is
-    the blocks that rows reach, at most that, and rows after the live ones
-    move no live tile (k1_plan's rule); the second kernel of k3_finish.
-    Cached: each launch asks for it."""
-    qstart = k3_groups(prm, smem_optin)
-    R = max(b - a for a, b in zip(qstart, qstart[1:]))
-
-    best = (0, 0, 0)                 # (warps an SM, warps, blocks an SM)
-    for w in range(1, K3_WARPS + 1):
-        smem = k3_smem(prm, w, R)
-        if smem <= smem_optin:
-            per_sm = max(1, min(2, smem_per_sm // (smem + 1024)))
-            best = max(best, (per_sm * w, w, per_sm))
-    _, nw, per_sm = best
-    tiles = -(-n // 32)
-    nblocks = max(1, min(-(-tiles // nw), per_sm * sm_count))
-    return SphereCoefRecPlan(qstart, nw, nblocks, k3_smem(prm, nw, R),
-                             *k3_finish(prm, smem_optin))
+    """K3's launch plan for n rows (_split_plan).  Cached: each launch
+    asks for it."""
+    return SphereCoefRecPlan(*_split_plan(n, prm, sm_count, smem_optin,
+                                          smem_per_sm, "sphere_coef_rec"))
 
 
 def k3_row_bounds(fac, lmax) -> np.ndarray:

@@ -78,7 +78,8 @@ _K3_NO_ROWS = ("sphere_coef_rec.cu",
                "                                    __fmul_rn((float)(l + m - 1), pl2)),\n"
                "                          K.rk[l - m]);",
                "          plm = 1.0f;")
-_K3_NO_ADDS = ("sphere_coef_rec.cu",
+# K3's adds (add_chunk) are in the header it shares with K1's split form
+_K3_NO_ADDS = ("sphere_coef_sums.cuh",
                "  if (lane < cnt) {\n    const int qq = qc + lane;",
                "  if (lane < 0) {\n    const int qq = qc + lane;")
 _K3_ONE_GROUP = ("sphere_coef_rec.cu",

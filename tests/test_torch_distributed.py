@@ -1,5 +1,8 @@
 """The port's multi-device runs (exp_tpu_torch/parallel/, ROADMAP item 12)
-on the CPU: worlds of two ranks over gloo, each rank a process.
+on the CPU: worlds of two ranks over gloo, each rank a process.  The
+shared worlds, launchers and configs are in tests/torch_world.py; the
+driver's runs against exp_tpu's and the extras cases are in
+tests/test_torch_distributed_*.py, so that the test workers share them.
 
 * row_block, pad_global_count and ps_from_local partition as exp_tpu's do
   (tests/test_distributed.py:127).
@@ -10,12 +13,6 @@ on the CPU: worlds of two ranks over gloo, each rank a process.
   built on rank 0 and broadcast.
 * The 2-rank KDK step against exp_tpu's single-process run on its 8-device
   mesh, tests/test_distributed.py:83-124's analogue at its tolerances.
-* The 2-rank YAML driver (`python -m exp_tpu_torch.run --cpu
-  --distributed`, DRIVER_CONFIG of tests/test_distributed.py:159-190)
-  against exp_tpu's single-process driver, the analogue of :256-320:
-  OUTLOG to rtol 1e-9, the coefficients to 1e-10 of their scale, the
-  same levels file, every file written once, a restart from the world's
-  own checkpoint; and `--ndev 2` prints the same OUTLOG.
 * The sharded body read against the whole read, and the helpers on a
   one-rank world without a process group.
 * What a world ran only on one rank before (ROADMAP item 12b): both host
@@ -23,195 +20,16 @@ on the CPU: worlds of two ranks over gloo, each rank a process.
   OrbTrace, OutDiag, OutFrac, OutCalbr, OutHDF5 and OutVel under
   `run.py --ndev 2`, single-rate and at multistep 2, on a body count the
   world pads, against the port's one-rank run: every file to 1e-10 (f64),
-  OutVel's f32 sums to 2e-5 of each dataset's largest value.
-
-Each launched process has a timeout of TIMEOUT seconds and is killed, with
-the processes it started, when it expires.  The sphere uses the 'gather'
-backend in both packages (the same f64 arithmetic, as
-tests/test_torch_multistep.py notes)."""
+  OutVel's f32 sums to 2e-5 of each dataset's largest value."""
 
 import os
-import signal
-import socket
-import subprocess
-import sys
-import time
 
 import numpy as np
 import pytest
 import torch
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: seconds a launched process may take before it is killed
-TIMEOUT = 300
-N_COEF = 3001           # odd: the 2-rank split pads one zero-mass row
-F64 = torch.float64
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_cpu_thread():
-    """numpy's and scipy's BLAS and torch at one thread while this module
-    runs: several test workers share the CPUs, and a BLAS call at eight
-    spinning threads a worker runs tens of times slower there than alone.
-    The old limits come back at the end of the module.  JAX's persistent
-    compilation cache, a directory every worker reads and writes without
-    a lock, is off meanwhile (ROADMAP §3, F1)."""
-    import jax
-    from jax.experimental.compilation_cache import compilation_cache
-    from threadpoolctl import threadpool_limits
-
-    n, cache = torch.get_num_threads(), jax.config.jax_enable_compilation_cache
-    torch.set_num_threads(1)
-    jax.config.update("jax_enable_compilation_cache", False)
-    compilation_cache.reset_cache()
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(n)
-    jax.config.update("jax_enable_compilation_cache", cache)
-    compilation_cache.reset_cache()
-
-
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
-# ---------------------------------------------------------------------------
-# worlds of spawned ranks
-# ---------------------------------------------------------------------------
-
-def _spawn(job, out, nprocs=2):
-    """`job` on each rank of a gloo world of `nprocs` spawned processes;
-    rank 0 saves its result dict to `out` (npz).  The processes are killed
-    after TIMEOUT seconds."""
-    import torch.multiprocessing as mp
-
-    ctx = mp.start_processes(_rank_job, args=(_free_port(), out, job, nprocs),
-                             nprocs=nprocs, join=False, start_method="spawn")
-    end = time.time() + TIMEOUT
-    try:
-        while not ctx.join(timeout=max(1.0, end - time.time())):
-            if time.time() > end:
-                raise TimeoutError(f"{job}: the ranks ran past {TIMEOUT} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-    return dict(np.load(out))
-
-
-def _rank_job(rank, port, out, job, nprocs):
-    torch.set_num_threads(1)
-    from exp_tpu_torch.parallel.distributed import (finalize_distributed,
-                                                    init_distributed)
-
-    world = init_distributed(coordinator=f"127.0.0.1:{port}",
-                             num_processes=nprocs, process_id=rank,
-                             device="cpu", backend="gloo", timeout=TIMEOUT)
-    try:
-        res = {"coef": _coef_job, "kdk": _kdk_job}[job](world)
-        if rank == 0:
-            np.savez(out, **res)
-    finally:
-        finalize_distributed()
-
-
-def _block(a, world):
-    """This rank's row block of a host array padded with zero rows to a
-    multiple of the world size."""
-    from exp_tpu_torch.parallel.distributed import pad_global_count, row_block
-
-    n = a.shape[0]
-    a = np.concatenate([a, np.zeros((pad_global_count(n, world) - n,)
-                                    + a.shape[1:])])
-    lo, hi = row_block(a.shape[0], world)
-    return torch.tensor(a[lo:hi], dtype=F64)
-
-
-def _coef_inputs():
-    rng = np.random.default_rng(3)
-    n = N_COEF
-    return {
-        "sph": (rng.normal(0.0, 0.5, (n, 3)), rng.uniform(0.5, 1.5, n) / n),
-        "disk": (np.column_stack([rng.normal(0, 0.01, (n, 2)),
-                                  rng.normal(0, 0.002, n)]),
-                 rng.uniform(0.5, 1.5, n) / n),
-        "box": (rng.uniform(0.0, 1.0, (n, 3)), rng.uniform(0.5, 1.5, n) / n),
-        "sheet": (np.column_stack([rng.uniform(0, 1, (n, 2)),
-                                   rng.normal(0, 0.01, n)]),
-                  rng.uniform(0.5, 1.5, n) / n),
-    }
-
-
-def _coef_forces(world):
-    from exp_tpu_torch.basis.empcyl import build_empcyl_tables
-    from exp_tpu_torch.basis.model import hernquist_model
-    from exp_tpu_torch.basis.slab import build_slab_tables
-    from exp_tpu_torch.basis.slgrid import build_sph_sl_tables
-    from exp_tpu_torch.forces.cube import Cube
-    from exp_tpu_torch.forces.cylinder import CylinderForce
-    from exp_tpu_torch.forces.shells import ShellsForce
-    from exp_tpu_torch.forces.slab import SlabForce
-    from exp_tpu_torch.forces.spherical import SphereSL
-    from exp_tpu_torch.forces.twocenter import TwoCenterForce
-
-    ts = build_sph_sl_tables(hernquist_model(rmin=1e-3, rmax=20.0), lmax=2,
-                             nmax=6, numr=400, cmap=1, rmap=1.0, world=world)
-    sph = SphereSL.from_tables(ts, dtype=F64, backend="gather", device="cpu")
-    tc = build_empcyl_tables(mmax=2, nmax=6, lmaxfid=16, nmaxfid=12,
-                             acyl=0.01, hcyl=0.002, world=world)
-    tsl = build_slab_tables(nmaxx=2, nmaxy=2, nmax=3, zmax=0.1, h=0.01,
-                            numz=201, world=world)
-    return {
-        "sphere": ("sph", sph),
-        "cylinder": ("disk", CylinderForce.from_tables(
-            tc, dtype=F64, backend="xla", device="cpu")),
-        "cube": ("box", Cube.create(nmaxx=3, nmaxy=3, nmaxz=3, dtype=F64,
-                                    device="cpu")),
-        "slab": ("sheet", SlabForce.from_tables(tsl, dtype=F64,
-                                                device="cpu")),
-        "shells": ("sph", ShellsForce(rmax=10.0, nbins=64)),
-        "twocenter": ("sph", TwoCenterForce(
-            inner=sph, outer=sph, c1=torch.tensor([0.1, 0.0, 0.0], dtype=F64),
-            c2=torch.tensor([-0.05, 0.02, 0.0], dtype=F64))),
-    }
-
-
-def _coef_job(world):
-    """Each force's coefficients from the ranks' row blocks summed over the
-    world, and (rank 0) from all rows on one rank; the direct ring's
-    acceleration of the ranks' targets, gathered, and the one-rank sum."""
-    from exp_tpu_torch.forces.direct import DirectForce
-    from exp_tpu_torch.parallel.distributed import (allgather_rows,
-                                                    world_coefficients)
-
-    inp = _coef_inputs()
-    out = {}
-    for name, (key, f) in _coef_forces(world).items():
-        x, m = inp[key]
-        c2 = world_coefficients(f, _block(x, world), _block(m, world),
-                                world, accum_dtype=F64)
-        c1 = f.coefficients(torch.tensor(x, dtype=F64),
-                            torch.tensor(m, dtype=F64), accum_dtype=F64)
-        for k, (a, b) in enumerate(zip(*(
-                (c,) if torch.is_tensor(c) else c for c in (c2, c1)))):
-            out[f"{name}{k}_2"] = torch.view_as_real(a).numpy() \
-                if a.is_complex() else a.numpy()
-            out[f"{name}{k}_1"] = torch.view_as_real(b).numpy() \
-                if b.is_complex() else b.numpy()
-    x, m = inp["sph"]
-    f = DirectForce(eps=0.01, kernel="plummer")
-    xl, ml = _block(x, world), _block(m, world)
-    a2, p2 = f.acceleration(f.coefficients(xl, ml), xl, group=world)
-    a2 = allgather_rows(torch.cat([a2, p2[:, None]], 1), world)[0]
-    xa, ma = torch.tensor(x, dtype=F64), torch.tensor(m, dtype=F64)
-    a1, p1 = f.acceleration((xa, ma), xa)
-    out["direct0_2"] = a2[:N_COEF].numpy()
-    out["direct0_1"] = torch.cat([a1, p1[:, None]], 1).numpy()
-    return out
+from torch_world import (EXTRAS_CONFIG, F64, LAUNCHES, SPHERE, USERBAR,
+                         WORLD_CONFIG, WORLD_N, _h5_sets, _hernquist_bodies,
+                         _launch, _spawn, one_cpu_thread)  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -233,6 +51,7 @@ def test_two_rank_coefficients_equal_one_rank(coef_world, name):
         assert c2.shape == c1.shape and np.abs(c1).max() > 0
         np.testing.assert_allclose(c2, c1, rtol=1e-12,
                                    atol=1e-12 * np.abs(c1).max(), err_msg=k)
+
 
 
 # ---------------------------------------------------------------------------
@@ -277,54 +96,6 @@ def test_row_block_partition(n, k):
         np.testing.assert_array_equal(got, np.asarray(getattr(ref, f)), f)
 
 
-# ---------------------------------------------------------------------------
-# the KDK step
-# ---------------------------------------------------------------------------
-
-def _hernquist_bodies(n=4096, seed=7):
-    """tests/test_distributed.py:31's bodies."""
-    rng = np.random.default_rng(seed)
-    u = rng.uniform(0.05, 0.95, n)
-    r = u / (1 - u)
-    ct = rng.uniform(-1, 1, n)
-    st = np.sqrt(1 - ct * ct)
-    ph = rng.uniform(0, 2 * np.pi, n)
-    x = np.stack([r * st * np.cos(ph), r * st * np.sin(ph), r * ct], -1)
-    v = rng.normal(0, 0.2, (n, 3))
-    return x, v, np.full(n, 1.0 / n)
-
-
-def _kdk_job(world):
-    """tests/distributed_worker.py's run on the port: each rank steps its
-    row block 5 times; the coefficient trajectory and the gathered state."""
-    from exp_tpu_torch.basis.model import hernquist_model
-    from exp_tpu_torch.basis.slgrid import build_sph_sl_tables
-    from exp_tpu_torch.forces.spherical import SphereSL
-    from exp_tpu_torch.nbody.step import (energies, init_force_state,
-                                          make_kdk_step)
-    from exp_tpu_torch.parallel.distributed import (allgather_ps,
-                                                    pad_global_count,
-                                                    ps_from_local, row_block)
-
-    t = build_sph_sl_tables(hernquist_model(rmin=1e-3, rmax=20.0), lmax=2,
-                            nmax=6, numr=400, cmap=1, rmap=1.0, world=world)
-    force = SphereSL.from_tables(t, dtype=F64, backend="gather",
-                                 device="cpu")
-    x, v, mass = _hernquist_bodies()
-    ng = pad_global_count(len(mass), world)
-    lo, hi = row_block(ng, world)
-    ps = ps_from_local(x[lo:hi], v[lo:hi], mass[lo:hi], world, ng, lo,
-                       dtype=F64)
-    ps, c0, _ = init_force_state(force, ps, accum_dtype=F64, world=world)
-    step = make_kdk_step(force, 1e-3, accum_dtype=F64, world=world)
-    coefs = [c0.numpy().copy()]
-    for _ in range(5):
-        ps, c, diag = step(ps)
-        coefs.append(c.numpy().copy())
-    g = allgather_ps(ps, world)
-    e = energies(diag)
-    return {"coefs": np.stack(coefs), "x": g.x, "v": g.v, "indx": g.indx,
-            "ke": e["KE"], "pe": e["PE"]}
 
 
 def test_two_rank_kdk_matches_single_process(tmp_path):
@@ -364,100 +135,6 @@ def test_two_rank_kdk_matches_single_process(tmp_path):
     np.testing.assert_array_equal(z["indx"], np.asarray(ps.indx))
     assert np.isfinite(z["ke"]) and z["pe"] < 0
 
-
-# ---------------------------------------------------------------------------
-# the YAML driver
-# ---------------------------------------------------------------------------
-
-def _launch(cmd_sets, workdir):
-    """Run each (argv, env) as a process from `workdir`, all at once; each
-    is killed, with what it started, after TIMEOUT seconds.  Returns the
-    outputs; fails on a non-zero exit."""
-    procs = []
-    for argv, env in cmd_sets:
-        e = dict(os.environ)
-        e.pop("PYTEST_CURRENT_TEST", None)
-        e["PYTHONPATH"] = REPO + os.pathsep + e.get("PYTHONPATH", "")
-        e.update(env)
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "exp_tpu_torch.run"] + argv, env=e,
-            cwd=workdir, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True, start_new_session=True))
-    end, logs = time.time() + TIMEOUT, []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=max(1.0, end - time.time()))
-            logs.append(out)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                os.killpg(p.pid, signal.SIGKILL)
-                p.wait()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, f"rank failed:\n{log[-6000:]}"
-    return logs
-
-
-def _distributed(workdir, nproc=2):
-    port = _free_port()
-    return _launch([(["--cpu", "--distributed", "config.yml"],
-                     {"EXP_COORDINATOR": f"127.0.0.1:{port}",
-                      "EXP_NPROCS": str(nproc), "EXP_PROCID": str(r)})
-                    for r in range(nproc)], workdir)
-
-
-def test_two_rank_driver_matches_single_process(tmp_path):
-    """tests/test_distributed.py:256-320 on the port: the YAML driver at
-    multistep 2 through `python -m exp_tpu_torch.run --cpu --distributed`
-    on 2 ranks (sharded ingest, big steps, relevels, OUTLOG, OutCoef,
-    OutChkpt, OutMulti) against exp_tpu's single-process driver: OUTLOG
-    to rtol 1e-9, the coefficients to 1e-10 of their scale, the same
-    levels file, each file written once (rank 0 alone), and a restart of
-    the world from its own checkpoint; `--ndev 2` prints the same
-    OUTLOG."""
-    from test_distributed import DRIVER_CONFIG, _driver_workdir, _outlog_rows
-
-    from exp_tpu.io.coefs import open_coefs as j_open
-    from exp_tpu.nbody.simulation import Simulation
-    from exp_tpu_torch.io.coefs import open_coefs
-
-    base = str(tmp_path)
-    d2 = _driver_workdir(base, "world2", nsteps=6)
-    d1 = _driver_workdir(base, "world1", nsteps=6)
-    dn = _driver_workdir(base, "ndev2", nsteps=6)
-    logs = _distributed(d2)
-    assert sum("particle-steps/s" in log for log in logs) == 1
-    _launch([(["--cpu", "--ndev", "2", "config.yml"], {})], dn)
-    sim = Simulation.from_file(os.path.join(d1, "config.yml"))
-    sim.prime()
-    sim.run()
-
-    log2 = _outlog_rows(os.path.join(d2, "OUTLOG.drun"))
-    log1 = _outlog_rows(os.path.join(d1, "OUTLOG.drun"))
-    assert log2.shape == log1.shape == (7, log1.shape[1])
-    np.testing.assert_allclose(log2, log1, rtol=1e-9, atol=1e-12)
-    np.testing.assert_array_equal(
-        _outlog_rows(os.path.join(dn, "OUTLOG.drun")), log2)
-    t2, c2 = open_coefs(os.path.join(d2, "outcoef.halo.drun.h5")).read_all()
-    t1, c1 = j_open(os.path.join(d1, "outcoef.halo.drun.h5")).read_all()
-    assert len(t2) == len(t1) == 7
-    np.testing.assert_allclose(t2, t1, atol=1e-12)
-    np.testing.assert_allclose(c2, c1, atol=1e-10 * np.max(np.abs(c1)))
-    lv = [[ln for ln in open(os.path.join(d, "drun.levels"))
-           if not ln.startswith("#")] for d in (d2, d1)]
-    assert lv[0] == lv[1] and len(lv[0]) == 7
-    assert os.path.exists(os.path.join(d2, "config.drun.yml"))
-    assert os.path.exists(os.path.join(d2, "OUT.drun.chkpt"))
-
-    with open(os.path.join(d2, "config.yml"), "w") as f:
-        f.write(DRIVER_CONFIG.format(nsteps=3,
-                                     extra="  infile: OUT.drun.chkpt"))
-    _distributed(d2)
-    log2b = _outlog_rows(os.path.join(d2, "OUTLOG.drun"))
-    assert log2b.shape[0] == 11, log2b.shape
-    assert log2b[-1, 0] > log2[-1, 0] + 0.02
-    E = log2b[:, 15]
-    assert abs(E[-1] - E[0]) / abs(E[0]) < 5e-3
 
 
 @pytest.mark.parametrize("fmt", ["ascii", "psp"])
@@ -578,132 +255,6 @@ def test_one_device_paths_take_forces_without_group():
                           F64)[0]) == 8.0
 
 
-EXTRAS_CONFIG = """\
-Global:
-  dtime: 0.01
-  nsteps: 4
-  runtag: xrun
-  multistep: {M}
-  maxMindt: 0.5
-  compute_dtype: float64
-  accum_dtype: float64
-Components:
-  - name: halo
-    bodyfile: halo.bods
-    parameters: {{{P}}}
-    force:
-{F}{C}External:
-{X}Output:
-  - id: outlog
-    parameters: {{nint: 1}}
-{O}"""
-
-SPHERE = """\
-      id: sphereSL
-      parameters: {numr: 400, Lmax: 2, nmax: 6, rmapping: 1.0,
-                   modelname: halo.model, NO_L1: true}
-"""
-TWOCENTER = """\
-      id: twocenter
-      parameters: {basis: sphereSL, cfac: 1.0, alpha: 2.0,
-                   parameters: {numr: 400, Lmax: 2, nmax: 6, rmapping: 1.0,
-                                modelname: halo.model}}
-"""
-SMBH = """\
-  - name: smbh
-    bodyfile: bh.bods
-    force:
-      id: direct
-      parameters: {type: Plummer, soft: 0.01}
-Interaction:
-  - halo: smbh
-  - smbh: halo
-"""
-USERBAR = ("  - id: userbar\n    parameters: {amplitude: 0.1, length: 0.5, "
-           "omega: 1.0, Ton: 0.0, DeltaT: 0.5}\n")
-OUTSAMP = ("  - id: outsamp\n    parameters: {nint: 2, name: halo, "
-           "nsamples: 4}\n")
-#: case: (multistep, halo parameters, force, more components, externals,
-#: more outputs)
-EXTRAS = {
-    "sphere": (0, "EJ: 2, nEJkeep: 64, EJwindow: 4, npca: 2, nsamples: 4",
-               SPHERE, "", USERBAR, OUTSAMP),
-    "sphere_ms": (2, "EJ: 2, nEJkeep: 64, EJwindow: 4", SPHERE, "",
-                  "  - id: userlogpot\n", ""),
-    "twocenter": (0, "EJ: 2, nEJkeep: 64, EJwindow: 4", TWOCENTER, "",
-                  "  - id: userlogpot\n", ""),
-    "direct_ms": (2, "EJ: 2, nEJkeep: 64, EJwindow: 4", SPHERE, SMBH,
-                  "  - id: userlogpot\n", ""),
-}
-
-
-@pytest.mark.parametrize("case", list(EXTRAS))
-def test_two_rank_driver_extras_match_one_rank(tmp_path, case):
-    """The extras under a world of two ranks, against the port's one-rank
-    run of the same config, each with EJ centering (its most-bound set a
-    global top k): single-rate with NO_L1, a userbar External field, Hall
-    smoothing (npca; subsamples by global row) and OutSamp; at multistep 2
-    with the time-free userlogpot (the userbar at multistep:
-    test_userbar_multistep_run_is_finite, and in the worlds of
-    test_two_rank_world_extras_match_one_rank); a twocenter force (its
-    outer center the COM over the ranks); and a one-body
-    direct component coupled both ways at multistep 2 (its ring).  OUTLOG
-    and the orient log to rtol 1e-9, each written once; the OutSamp series
-    to 2e-5 of each dataset's largest value: it accumulates in f32, as
-    exp_tpu's OutSamp does, so two ranks' partials sum in another order
-    (~1e-7 of max|c| on the means), and the variance takes differences of
-    near-equal estimates (~6e-6 measured)."""
-    import shutil
-
-    from test_distributed import _driver_workdir
-
-    from exp_tpu_torch.bench_extras import outlog_rows
-    from exp_tpu_torch.nbody.particles import write_ascii_bodies
-
-    M, params, force, comps, ext, outs = EXTRAS[case]
-    src = _driver_workdir(str(tmp_path), "src", nsteps=1)
-    dirs = {}
-    for tag in ("one", "two"):
-        d = tmp_path / tag
-        d.mkdir()
-        for f in ("halo.bods", "halo.model"):
-            shutil.copy(os.path.join(src, f), d / f)
-        # one body of mass 0.01 on a near-circular orbit at r = 0.5
-        write_ascii_bodies(str(d / "bh.bods"), (
-            np.array([[0.5, 0.0, 0.0]]), np.array([[0.0, 0.8, 0.0]]),
-            np.array([0.01])))
-        (d / "config.yml").write_text(EXTRAS_CONFIG.format(
-            M=M, P=params, F=force, C=comps, X=ext, O=outs))
-        dirs[tag] = str(d)
-    _launch([(["--cpu", "config.yml"], {})], dirs["one"])
-    _distributed(dirs["two"])
-    a = outlog_rows(os.path.join(dirs["one"], "OUTLOG.xrun"))
-    b = outlog_rows(os.path.join(dirs["two"], "OUTLOG.xrun"))
-    assert a.shape == b.shape == (5, a.shape[1])
-    assert np.isfinite(a).all()
-    np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-12)
-    oa, ob = (np.loadtxt(os.path.join(d, "xrun.orient.halo"))
-              for d in (dirs["one"], dirs["two"]))
-    assert oa.shape == ob.shape and len(oa) == 4      # an update a step
-    assert np.isfinite(oa).all()
-    np.testing.assert_allclose(ob, oa, rtol=1e-9, atol=1e-12)
-    if outs:
-        import h5py
-
-        with h5py.File(os.path.join(dirs["one"], "outsamp.halo.xrun.h5"),
-                       "r") as fa, h5py.File(os.path.join(
-                           dirs["two"], "outsamp.halo.xrun.h5"), "r") as fb:
-            keys = []
-            fa.visit(keys.append)
-            assert keys
-            for k in keys:
-                if isinstance(fa[k], h5py.Dataset):
-                    va = np.asarray(fa[k][...], np.float64)
-                    np.testing.assert_allclose(
-                        fb[k][...], va, rtol=0,
-                        atol=2e-5 * max(np.abs(va).max(), 1e-30),
-                        err_msg=k)
-
 
 def test_userbar_multistep_run_is_finite(tmp_path):
     """EXTRAS_CONFIG's sphere run at multistep 2 with the userbar: the
@@ -748,59 +299,6 @@ def test_bench_multirank_sphere_world_on_cpu():
     assert np.isfinite(rep["dE_rel"])
 
 
-WORLD_CONFIG = """\
-Global:
-  dtime: 0.01
-  nsteps: 6
-  runtag: wrun
-  multistep: {M}
-  maxMindt: 0.5
-  compute_dtype: float64
-  accum_dtype: float64
-Components:
-  - name: halo
-    bodyfile: halo.bods
-    force:
-      id: sphereSL
-      parameters: {{numr: 400, Lmax: 2, nmax: 6, rmapping: 1.0,
-                   modelname: halo.model, dtime: 0.03}}
-External:
-  - id: scatterMFP
-    parameters: {{tau: 1.0, rmax: 10.0}}
-  - id: generateRelaxation
-  - id: userbar
-    parameters: {{amplitude: 0.1, length: 0.5, omega: 1.0, Ton: 0.0,
-                 DeltaT: 0.5}}
-Output:
-  - id: outlog
-    parameters: {{nint: 1}}
-  - id: outascii
-    parameters: {{nint: 3}}
-  - id: orbtrace
-    parameters: {{nint: 1, norb: 5}}
-  - id: outdiag
-    parameters: {{nint: 2}}
-  - id: outfrac
-    parameters: {{nint: 2}}
-  - id: outcalbr
-    parameters: {{nint: 2}}
-  - id: outhdf5
-    parameters: {{nint: 3, real4: false}}
-  - id: outvel
-    parameters: {{nint: 3}}
-"""
-#: bodies of the world runs: odd, so that two ranks pad a zero-mass row
-WORLD_N = 4001
-
-
-def _h5_sets(path):
-    import h5py
-
-    out = {}
-    with h5py.File(path, "r") as f:
-        f.visititems(lambda k, d: out.__setitem__(k, np.asarray(d[...]))
-                     if isinstance(d, h5py.Dataset) else None)
-    return out
 
 
 @pytest.mark.parametrize("M", [0, 2], ids=["single", "ms2"])
@@ -822,7 +320,7 @@ def test_two_rank_world_extras_match_one_rank(tmp_path, M):
     sorted first; OutVel's
     coefficients, f32 sums of each rank's rows added over the ranks, to
     2e-5 of each dataset's largest value (measured 1.3e-6, OutSamp's
-    bound above).  Each rank reports the rebuilds at t = 0.03 and 0.06."""
+    bound in tests/torch_world.py).  Each rank reports the rebuilds at t = 0.03 and 0.06."""
     import json
 
     from exp_tpu_torch.basis.model import hernquist_model
@@ -843,10 +341,9 @@ def test_two_rank_world_extras_match_one_rank(tmp_path, M):
         dirs[tag] = d
     Simulation.from_file(str(dirs["one"] / "config.yml"), device="cpu").run()
     log = _launch([(["--cpu", "--ndev", "2", "--launches", "config.yml"],
-                    {})], str(dirs["two"]))[0]
-    reps = [json.loads(ln.split("launches ", 1)[1])
-            for ln in log.splitlines()
-            if ln.startswith("[exp_tpu_torch] launches ")]
+                    {})], str(dirs["two"]), launches=2)[0]
+    reps = [json.loads(ln[len(LAUNCHES):]) for ln in log.splitlines()
+            if ln.startswith(LAUNCHES)]
     assert sorted(r["rank"] for r in reps) == [0, 1]
     for r in reps:
         assert [b["time"] for b in r["rebuilds"]] == pytest.approx(

@@ -1,0 +1,15 @@
+"""The YAML driver's extras on a world of two ranks against the
+port's one-rank run: the single-rate cases (a sphere with NO_L1, a userbar, Hall
+smoothing and OutSamp; a twocenter force).  The body of the test, its
+cases and their configs are in tests/torch_world.py
+(driver_extras_match_one_rank); the cases are split over
+tests/test_torch_distributed_extras*.py so that the test workers
+share them."""
+
+import pytest
+from torch_world import driver_extras_match_one_rank, one_cpu_thread  # noqa: F401
+
+
+@pytest.mark.parametrize("case", ["sphere", "twocenter"])
+def test_two_rank_driver_extras_match_one_rank(tmp_path, case):
+    driver_extras_match_one_rank(tmp_path, case)

@@ -678,7 +678,7 @@ def test_k3_long_hat_tables(cuda, lmax, nc):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("interp", ["spline", "hat"])
-@pytest.mark.parametrize("lmax", [0, 2, 4, 6])
+@pytest.mark.parametrize("lmax", [0, 2, 4, 6, 7, 8, 10])
 def test_k6_matches_plain_version(cuda, lmax, interp):
     """K6 against sphere_accel_poly_plain: acc rtol 1e-4 / atol 1e-6, pot
     rtol 1e-5 / atol 1e-7 (K2's gates), one launch a call, on _inputs'
@@ -717,6 +717,47 @@ def test_k1_hat_matches_plain_version(cuda, lmax):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lmax,interp,nc", [(7, "spline", 512),
+                                            (8, "hat", 512),
+                                            (10, "spline", 512),
+                                            (10, "hat", 512),
+                                            (6, "hat", 2000),
+                                            (10, "hat", 5000)])
+def test_k1_split_matches_plain_version(cuda, lmax, interp, nc):
+    """K1's split form (lmax 7..10, and 'hat' tables whose accumulator no
+    block holds; random table values at 5,000 nodes) against
+    sphere_coef_plain at K1's gates, masked rows 0, one launch a call; two
+    launches agree bit for bit, and zero-mass rows after the live ones
+    change no bit, on a few hundred live rows and on all of them."""
+    f, prm, x, m = _variant(cuda, lmax, interp, "poly")
+    prm = dataclasses.replace(prm, nc=nc) if interp == "hat" else prm
+    tab = f._radial_table()
+    if tab.shape[0] != prm.rows:
+        rng = np.random.default_rng(nc + lmax)
+        tab = torch.tensor(rng.normal(size=(prm.rows, (lmax + 1) * prm.nmax)),
+                           dtype=torch.float32, device=cuda)
+    props = torch.cuda.get_device_properties(0)
+    plan = sk.k1_plan(x.shape[0], prm, props.multi_processor_count,
+                      props.shared_memory_per_block_optin,
+                      props.shared_memory_per_multiprocessor)
+    assert len(plan.qstart) >= 2
+
+    def fn(a, b):
+        return sk.sphere_coef(a, b, tab, f.Mp, prm)
+
+    _check_coef(fn, lambda a, b: sk.sphere_coef_plain(a, b, tab, f.Mp, prm),
+                x, m, "sphere_coef")
+    for live in (200, x.shape[0]):
+        ref = fn(x[:live].contiguous(), m[:live].contiguous())
+        assert torch.equal(ref, fn(x[:live].contiguous(),
+                                   m[:live].contiguous()))
+        for cap in (live + 1, 2 * live + 64,
+                    32 * sk.K3_WARPS * 2 * props.multi_processor_count * 3):
+            assert torch.equal(fn(*_padded(x, m, live, cap)), ref), \
+                (live, cap)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("lmax,interp", [(0, "hat"), (4, "hat"), (8, "hat"),
                                          (10, "hat"), (7, "spline"),
                                          (8, "spline"), (10, "spline")])
@@ -745,8 +786,8 @@ def test_variant_wrappers_reject_bad_inputs(cuda):
         sk.sphere_accel_poly(x, twT, f.Ms[:-1].contiguous(), prm)
     with pytest.raises(ValueError, match="is on"):
         sk.sphere_accel_poly(x, twT.cpu(), f.Ms, prm)
-    with pytest.raises(ValueError, match="lmax 0..6"):
-        sk.sphere_accel_poly(x, twT, f.Ms, dataclasses.replace(prm, lmax=7))
+    with pytest.raises(ValueError, match="lmax 0..10"):
+        sk.sphere_accel_poly(x, twT, f.Ms, dataclasses.replace(prm, lmax=11))
     Ms = f.Ms.clone()
     Ms[~torch.as_tensor(sk.k6_support(prm.lmax), device=cuda)] = 0.5
     with pytest.raises(ValueError, match="outside the support K6"):

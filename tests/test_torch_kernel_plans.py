@@ -131,7 +131,10 @@ def test_k4_refuses_a_table_too_wide_for_shared_memory():
 @pytest.mark.parametrize("device", [H100, SMALL], ids=["h100", "small"])
 @pytest.mark.parametrize("lmax,interp,nc", [(4, "spline", 256),
                                             (6, "spline", 256),
-                                            (4, "hat", 512), (0, "hat", 64)])
+                                            (4, "hat", 512), (0, "hat", 64),
+                                            (6, "hat", 2000),
+                                            (10, "spline", 256),
+                                            (10, "hat", 512)])
 def test_k1_row_to_block_assignment_is_independent_of_n(device, lmax, interp,
                                                         nc):
     """Tile t (rows 32 t .. 32 t + 31) runs on block (t // nw) mod nblocks
@@ -160,24 +163,33 @@ def test_k1_row_to_block_assignment_is_independent_of_n(device, lmax, interp,
 @pytest.mark.parametrize("interp,nc", [("spline", 256), ("spline", 2000),
                                        ("hat", 512)])
 def test_k1_layout_fits_and_matches_the_kernel(lmax, interp, nc):
-    """The plan's shared memory is what csrc/sphere_coef.cu allocates: each
-    warp's stage (32 float4 weights and 32 rows of P, P rounded up to odd),
-    the block's (P, rows | 1) i32 accumulator and a sum a warp; it fits; nw
-    is the most (at most K1_WARPS) that fit."""
+    """The plan's shared memory is what csrc/sphere_coef.cu allocates.  The
+    one-accumulator form (lmax 0..6, where one warp's stage and the
+    accumulator fit): each warp's stage (32 float4 weights and 32 rows of
+    P, P rounded up to odd), the block's (P, rows | 1) i32 accumulator and
+    a sum a warp; nw is the most (at most K1_WARPS) that fit.  Otherwise
+    the split form, laid out as K3 (k3_smem) and a float4 a lane
+    (k1_split_smem) for its largest group, in the fewest groups that fit;
+    it fits."""
     prm = _sphere(lmax=lmax, interp=interp, nc=nc)
     P = (lmax + 1) ** 2
 
     def smem(nw):
         return 4 * (nw * 32 * (4 + (P | 1)) + P * (prm.rows | 1) + nw)
 
-    try:
-        p = sk.k1_plan(1_048_576, prm, *H100)
-    except ValueError:
-        assert smem(1) > H100[1]
-        return
-    assert p.smem == sk.k1_smem(prm, p.nw) == smem(p.nw)
+    p = sk.k1_plan(1_048_576, prm, *H100)
     assert p.smem <= H100[1]
-    assert p.nw == sk.K1_WARPS or smem(p.nw + 1) > H100[1]
+    if lmax in sk.K1_ONE_LMAX and smem(1) <= H100[1]:
+        assert p.qstart == ()
+        assert p.smem == sk.k1_smem(prm, p.nw) == smem(p.nw)
+        assert p.nw == sk.K1_WARPS or smem(p.nw + 1) > H100[1]
+        return
+    R = max(b - a for a, b in zip(p.qstart, p.qstart[1:]))
+    assert p.smem == sk.k1_split_smem(prm, p.nw, R) == (
+        sk.k3_smem(prm, p.nw, R) + 16 * 32 * p.nw)
+    ng = len(p.qstart) - 1
+    assert ng == 1 or sk.k1_split_smem(prm, 1, -(-P // (ng - 1))) > H100[1]
+    assert (p.finish_threads, p.finish_staged) == sk.k3_finish(prm, H100[1])
 
 
 def test_k1_plan_at_the_benches_shapes():
@@ -190,8 +202,25 @@ def test_k1_plan_at_the_benches_shapes():
 
 
 def test_k1_refuses_a_hat_table_too_long_for_shared_memory():
-    prm = _sphere(lmax=6, interp="hat", nc=2000)
-    with pytest.raises(ValueError, match=r"recurrence' \(K3 splits the rows"):
+    """A 'hat' table whose (P, rows) accumulator does not fit a block
+    splits the packed rows into groups whose blocks each fit the H100's
+    227 KB: 2,000 nodes at lmax 6 (49 rows, 392 KB in one accumulator) and
+    the default 512 at lmax 10 (121 rows, 248 KB) in 2 groups each, which
+    cover the rows in order.  A table of which not even one row and a
+    warp's stage fit a block is still refused, with the numbers."""
+    for lmax, nc, groups in ((6, 2000, 2), (10, 512, 2)):
+        prm = _sphere(lmax=lmax, interp="hat", nc=nc)
+        P = (lmax + 1) ** 2
+        assert 4 * P * (nc | 1) > H100[1]
+        p = sk.k1_plan(1_048_576, prm, *H100)
+        assert len(p.qstart) - 1 == groups
+        assert p.qstart[0] == 0 and p.qstart[-1] == P
+        assert all(a < b for a, b in zip(p.qstart, p.qstart[1:]))
+        for a, b in zip(p.qstart, p.qstart[1:]):
+            assert sk.k1_split_smem(prm, p.nw, b - a) <= H100[1] < 232_449
+    prm = _sphere(lmax=6, interp="hat", nc=60_000)
+    with pytest.raises(ValueError, match=r"sphere_coef: one row of a "
+                                         r"60000-row table"):
         sk.k1_plan(1000, prm, *H100)
 
 
@@ -215,9 +244,11 @@ def test_k1_support_holds_every_nonzero_of_m(lmax):
 
 def test_k1_support_counts():
     """94 of the 25 x 35 entries at lmax 4 (the first port multiplied 334),
-    362 of 49 x 84 at lmax 6."""
+    362 of 49 x 84 at lmax 6, 2,513 of 121 x 286 at lmax 10 (the split
+    form's launch parameters: 10 KB)."""
     assert int(sk.k1_support(4).sum()) == 94
     assert int(sk.k1_support(6).sum()) == 362
+    assert int(sk.k1_support(10).sum()) == 2513
 
 
 @pytest.mark.parametrize("lmax", list(sk.POLY_LMAX))
@@ -672,9 +703,9 @@ def test_k6_header_is_the_generators():
 @pytest.mark.parametrize("lmax", list(sk.POLY_LMAX))
 def test_k6_header_holds_every_nonzero(lmax):
     """The header's pattern at each lmax is k6_support: the nonzeros of
-    poly_matrix_stack (215 at lmax 4, 941 at 6), and it holds every
-    nonzero of the stack of a random custom fac (fac only rescales whole
-    rows)."""
+    poly_matrix_stack (215 at lmax 4, 941 at 6, 7,494 at 10: 30.0 KB of
+    launch parameters), and it holds every nonzero of the stack of a
+    random custom fac (fac only rescales whole rows)."""
     from exp_tpu_torch.gen_k6_support import HEADER
 
     start, col = _header_patterns(HEADER.read_text())[lmax]
@@ -682,7 +713,7 @@ def test_k6_header_holds_every_nonzero(lmax):
     assert np.array_equal(start, np.concatenate(
         [[0], np.cumsum(sup.sum(axis=1))]))
     assert np.array_equal(col, np.nonzero(sup)[1])
-    assert {4: 215, 6: 941}.get(lmax, len(col)) == len(col)
+    assert {4: 215, 6: 941, 10: 7494}.get(lmax, len(col)) == len(col)
     rng = np.random.default_rng(lmax)
     fac = rng.uniform(-2.0, 2.0, (lmax + 1, lmax + 1)).astype(np.float32)
     Ms = sk.poly_matrix_stack(lmax, fac)
@@ -710,7 +741,7 @@ def test_k6_plan_covers_the_rows(sms):
     """k6_plan: a thread a row, blocks of 32..256 threads (a multiple of
     32), every block holding rows; 256 threads once the rows give every
     SM a block of them, fewer (but at least 32) so that more SMs get one
-    below that; lmax above 6 refused."""
+    below that; the same at lmax 10; lmax above 10 refused."""
     for n in [0] + SIZES:
         p = sk.k6_plan(n, SPHERE, sms)
         assert p.threads % 32 == 0 and 32 <= p.threads <= sk.K6_THREADS
@@ -720,8 +751,10 @@ def test_k6_plan_covers_the_rows(sms):
             assert p.threads == sk.K6_THREADS
         elif p.threads > 32:
             assert -(-n // p.threads) >= sms
-    with pytest.raises(ValueError, match="lmax 0..6"):
-        sk.k6_plan(1000, _sphere(lmax=7), 132)
+    assert sk.k6_plan(1000, _sphere(lmax=10), sms) == sk.k6_plan(
+        1000, SPHERE, sms)
+    with pytest.raises(ValueError, match="lmax 0..10"):
+        sk.k6_plan(1000, _sphere(lmax=11), 132)
 
 
 # --------------------------------------------------------------------- K9

@@ -141,8 +141,8 @@ def test_lmax0_custom_fac(setup):
 
 @pytest.fixture(scope="module")
 def tables_7_11():
-    """Port tables at lmax 7 (poly's first refused degree) and lmax 11 (the
-    recurrence kernels' first)."""
+    """Port tables at lmax 7 (the first degree where 'auto' takes the
+    recurrence kernels) and lmax 11 (the first no kernel is built for)."""
     from exp_tpu_torch.basis.model import hernquist_model as hm
     from exp_tpu_torch.basis.slgrid import build_sph_sl_tables as build
 
@@ -151,17 +151,17 @@ def tables_7_11():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(pallas_harmonics="poly", lmax=7), "K6"),
+    (dict(pallas_harmonics="poly", lmax=11), "K6"),
     (dict(pallas_harmonics="recurrence", lmax=11), "K3"),
     (dict(pallas_interp="hat", lmax=11), "hat"),
     (dict(pallas_precision="default"), "default"),
     (dict(pallas_precision="mixed3"), "mixed3"),
 ])
 def test_unported_settings_raise(setup, tables_7_11, kw, match):
-    """The pallas backend refuses what no Hopper kernel is built for:
-    'poly' above lmax 6 (K1, K6) and any lmax above 10 (K3, K2).  The same
-    harmonics and interp run one degree inside those ranges, and every
-    setting runs on the XLA-style backends.  The precision knobs 'default'
+    """The pallas backend refuses what no Hopper kernel is built for: any
+    lmax above 10, under 'poly' (K1, K6) and 'recurrence' (K3, K2).  The
+    same harmonics and interp run at lmax 7, inside those ranges, and
+    every setting runs on the XLA-style backends.  The precision knobs 'default'
     and 'mixed3' run on the FP32 kernels (their plain versions here): the
     same values as 'mixed' bit for bit, and exp_tpu's pallas path with the
     same knob (interpret mode) within tests/test_spherical_force.py:297's
@@ -202,13 +202,20 @@ def test_unported_settings_raise(setup, tables_7_11, kw, match):
 
 def test_lmax_above_6_raises_on_pallas(tables_7_11):
     """At lmax 7 'auto' runs the recurrence kernels K3 and K2, as exp_tpu's
-    'auto' does; an explicit 'poly' is refused (K1 and K6 stop at 6)."""
+    'auto' does, and an explicit 'poly' runs K1 and K6 (exp_tpu honours it
+    at any lmax); above lmax 10 'poly' is refused, naming the kernels'
+    range."""
     t = tables_7_11[7]
     f = SphereSL.from_tables(t, backend="pallas", device="cpu")
     assert (f._harmonics_eff("coef"), f._harmonics_eff("accel")) == (
         "recurrence", "recurrence")
-    with pytest.raises(NotImplementedError, match="lmax=7"):
-        SphereSL.from_tables(t, backend="pallas", device="cpu",
+    fp = SphereSL.from_tables(t, backend="pallas", device="cpu",
+                              pallas_harmonics="poly")
+    assert (fp._harmonics_eff("coef"), fp._harmonics_eff("accel")) == (
+        "poly", "poly")
+    with pytest.raises(NotImplementedError,
+                       match=r"lmax=11 .*K1 and K6 are built for lmax 0\.\.10"):
+        SphereSL.from_tables(tables_7_11[11], backend="pallas", device="cpu",
                              pallas_harmonics="poly")
 
 
